@@ -10,7 +10,12 @@ Phases, in order; any failure exits non-zero before the last line:
 2. each kernel against its plain PyTorch version at the shapes of the main
    path, on a real 2^25-float noise table, with its device time (CUDA
    events around 30 calls queued back to back, inputs warm in L2 as on the
-   main path), the plain version's time and the card's bound;
+   main path), the plain version's time and the card's bound.  The matvec
+   is also checked on unmirrored offsets, an odd population and starts that
+   need the clamp, timed cold (L2 flushed before each launch by writing and
+   then reading a 256 MB buffer), and timed at shapes off the main path:
+   the (256, 256) layer of the JAX bench's BIG config and the CartPole
+   MLP64x64 layers;
 3. the main path: ES on Pendulum, MLP 64x64, population 4096, horizon 200,
    streamed forward + kernel update, 1 warm-up and 3 timed generations,
    with the kernels' launch counts read around that run, then one more
@@ -37,6 +42,11 @@ HORIZON = 200
 POPULATION = 4096
 POLICY = {"action_dim": 1, "hidden": (64, 64), "discrete": False, "action_scale": 2.0}
 TABLE_SIZE = 1 << 25
+L2_FLUSH_BYTES = 256 << 20  # written and read before each cold launch: five times the L2
+# one env step's three launches before the pair-sharing redesign, as measured
+# then on an H100 80GB HBM3 at 700 W: printed beside this run's time, never
+# reported as this run's number
+PREV_MATVEC_STEP_MS = 0.0242
 
 # published peaks (NVIDIA data sheets): memory bytes/s, float32 non-tensor FLOP/s
 CARD_PEAKS = {
@@ -85,6 +95,35 @@ def time_ms(torch, fn, reps: int = 30) -> float:
     return start.elapsed_time(end) / reps
 
 
+def time_cold_ms(torch, fn, flush, reps: int = 20) -> float:
+    """Device time of one call with the L2 flushed: before each launch the
+    ``flush`` buffer is written, then read, so that the L2 holds none of the
+    call's data and no dirty lines (written only, the L2 keeps dirty lines
+    whose write-back the call's reads would pay for).  CUDA events go around
+    the launch alone, and all of it is queued behind a device-side sleep, as
+    in :func:`time_ms`, so only device time is counted."""
+    sink = torch.empty((), dtype=flush.dtype, device=flush.device)
+
+    def evict():
+        flush.zero_()
+        torch.sum(flush, dim=0, out=sink)
+
+    for _ in range(3):
+        evict()
+        fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(reps)]
+    torch.cuda._sleep(200_000_000)
+    for start, end in events:
+        evict()
+        start.record()
+        fn()
+        end.record()
+    events[-1][1].synchronize()
+    return sum(start.elapsed_time(end) for start, end in events) / reps
+
+
 def union_floats(starts, length: int) -> int:
     """Distinct table floats read by slices [s, s + length): what this run's
     data needs (mirrored pairs share an offset, and slices can overlap)."""
@@ -117,6 +156,9 @@ def profile_generation(torch, es) -> None:
     busy_s = sum(r[0] for r in rows) / 1e6
     print(f"profile: one generation {wall:.4f} s wall under the profiler, device busy "
           f"{busy_s:.4f} s ({busy_s / wall:.3f} of wall)")
+    mv = [r for r in rows if "noise_matvec" in r[2]]
+    print(f"  noise_matvec kernels: {sum(r[0] for r in mv) / 1e3:.3f} ms device time, "
+          f"{sum(r[1] for r in mv)} launches")
     for us, count, key in rows[:15]:
         print(f"  {us / 1e3:9.3f} ms  {count:6d}x  {key[:90]}")
 
@@ -133,7 +175,7 @@ def main() -> None:
         fail(f"cannot import estorch_tpu_torch from {HERE}: {e}")
     if not os.path.abspath(estorch_tpu_torch.__file__).startswith(HERE + os.sep):
         fail(f"estorch_tpu_torch comes from {estorch_tpu_torch.__file__}, not this checkout")
-    from estorch_tpu_torch import ES, DeviceAgent, MLPPolicy, Pendulum, adam
+    from estorch_tpu_torch import ES, CartPole, DeviceAgent, MLPPolicy, Pendulum, adam
     from estorch_tpu_torch.ops import _build
     from estorch_tpu_torch.ops import noise_kernels as nk
     from estorch_tpu_torch.ops.noise import make_noise_table, member_offsets, sample_pair_offsets
@@ -191,39 +233,93 @@ def main() -> None:
                    bound_by="bytes" if nbytes / bw >= flops / f32 else "operations")
 
     # population_noise_matvec: three launches an env step, one per layer.
-    # Tolerance: float32 dot products of d <= 64 terms in another order.
-    pair_offs = sample_pair_offsets(gen, n_pairs, TABLE_SIZE, dim)
-    moffs = member_offsets(pair_offs).to(dev)
-    c = (0.05 * torch.tensor([1.0, -1.0]).repeat(n_pairs)).to(dev)
-    pnm = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
-           "bytes": 0.0, "flops": 0.0}
-    for lname, d, h in (("dense_0", 3, 64), ("dense_1", 64, 64), ("head", 64, 1)):
-        x = torch.randn((POPULATION, d), generator=gen)
-        x = (2 * x if lname == "dense_0" else torch.tanh(x)).to(dev)
-        lo = layer_offs[lname]["kernel"]
-        got = nk.population_noise_matvec(table, moffs, c, x, lo, d, h)
+    # Tolerance: float32 dot products of d <= 256 terms in another order.
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+
+    def check_matvec(label, offs, c, x, lo, d, h) -> float:
+        got = nk.population_noise_matvec(table, offs, c, x, lo, d, h)
         torch.cuda.synchronize()
-        want = nk.population_noise_matvec_plain(table, moffs, c, x, lo, d, h)
+        want = nk.population_noise_matvec_plain(table, offs, c, x, lo, d, h)
         err = float((got - want).abs().max())
         if not torch.allclose(got, want, rtol=1e-4, atol=1e-4):
-            fail(f"population_noise_matvec ({d}, {h}): max |err| {err:g}")
-        nbytes = 4 * (union_floats(pair_offs + lo, d * h) + 2 * POPULATION
-                      + POPULATION * d + POPULATION * h)
-        flops = 2 * POPULATION * d * h + POPULATION * h
+            fail(f"population_noise_matvec {label} n={x.shape[0]} ({d}, {h}): max |err| {err:g}")
+        return err
+
+    def time_matvec(label, pair_offs, lo, d, h) -> dict:
+        """Mirrored members of ``pair_offs`` at one layer: checked, then
+        timed warm, cold and plain, beside the bound of this run's data."""
+        n = 2 * pair_offs.shape[0]
+        moffs = member_offsets(pair_offs).to(dev)
+        c = (0.05 * torch.tensor([1.0, -1.0]).repeat(n // 2)).to(dev)
+        x = torch.randn((n, d), generator=gen)
+        x = (2 * x if d < 8 else torch.tanh(x)).to(dev)
+        err = check_matvec(f"{label} mirrored", moffs, c, x, lo, d, h)
+        nbytes = 4 * (union_floats(pair_offs + lo, d * h) + 2 * n + n * d + n * h)
+        flops = 2 * n * d * h + n * h
         bound = max(nbytes / bw, flops / f32) * 1e3
-        ms = time_ms(torch, lambda: nk.population_noise_matvec(table, moffs, c, x, lo, d, h))
+
+        def kernel():
+            return nk.population_noise_matvec(table, moffs, c, x, lo, d, h)
+
+        ms, cold = time_ms(torch, kernel), time_cold_ms(torch, kernel, flush)
         plain_ms = time_ms(
             torch, lambda: nk.population_noise_matvec_plain(table, moffs, c, x, lo, d, h))
-        print(f"population_noise_matvec n={POPULATION} ({d}, {h}): max |err| {err:.3g} "
-              f"(tol atol 1e-4, rtol 1e-4); time {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB distinct)")
-        pnm["ms"] += ms
-        pnm["plain_ms"] += plain_ms
-        pnm["bound_ms"] += bound
-        pnm["bytes"] += nbytes
-        pnm["flops"] += flops
-        pnm["max_abs_err"] = max(pnm["max_abs_err"], err)
+        # warm reads come from L2 and may beat the HBM bound: no share then
+        share = ("warm, L2-resident" if ms < bound else f"warm {bound / ms:.0%} of bound")
+        print(f"population_noise_matvec {label} n={n} ({d}, {h}): max |err| {err:.3g} "
+              f"(tol atol 1e-4, rtol 1e-4); warm {ms:.4f} ms ({share}), cold {cold:.4f} ms "
+              f"({bound / cold:.0%} of bound), plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+              f"({nbytes / 1e6:.1f} MB distinct)")
+        return {"layer": label, "n": n, "d": d, "h": h, "ms": ms, "cold_ms": cold,
+                "plain_ms": plain_ms, "bound_ms": bound, "max_abs_err": err,
+                "bytes": nbytes, "flops": flops}
+
+    pair_offs = sample_pair_offsets(gen, n_pairs, TABLE_SIZE, dim)
+    layers = [time_matvec(lname, pair_offs, layer_offs[lname]["kernel"], d, h)
+              for lname, d, h in (("dense_0", 3, 64), ("dense_1", 64, 64), ("head", 64, 1))]
+    # the same layers on other offset patterns: each member its own slice,
+    # an odd population, and starts that need the clamp (negative, past the end)
+    errs = [layer["max_abs_err"] for layer in layers]
+    for lname, d, h in (("dense_0", 3, 64), ("dense_1", 64, 64), ("head", 64, 1)):
+        lo = layer_offs[lname]["kernel"]
+        x = torch.tanh(torch.randn((POPULATION, d), generator=gen)).to(dev)
+        c = (0.05 * torch.randn(POPULATION, generator=gen)).to(dev)
+        rand = sample_pair_offsets(gen, POPULATION, TABLE_SIZE, dim).to(dev)
+        odd = member_offsets(pair_offs).to(dev)[:-1]
+        # slice starts at and past the edges: counted from the end, clamped
+        # to 0 or to size - d*h, or in range; a pair may draw two different
+        # starts that clamp to the same slice
+        length = d * h
+        edges = torch.tensor([-7, -length, -TABLE_SIZE - 100, 0, 3, TABLE_SIZE - length,
+                              TABLE_SIZE - length + 5, TABLE_SIZE + 99]) - lo
+        wild = edges[torch.randint(0, len(edges), (POPULATION,), generator=gen)]
+        wild = wild.to(torch.int32).to(dev)
+        for label, offs in (("unmirrored", rand), ("odd n", odd), ("clamped", wild)):
+            k = offs.shape[0]
+            err = check_matvec(f"{lname} {label}", offs, c[:k], x[:k], lo, d, h)
+            errs.append(err)
+            print(f"population_noise_matvec {lname} {label} n={k} ({d}, {h}): max |err| "
+                  f"{err:.3g} (tol atol 1e-4, rtol 1e-4)")
+    pnm = {k: sum(layer[k] for layer in layers)
+           for k in ("ms", "cold_ms", "plain_ms", "bound_ms", "bytes", "flops")}
     pnm["bound_by"] = "bytes" if pnm["bytes"] / bw >= pnm["flops"] / f32 else "operations"
+    print(f"population_noise_matvec one env step: warm {pnm['ms']:.4f} ms, cold "
+          f"{pnm['cold_ms']:.4f} ms ({pnm['bound_ms'] / pnm['cold_ms']:.0%} of the "
+          f"{pnm['bound_ms']:.4f} ms bound); before the redesign {PREV_MATVEC_STEP_MS} ms "
+          f"warm (an earlier run, not this one)")
+
+    # off the main path, timed with no target: the BIG config's hidden layer,
+    # whose distinct noise is nearly the whole table, and CartPole MLP64x64
+    extra = [time_matvec("big dense_1", sample_pair_offsets(gen, n_pairs, TABLE_SIZE, 256 * 256),
+                         0, 256, 256)]
+    cp_params = MLPPolicy(action_dim=2, hidden=(64, 64), discrete=True).init_params(
+        CartPole().obs_dim, gen)
+    cp_offs = nk.flat_layer_offsets(cp_params)
+    cp_pairs = sample_pair_offsets(gen, n_pairs, TABLE_SIZE, make_param_spec(cp_params)[1].dim)
+    for lname, d, h in (("dense_0", 4, 64), ("dense_1", 64, 64), ("head", 64, 2)):
+        extra.append(time_matvec(f"cartpole {lname}", cp_pairs, cp_offs[lname]["kernel"], d, h))
+    pnm["max_abs_err"] = max(errs + [e["max_abs_err"] for e in extra])
+    del flush
     del table
 
     # ---- 3. the main path ---------------------------------------------------
@@ -296,9 +392,12 @@ def main() -> None:
          "source": "estorch_tpu_torch/ops/csrc/noise_kernels.cu",
          "replaces": "estorch_tpu/ops/pallas_noise.py:201",
          "launches": launches["population_noise_matvec"], "max_abs_err": pnm["max_abs_err"],
-         "ms": pnm["ms"], "plain_ms": pnm["plain_ms"], "bound_ms": pnm["bound_ms"],
+         "ms": pnm["ms"], "cold_ms": pnm["cold_ms"], "plain_ms": pnm["plain_ms"], "bound_ms": pnm["bound_ms"],
          "bound_by": pnm["bound_by"], "library_ms": None,
-         "shape": f"one env step: n={POPULATION} at (3,64)+(64,64)+(64,1)"},
+         "shape": f"one env step: n={POPULATION} at (3,64)+(64,64)+(64,1)",
+         "layers": [{k: layer[k] for k in ("layer", "n", "d", "h", "ms", "cold_ms",
+                                           "plain_ms", "bound_ms")}
+                    for layer in layers + extra]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -96,40 +96,202 @@ __global__ void sum_partials(const float* __restrict__ partials, int n_chunks,
 // (_noise_matvec_kernel), the per-member noise term of the streamed MLP
 // forward.
 //
-// Bound on this card: bytes.  Each member's d*h floats of E_i are read once
-// for 2 flops each (4096 x (3x64 + 64x64 + 64x1) x 4 B = 71.3 MB for the
-// three layers of one Pendulum MLP64x64 env step; mirrored pairs share an
-// offset, so the distinct bytes are about half of that).
+// Bound on this card: bytes.  The distinct noise floats are read once for 2
+// flops each.  Mirrored pairs share E_i, so at one Pendulum MLP64x64 env
+// step (n = 4096, layers (3, 64), (64, 64), (64, 1)) that is about 36 MB,
+// half of the 71.3 MB the members' slices add up to.
 //
-// Design: one block per (member, tile of up to 128 output columns).  The
-// block stages x_i (d floats) in shared memory; each thread owns one output
-// column and walks the d rows of E_i, reading table[o_i + L + r*h + col],
-// which is coalesced across the columns of the tile.  c_i is applied once
-// at the end.  A 1-column head (h = 1) leaves 31 of 32 lanes idle: simple
-// and right first, faster in a later change.
+// Design.  The unit of work is a pair of adjacent members (2p, 2p+1).  It
+// computes both slice starts.  When they are equal (every mirrored
+// generation) each element of E is loaded once and feeds two FMAs, one
+// against each member's x; when they differ both slices are loaded.  Nothing
+// in the interface says that the offsets are mirrored: the kernel sees it in
+// the starts.  Each member's sum runs in the same order on both paths, so
+// y[i] does not depend on its neighbour's offset.  With an odd n the last
+// member is alone.  c is applied per member at the end.  There are no
+// atomics: every output is summed in one fixed order.  The one-load path
+// pays even though the second load of an address would hit L1: with both
+// loads kept on mirrored offsets the (64, 64) layer is about 15 % slower
+// warm and the (256, 256) one about 7 % (matvec_ab.py; numbers in PERF.md).
+//
+// Two thread mappings; the launcher picks one from (d, h):
+//  - wide (h >= 32): a group of `tile` threads (h rounded up to a warp, at
+//    most 256) owns `tile` output columns of one pair, so neighbouring lanes
+//    read neighbouring floats of a row of E.  A block of 256 threads holds
+//    256 / tile pairs (four at h = 64: 512 blocks for n = 4096, one wave).
+//    The block's x rows are staged in shared memory kXChunk rows at a time,
+//    the two members interleaved, so that one 8-byte broadcast read gives
+//    both members' x[r]; d has no limit.  Each thread walks its column down
+//    all d rows, 16 rows unrolled, so 16 loads are in flight; registers are
+//    capped for 4 blocks an SM.  Splitting d among warps, with the partials
+//    added in shared memory, is not done: the rows of one column are
+//    already in flight together, and a first version of this kernel that
+//    split them in two (with 8 rows unrolled, twice the blocks) was slower.
+//  - narrow (h < 32): one warp owns a pair.  With R the largest power of two
+//    with R * h <= 32, lane g * h + j (g < R) takes column j of rows g, g + R,
+//    ...: the R * h working lanes read R * h consecutive floats at a time.
+//    Each lane keeps one partial sum per member; a butterfly of shuffles
+//    over g, in a fixed order, adds them, and lanes g = 0 and g = 1 write
+//    the pair's two output rows, which lie next to each other (2h floats).
+//
+// What Hopper offers, and why most of it does not fit here:
+//  - Slices start at arbitrary float offsets, so rows are not 16-byte
+//    aligned, and TMA, cp.async.bulk and float4 loads need 16-byte aligned
+//    addresses and sizes.  A pair's slice is one contiguous range, though,
+//    and its aligned interior can be copied into shared memory that way
+//    (the few floats at each end as scalars).  Trials of that with float4
+//    loads, 16-byte cp.async and one cp.async.bulk per pair were not seen
+//    to beat 4-byte loads coalesced across a warp, 16 in flight a thread,
+//    which the kernel keeps; those trials are not kept, so take this as a
+//    lead, not a result.
+//  - Each E_i meets at most two x rows, so wgmma or mma.sync would have
+//    nothing to reuse, and TF32 would lose digits against the float32
+//    reference.
+//  - What bounds each variant: the wide (64, 64) layer and larger ones are
+//    bound by bytes, mostly read from HBM: back to back, the 34 MB of the
+//    (64, 64) layer is only partly served from L2, and the (256, 256)
+//    layer's 537 MB of member slices is far larger than L2 (their union,
+//    which the bound counts, is the 134 MB table).  The thin layers, (3, 64)
+//    and the narrow heads, move under 4 MB and are bound by latency: the
+//    launch, then the offsets and x, then E, loads that wait on each other,
+//    which a single launch cannot bring down to its byte bound.
 // ---------------------------------------------------------------------------
 
-__global__ void noise_matvec(const float* __restrict__ table, int64_t table_size,
-                             const int32_t* __restrict__ offsets,
-                             const float* __restrict__ c,
-                             const float* __restrict__ x, int d, int h,
-                             int64_t layer_offset, float* __restrict__ y) {
-  extern __shared__ float s_x[];
-  const int64_t i = blockIdx.x;
-  const int col = blockIdx.y * blockDim.x + threadIdx.x;
-  for (int r = threadIdx.x; r < d; r += blockDim.x) s_x[r] = x[i * d + r];
-  __syncthreads();
-  if (col >= h) return;
-  const int64_t max_start = table_size - static_cast<int64_t>(d) * h;
-  const int64_t start =
-      slice_start(static_cast<int64_t>(offsets[i]) + layer_offset, table_size, max_start);
-  const float* e = table + start + col;
-  float acc = 0.0f;
-#pragma unroll 8
-  for (int r = 0; r < d; ++r) {
-    acc = fmaf(s_x[r], __ldg(e + static_cast<int64_t>(r) * h), acc);
+constexpr int kWarp = 32;
+constexpr int kWideThreads = 256;
+constexpr int kWideBlocksPerSM = 4;
+constexpr int kXChunk = 256;
+constexpr int kNarrowThreads = 256;
+
+struct PairSlices {
+  int64_t m0, m1;  // the pair's members; m1 == m0 for a lone last member
+  bool has1;
+  bool shared;     // both members read the same slice
+  const float* e0;
+  const float* e1;
+};
+
+__device__ __forceinline__ PairSlices pair_slices(const float* table, int64_t table_size,
+                                                  const int32_t* __restrict__ offsets,
+                                                  int n, int64_t pair, int64_t length,
+                                                  int64_t layer_offset) {
+  PairSlices p;
+  p.m0 = 2 * pair;
+  p.has1 = p.m0 + 1 < n;
+  p.m1 = p.has1 ? p.m0 + 1 : p.m0;
+  const int64_t max_start = table_size - length;
+  const int64_t s0 = slice_start(offsets[p.m0] + layer_offset, table_size, max_start);
+  const int64_t s1 = slice_start(offsets[p.m1] + layer_offset, table_size, max_start);
+  p.shared = s0 == s1;
+  p.e0 = table + s0;
+  p.e1 = table + s1;
+  return p;
+}
+
+// acc0 += sum_k x0[k * x_step] * e0[k * e_step], and the same for member 1,
+// in the order of k.  kShared: e1 is e0, and each element is loaded once.
+template <bool kShared>
+__device__ __forceinline__ void pair_dot(const float* __restrict__ e0,
+                                         const float* __restrict__ e1, int64_t e_step,
+                                         const float* x0, const float* x1, int x_step,
+                                         int count, float& acc0, float& acc1) {
+#pragma unroll 16
+  for (int k = 0; k < count; ++k) {
+    const float v0 = __ldg(e0);
+    const float v1 = kShared ? v0 : __ldg(e1);
+    acc0 = fmaf(*x0, v0, acc0);
+    acc1 = fmaf(*x1, v1, acc1);
+    e0 += e_step;
+    e1 += e_step;
+    x0 += x_step;
+    x1 += x_step;
   }
-  y[i * h + col] = c[i] * acc;
+}
+
+__global__ void __launch_bounds__(kWideThreads, kWideBlocksPerSM)
+noise_matvec_wide(const float* __restrict__ table, int64_t table_size,
+                  const int32_t* __restrict__ offsets, const float* __restrict__ c,
+                  const float* __restrict__ x, int n, int d, int h,
+                  int64_t layer_offset, int tile, float* __restrict__ y) {
+  // x of the block's pairs, kXChunk rows at a time: s_x[q][r] = (x0[r], x1[r])
+  __shared__ float2 s_x[kWideThreads / kWarp * kXChunk];
+  const int pairs_per_block = blockDim.x / tile;
+  const int q = threadIdx.x / tile;  // pair within the block
+  const int col = blockIdx.y * tile + threadIdx.x % tile;
+  const int64_t n_pairs = (static_cast<int64_t>(n) + 1) / 2;
+  const int64_t pair0 = static_cast<int64_t>(blockIdx.x) * pairs_per_block;
+  const int64_t pair = pair0 + q;
+  const bool live = pair < n_pairs && col < h;
+  PairSlices p{};
+  if (pair < n_pairs) {
+    p = pair_slices(table, table_size, offsets, n, pair, static_cast<int64_t>(d) * h,
+                    layer_offset);
+  }
+  float acc0 = 0.0f, acc1 = 0.0f;
+  for (int r0 = 0; r0 < d; r0 += kXChunk) {
+    const int rows = min(kXChunk, d - r0);
+    __syncthreads();  // the previous chunk is consumed
+    for (int k = threadIdx.x; k < pairs_per_block * rows; k += blockDim.x) {
+      const int kq = k / rows, r = k - kq * rows;
+      const int64_t m0 = 2 * (pair0 + kq);
+      float2 v = make_float2(0.0f, 0.0f);
+      if (m0 < n) {
+        v.x = x[m0 * d + r0 + r];
+        v.y = m0 + 1 < n ? x[(m0 + 1) * d + r0 + r] : 0.0f;
+      }
+      s_x[kq * kXChunk + r] = v;
+    }
+    __syncthreads();
+    if (live) {
+      const int64_t e_row = static_cast<int64_t>(r0) * h + col;
+      const float* xs = reinterpret_cast<const float*>(s_x + q * kXChunk);
+      if (p.shared) {
+        pair_dot<true>(p.e0 + e_row, p.e0 + e_row, h, xs, xs + 1, 2, rows, acc0, acc1);
+      } else {
+        pair_dot<false>(p.e0 + e_row, p.e1 + e_row, h, xs, xs + 1, 2, rows, acc0, acc1);
+      }
+    }
+  }
+  if (!live) return;
+  y[p.m0 * h + col] = c[p.m0] * acc0;
+  if (p.has1) y[p.m1 * h + col] = c[p.m1] * acc1;
+}
+
+__global__ void __launch_bounds__(kNarrowThreads)
+noise_matvec_narrow(const float* __restrict__ table, int64_t table_size,
+                    const int32_t* __restrict__ offsets, const float* __restrict__ c,
+                    const float* __restrict__ x, int n, int d, int h,
+                    int64_t layer_offset, int row_lanes, float* __restrict__ y) {
+  const int64_t pair = static_cast<int64_t>(blockIdx.x) * (blockDim.x / kWarp) +
+                       threadIdx.x / kWarp;
+  if (pair >= (static_cast<int64_t>(n) + 1) / 2) return;  // the whole warp
+  const int lane = threadIdx.x % kWarp;
+  const int g = lane / h, j = lane % h;
+  const PairSlices p = pair_slices(table, table_size, offsets, n, pair,
+                                   static_cast<int64_t>(d) * h, layer_offset);
+  float acc0 = 0.0f, acc1 = 0.0f;
+  if (g < row_lanes && g < d) {
+    const int count = (d - g + row_lanes - 1) / row_lanes;
+    const int64_t e_first = static_cast<int64_t>(g) * h + j;
+    const int64_t e_step = static_cast<int64_t>(row_lanes) * h;
+    const float* x0 = x + p.m0 * d + g;
+    const float* x1 = x + p.m1 * d + g;
+    if (p.shared) {
+      pair_dot<true>(p.e0 + e_first, p.e0 + e_first, e_step, x0, x1, row_lanes, count,
+                     acc0, acc1);
+    } else {
+      pair_dot<false>(p.e0 + e_first, p.e1 + e_first, e_step, x0, x1, row_lanes, count,
+                      acc0, acc1);
+    }
+  }
+  // Lanes past R * h take part in the shuffles; their values are not read.
+  for (int s = 1; s < row_lanes; s <<= 1) {
+    const int src = (g ^ s) * h + j;
+    acc0 += __shfl_sync(0xffffffffu, acc0, src);
+    acc1 += __shfl_sync(0xffffffffu, acc1, src);
+  }
+  if (g == 0) y[p.m0 * h + j] = c[p.m0] * acc0;
+  if (p.has1 && g == (row_lanes > 1 ? 1 : 0)) y[p.m1 * h + j] = c[p.m1] * acc1;
 }
 
 }  // namespace
@@ -164,18 +326,24 @@ int estorch_population_noise_matvec(const float* table, int64_t table_size,
       static_cast<int64_t>(d) * h > table_size) {
     return cudaErrorInvalidValue;
   }
-  const size_t smem = static_cast<size_t>(d) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        noise_matvec, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t n_pairs = (static_cast<int64_t>(n) + 1) / 2;
+  if (h < kWarp) {
+    int row_lanes = 1;
+    while (2 * row_lanes * h <= kWarp) row_lanes *= 2;
+    const int pairs_per_block = kNarrowThreads / kWarp;
+    const int64_t blocks = (n_pairs + pairs_per_block - 1) / pairs_per_block;
+    noise_matvec_narrow<<<static_cast<unsigned>(blocks), kNarrowThreads, 0, s>>>(
+        table, table_size, offsets, c, x, n, d, h, layer_offset, row_lanes, y);
+    return cudaGetLastError();
   }
-  int threads = ((h + 31) / 32) * 32;
-  if (threads > 128) threads = 128;
-  const dim3 grid(n, (h + threads - 1) / threads);
-  noise_matvec<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      table, table_size, offsets, c, x, d, h, layer_offset, y);
+  const int tile = min(kWideThreads, (h + kWarp - 1) / kWarp * kWarp);
+  const int pairs_per_block = kWideThreads / tile;  // 1 to 8
+  const int64_t blocks = (n_pairs + pairs_per_block - 1) / pairs_per_block;
+  const int col_tiles = (h + tile - 1) / tile;
+  if (col_tiles > 65535) return cudaErrorInvalidValue;
+  noise_matvec_wide<<<dim3(static_cast<unsigned>(blocks), col_tiles), pairs_per_block * tile,
+                      0, s>>>(table, table_size, offsets, c, x, n, d, h, layer_offset, tile, y);
   return cudaGetLastError();
 }
 

@@ -12,6 +12,12 @@ for tensors on a CUDA device, or raises; for tensors on the CPU it runs the
 plain version beside it.  There is no fallback from the kernel to the plain
 version.  ``launch_counts`` counts kernel launches, so a run can show that
 it went through the kernels.
+
+The matvec kernel works on pairs of adjacent members (2p, 2p+1): where their
+slices start at the same place, as every mirrored pair's do, it reads the
+pair's noise once for both.  It finds that out from the offsets; the
+contract above, the clamp of out-of-range starts and the plain version are
+the same as for any other offsets.
 """
 
 from __future__ import annotations
@@ -136,8 +142,6 @@ def population_noise_matvec(table_data: torch.Tensor, offsets: torch.Tensor,
     _check("x", x, torch.float32, (n, d), dev)
     if d <= 0 or h <= 0 or d * h > size:
         raise ValueError(f"bad layer shape (d={d}, h={h}) for a table of {size}")
-    if d * 4 > 227 * 1024:
-        raise ValueError(f"d = {d} does not fit the kernel's shared-memory stage")
     y = torch.empty((n, h), dtype=torch.float32, device=dev)
     if n == 0:
         return y

@@ -50,11 +50,42 @@ def test_weighted_noise_sum_empty_is_zero(table, cuda):
     assert torch.equal(got, torch.zeros(16, device=cuda))
 
 
-@pytest.mark.parametrize("n,d,h", [(4, 8, 16), (6, 17, 5), (16, 32, 32), (3, 64, 7),
-                                   (4096, 3, 64), (4096, 64, 64), (4096, 64, 1), (5, 300, 200)])
-def test_population_noise_matvec_matches_plain(table, cuda, n, d, h):
+def _matvec_offsets(rng, kind, n, size, length):
+    """int32 member offsets: each its own slice ("random"), mirrored pairs
+    sharing one ("mirrored"), or starts that need the clamp ("clamp":
+    negative, counted from the end or past it, and past size - length)."""
+    if kind == "random":
+        offs = rng.integers(0, size - length - 64, n)
+    elif kind == "mirrored":
+        offs = np.repeat(rng.integers(0, size - length - 64, (n + 1) // 2), 2)[:n]
+    else:
+        offs = rng.choice(np.array([-7, -length, -size - 100, 3, size - length - 31,
+                                    size - length + 5, size + 99]), n)
+    return torch.from_numpy(offs.astype(np.int32))
+
+
+# the first eight keep the ids they had before the offset kinds came in
+MATVEC_CASES = [pytest.param(n, d, h, "random", id=f"{n}-{d}-{h}")
+                for n, d, h in [(4, 8, 16), (6, 17, 5), (16, 32, 32), (3, 64, 7),
+                                (4096, 3, 64), (4096, 64, 64), (4096, 64, 1), (5, 300, 200)]]
+MATVEC_CASES += [pytest.param(n, d, h, kind, id=f"{n}-{d}-{h}-{kind}") for n, d, h, kind in [
+    # the main path's layers (Pendulum, CartPole head) with mirrored offsets
+    (4096, 3, 64, "mirrored"), (4096, 64, 64, "mirrored"), (4096, 64, 1, "mirrored"),
+    (4096, 64, 2, "mirrored"),
+    (7, 64, 64, "mirrored"), (7, 64, 1, "mirrored"),  # odd n: the last member is alone
+    # both sides of the narrow/wide threshold, both pair paths
+    (64, 16, 31, "mirrored"), (64, 16, 31, "random"), (64, 16, 32, "mirrored"),
+    (64, 16, 32, "random"), (64, 16, 33, "mirrored"), (64, 16, 33, "random"),
+    (4096, 256, 256, "mirrored"),
+    (9, 600, 48, "random"),  # d > 256: x staged in shared memory in chunks
+    (64, 64, 64, "clamp"), (64, 64, 1, "clamp"), (63, 3, 64, "clamp"),
+]]
+
+
+@pytest.mark.parametrize("n,d,h,kind", MATVEC_CASES)
+def test_population_noise_matvec_matches_plain(table, cuda, n, d, h, kind):
     rng = np.random.default_rng(n + 10 * d + 100 * h)
-    offs = torch.from_numpy(rng.integers(0, table.numel() - d * h - 64, n).astype(np.int32))
+    offs = _matvec_offsets(rng, kind, n, table.numel(), d * h)
     c = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
     x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
     offs, c, x = offs.to(cuda), c.to(cuda), x.to(cuda)
@@ -62,6 +93,20 @@ def test_population_noise_matvec_matches_plain(table, cuda, n, d, h):
     torch.cuda.synchronize()
     want = nk.population_noise_matvec_plain(table, offs, c, x, 32, d, h)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("n,d,h,kind", [(4096, 64, 64, "mirrored"), (4096, 64, 1, "mirrored"),
+                                        (33, 600, 48, "random"), (63, 16, 5, "clamp")])
+def test_population_noise_matvec_is_bitwise_deterministic(table, cuda, n, d, h, kind):
+    """Each output is summed in one fixed order: no atomics."""
+    rng = np.random.default_rng(7 * n + d + h)
+    offs = _matvec_offsets(rng, kind, n, table.numel(), d * h).to(cuda)
+    c = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(cuda)
+    first = nk.population_noise_matvec(table, offs, c, x, 32, d, h)
+    second = nk.population_noise_matvec(table, offs, c, x, 32, d, h)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_wrapper_raises_when_library_is_absent(table, cuda, monkeypatch):

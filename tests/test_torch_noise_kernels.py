@@ -57,11 +57,24 @@ class TestWeightedNoiseSum:
 
 
 class TestPopulationNoiseMatvec:
-    @pytest.mark.parametrize("n,d,h", [(4, 8, 16), (6, 17, 5), (16, 32, 32), (3, 64, 7)])
-    def test_plain_matches_pallas_interpret(self, n, d, h):
+    @pytest.mark.parametrize("n,d,h,mirrored", [
+        *(pytest.param(n, d, h, False, id=f"{n}-{d}-{h}")
+          for n, d, h in [(4, 8, 16), (6, 17, 5), (16, 32, 32), (3, 64, 7)]),
+        # the main path's layers (Pendulum MLP64x64, the CartPole head) as the
+        # engine feeds them: mirrored pairs share an offset, c = σ·(+1, −1, …);
+        # and an odd n, whose last member is alone
+        *(pytest.param(n, d, h, True, id=f"{n}-{d}-{h}-mirrored")
+          for n, d, h in [(6, 3, 64), (6, 64, 64), (6, 64, 1), (6, 64, 2), (7, 64, 64)]),
+    ])
+    def test_plain_matches_pallas_interpret(self, n, d, h, mirrored):
         rng = np.random.default_rng(n + 10 * d + 100 * h)
-        offs = rng.integers(0, SIZE - d * h - 64, n).astype(np.int32)
-        c = rng.standard_normal(n).astype(np.float32)
+        if mirrored:
+            offs = np.repeat(rng.integers(0, SIZE - d * h - 64, (n + 1) // 2), 2)[:n]
+            offs = offs.astype(np.int32)
+            c = (0.05 * np.resize([1.0, -1.0], n)).astype(np.float32)
+        else:
+            offs = rng.integers(0, SIZE - d * h - 64, n).astype(np.int32)
+            c = rng.standard_normal(n).astype(np.float32)
         x = rng.standard_normal((n, d)).astype(np.float32)
         want = jpn.population_noise_matvec(JDATA, jnp.asarray(offs), jnp.asarray(c),
                                            jnp.asarray(x), layer_offset=32, d=d, h=h,
