@@ -20,10 +20,21 @@ Phases, in order; any failure exits non-zero before the last line:
    streamed forward + kernel update, 1 warm-up and 3 timed generations,
    with the kernels' launch counts read around that run, then one more
    generation under torch.profiler for the device's busy share;
-4. the same two generations at a small size on the card and on the CPU
-   (plain versions): the fitness and params must agree.
+4. two generations at a small size on the card and on the CPU (plain
+   versions), for the streamed path and for each path of phase 5: the
+   fitness and params must agree;
+5. the other paths at the width of phase 3, each through ``ES(...).train``
+   with 1 warm-up and 3 timed generations, its launch counts read around
+   that run and checked exactly, then one profiled generation: (a) the
+   default standard forward with the plain update, (b) the standard forward
+   with the kernel update, (c) decomposed in bf16 with the kernel update,
+   (d) low rank 1 in bf16, (e) obs_norm on the streamed path (both kernels);
+6. one generation of each path with ``eval_chunk=1024`` against the whole
+   population, and the products alone over 1024 rows against 4096: which
+   results depend on the chunk (reported, not held).
 
-Then one JSON line of per-kernel numbers, the card line, and the last line
+Then one JSON line of per-path numbers, one of per-kernel numbers (launches
+from phase 3), the card line, and the last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
@@ -42,6 +53,19 @@ HORIZON = 200
 POPULATION = 4096
 POLICY = {"action_dim": 1, "hidden": (64, 64), "discrete": False, "action_scale": 2.0}
 TABLE_SIZE = 1 << 25
+GENERATIONS = 4  # 1 warm-up + 3 timed, in phases 3 and 5
+STREAMED = {"streamed": True, "noise_kernel": True}
+# phase 5's paths, beside phase 3's streamed one: ES options, and the kernel
+# launches each makes in its GENERATIONS generations at HORIZON
+PATHS = [
+    ("a standard", {}, 0, 0),
+    ("b standard+kernel update", {"noise_kernel": True}, GENERATIONS, 0),
+    ("c decomposed bf16+kernel update",
+     {"decomposed": True, "compute_dtype": "bfloat16", "noise_kernel": True}, GENERATIONS, 0),
+    ("d low_rank 1 bf16", {"low_rank": 1, "compute_dtype": "bfloat16"}, 0, 0),
+    ("e obs_norm streamed", {"obs_norm": True, **STREAMED}, GENERATIONS,
+     3 * HORIZON * GENERATIONS),
+]
 L2_FLUSH_BYTES = 256 << 20  # written and read before each cold launch: five times the L2
 # one env step's three launches before the pair-sharing redesign, as measured
 # then on an H100 80GB HBM3 at 700 W: printed beside this run's time, never
@@ -138,9 +162,9 @@ def union_floats(starts, length: int) -> int:
     return total + (cur_hi - cur_lo if cur_hi is not None else 0)
 
 
-def profile_generation(torch, es) -> None:
+def profile_generation(torch, es, top: int = 15) -> float:
     """One more generation under torch.profiler: the device's busy share of
-    the wall time and the kernels that take it."""
+    the wall time and the kernels that take it.  Returns the busy seconds."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -159,8 +183,130 @@ def profile_generation(torch, es) -> None:
     mv = [r for r in rows if "noise_matvec" in r[2]]
     print(f"  noise_matvec kernels: {sum(r[0] for r in mv) / 1e3:.3f} ms device time, "
           f"{sum(r[1] for r in mv)} launches")
-    for us, count, key in rows[:15]:
+    for us, count, key in rows[:top]:
         print(f"  {us / 1e3:9.3f} ms  {count:6d}x  {key[:90]}")
+    return busy_s
+
+
+def compare_card_cpu(torch, tt) -> None:
+    """Phase 4: two generations at population 64, horizon 50, on the card
+    and on the CPU (plain versions), for the streamed path and each of PATHS.
+
+    float32 paths: reward_mean within 1e-4 relative and params within 1e-4
+    (float32 over 50 env steps and 2 Adam steps, summed in other orders).
+    bf16 paths at the tolerance tests/test_torch_paths.py holds them to
+    against JAX: SGD, so the param change is the ascent direction;
+    reward_mean within 1e-3 relative, the param changes' cosine >= 0.99.
+    """
+    for label, opts in [("streamed", STREAMED)] + [(p[0], p[1]) for p in PATHS]:
+        bf16 = opts.get("compute_dtype") == "bfloat16"
+        small = dict(population_size=64, sigma=0.05, policy_kwargs=POLICY,
+                     optimizer_kwargs={"learning_rate": 1e-2}, table_size=1 << 22, **opts)
+        optimizer = tt.sgd if bf16 else tt.adam
+        es_gpu = tt.ES(tt.MLPPolicy, tt.DeviceAgent(tt.Pendulum(), horizon=50), optimizer,
+                       **small)
+        es_cpu = tt.ES(tt.MLPPolicy, tt.DeviceAgent(tt.Pendulum(), horizon=50), optimizer,
+                       device="cpu", **small)
+        p0 = es_cpu.state.params_flat.clone()
+        es_gpu.train(2, verbose=False)
+        es_cpu.train(2, verbose=False)
+        fit_err = max(abs(a["reward_mean"] - b["reward_mean"]) / abs(b["reward_mean"])
+                      for a, b in zip(es_gpu.history, es_cpu.history))
+        p_gpu = es_gpu.state.params_flat.cpu()
+        if bf16:
+            dg, dc = p_gpu - p0, es_cpu.state.params_flat - p0
+            cos = float(dg @ dc / (dg.norm() * dc.norm()))
+            if fit_err > 1e-3 or cos < 0.99:
+                fail(f"card vs CPU, {label}: reward_mean rel err {fit_err:g}, cosine {cos:g}")
+            print(f"card vs CPU, {label} (pop 64, horizon 50, 2 generations, SGD): reward_mean "
+                  f"rel err {fit_err:.3g} (tol 1e-3), param change cosine {cos:.6f} (tol 0.99)")
+        else:
+            p_err = float((p_gpu - es_cpu.state.params_flat).abs().max())
+            if fit_err > 1e-4 or p_err > 1e-4:
+                fail(f"card vs CPU, {label}: reward_mean rel err {fit_err:g}, "
+                     f"params max |err| {p_err:g}")
+            print(f"card vs CPU, {label} (pop 64, horizon 50, 2 generations): reward_mean rel "
+                  f"err {fit_err:.3g} (tol 1e-4), params max |err| {p_err:.3g} (tol 1e-4)")
+
+
+def run_paths(torch, tt, nk, card: str) -> list[dict]:
+    """Phase 5: each of PATHS at full width through ``ES(...).train``: the
+    launch counts are set to 0 just before its 1 + 3 generations, read just
+    after and held exact; then one profiled generation.  One record a path."""
+    paths = []
+    for label, opts, want_wns, want_pnm in PATHS:
+        torch.cuda.empty_cache()
+        es = tt.ES(tt.MLPPolicy, tt.DeviceAgent(tt.Pendulum(), horizon=HORIZON), tt.adam,
+                   population_size=POPULATION, sigma=0.05, policy_kwargs=POLICY,
+                   optimizer_kwargs={"learning_rate": 1e-2}, **opts)
+        p0 = es.state.params_flat.clone()
+        torch.cuda.synchronize()
+        nk.reset_launch_counts()
+        es.train(1, verbose=False)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        es.train(GENERATIONS - 1, verbose=False)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = dict(nk.launch_counts)
+        want = {"weighted_noise_sum": want_wns, "population_noise_matvec": want_pnm}
+        if counts != want:
+            fail(f"path {label}: launch counts {counts}, expected {want}")
+        if len(es.history) != GENERATIONS:
+            fail(f"path {label}: expected {GENERATIONS} generations, got {len(es.history)}")
+        for r in es.history:
+            if r["n_failed"] or not all(math.isfinite(r[k])
+                                        for k in ("reward_mean", "reward_max", "grad_norm")):
+                fail(f"path {label}, generation {r['generation']}: non-finite result {r}")
+        if torch.equal(p0, es.state.params_flat):
+            fail(f"path {label}: params did not change")
+        steps = sum(r["env_steps"] for r in es.history[1:])
+        gen_s = dt / (GENERATIONS - 1)
+        print(f"path {label}: {steps / dt:.0f} env-steps/s over {GENERATIONS - 1} generations "
+              f"({gen_s:.4f} s a generation) on {card}; launches {counts}; reward mean "
+              f"{es.history[0]['reward_mean']:.2f} -> {es.history[-1]['reward_mean']:.2f}")
+        busy = profile_generation(torch, es, top=8)  # after the counts: not part of them
+        paths.append({"path": label, "options": opts, "launches": counts,
+                      "env_steps_per_s": steps / dt, "s_per_generation": gen_s,
+                      "device_busy_s": busy, "busy_share": busy / gen_s})
+        del es
+    return paths
+
+
+def chunk_invariance(torch, tt) -> list[dict]:
+    """Phase 6: ``eval_chunk=1024`` against the whole population, one
+    generation of each path at full width, and the products alone: does a
+    member's result depend on how many rows one product covers?"""
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(3)
+    for d, h in ((3, 64), (64, 64), (64, 1)):
+        x = torch.randn(POPULATION, d, generator=g).to(dev)
+        w = torch.randn(d, h, generator=g).to(dev)
+        wb = torch.randn(POPULATION, d, h, generator=g).to(dev)
+        mm = torch.equal((x @ w)[:1024], x[:1024] @ w)
+        bmm = torch.equal(torch.bmm(x[:, None], wb)[:1024], torch.bmm(x[:1024, None], wb[:1024]))
+        print(f"rows 0..1023 of ({d}, {h}) products, alone vs within {POPULATION}: "
+              f"x @ W bit-identical {mm}, bmm bit-identical {bmm}")
+    out = []
+    for label, opts in [("streamed", STREAMED)] + [(p[0], p[1]) for p in PATHS]:
+        kw = dict(population_size=POPULATION, sigma=0.05, policy_kwargs=POLICY,
+                  optimizer_kwargs={"learning_rate": 1e-2}, **opts)
+        whole = tt.ES(tt.MLPPolicy, tt.DeviceAgent(tt.Pendulum(), horizon=HORIZON), tt.adam,
+                      **kw)
+        chunked = tt.ES(tt.MLPPolicy, tt.DeviceAgent(tt.Pendulum(), horizon=HORIZON),
+                        tt.adam, eval_chunk=1024, **kw)
+        new_w, mw = whole.engine.generation_step(whole.state)
+        new_c, mc = chunked.engine.generation_step(chunked.state)
+        fw, fc = mw["fitness"], mc["fitness"]
+        rec = {"path": label, "bit_identical": bool(torch.equal(fw, fc)),
+               "fitness_max_rel": float(((fc - fw).abs() / fw.abs()).max()),
+               "same_ranks": bool(torch.equal(torch.argsort(fw, stable=True),
+                                              torch.argsort(fc, stable=True))),
+               "params_max_abs": float((new_c.params_flat - new_w.params_flat).abs().max())}
+        print(f"eval_chunk 1024 vs whole, {label}: {rec}")
+        out.append(rec)
+        del whole, chunked
+    return out
 
 
 def main() -> None:
@@ -325,7 +471,7 @@ def main() -> None:
     # ---- 3. the main path ---------------------------------------------------
     es = ES(MLPPolicy, DeviceAgent(Pendulum(), horizon=HORIZON), adam,
             population_size=POPULATION, sigma=0.05, policy_kwargs=POLICY,
-            optimizer_kwargs={"learning_rate": 1e-2}, streamed=True, noise_kernel=True)
+            optimizer_kwargs={"learning_rate": 1e-2}, **STREAMED)
     if es.device.type != "cuda":
         fail(f"ES ran on {es.device}")
     p0 = es.state.params_flat.clone()
@@ -346,8 +492,8 @@ def main() -> None:
         print(f"gen {r['generation']}: reward mean {r['reward_mean']:.2f} max "
               f"{r['reward_max']:.2f}, n_valid {POPULATION - r['n_failed']}, "
               f"{r['env_steps_per_sec']:.0f} env-steps/s, {r['wall_time_s']:.4f} s")
-    if gens != 4:
-        fail(f"expected 4 generations, got {gens}")
+    if gens != GENERATIONS:
+        fail(f"expected {GENERATIONS} generations, got {gens}")
     if torch.equal(p0, es.state.params_flat):
         fail("params did not change")
     want = {"population_noise_matvec": 3 * HORIZON * gens, "weighted_noise_sum": gens}
@@ -360,24 +506,20 @@ def main() -> None:
     print(f"  kernels' share of a generation: {kernel_s / gen_s:.3f} "
           f"({HORIZON} x matvec step {pnm['ms']:.4f} ms + reduction {wns['ms']:.4f} ms)")
 
-    profile_generation(torch, es)  # after the counts are read: not part of them
+    busy3 = profile_generation(torch, es)  # after the counts are read: not part of them
+    del es
 
     # ---- 4. the card against the CPU's plain versions at a small size -----
-    small = dict(population_size=64, sigma=0.05, policy_kwargs=POLICY,
-                 optimizer_kwargs={"learning_rate": 1e-2}, table_size=1 << 22,
-                 streamed=True, noise_kernel=True)
-    es_gpu = ES(MLPPolicy, DeviceAgent(Pendulum(), horizon=50), adam, **small)
-    es_cpu = ES(MLPPolicy, DeviceAgent(Pendulum(), horizon=50), adam, device="cpu", **small)
-    es_gpu.train(2, verbose=False)
-    es_cpu.train(2, verbose=False)
-    fit_err = max(abs(a["reward_mean"] - b["reward_mean"]) / abs(b["reward_mean"])
-                  for a, b in zip(es_gpu.history, es_cpu.history))
-    p_err = float((es_gpu.state.params_flat.cpu() - es_cpu.state.params_flat).abs().max())
-    # float32 over 50 env steps and 2 Adam steps, summed in other orders
-    if fit_err > 1e-4 or p_err > 1e-4:
-        fail(f"card vs CPU: reward_mean rel err {fit_err:g}, params max |err| {p_err:g}")
-    print(f"card vs CPU plain path (pop 64, horizon 50, 2 generations): reward_mean rel err "
-          f"{fit_err:.3g} (tol 1e-4), params max |err| {p_err:.3g} (tol 1e-4)")
+    compare_card_cpu(torch, estorch_tpu_torch)
+
+    # ---- 5. the slice's other paths at full width ----------------------------
+    paths = [{"path": "streamed (phase 3)", "options": STREAMED, "launches": launches,
+              "env_steps_per_s": steps / dt, "s_per_generation": gen_s,
+              "device_busy_s": busy3, "busy_share": busy3 / gen_s}]
+    paths += run_paths(torch, estorch_tpu_torch, nk, card)
+
+    # ---- 6. eval_chunk against the whole population ----------------------------
+    chunking = chunk_invariance(torch, estorch_tpu_torch)
 
     # ---- report --------------------------------------------------------------
     kernels = [
@@ -399,6 +541,7 @@ def main() -> None:
                                            "plain_ms", "bound_ms")}
                     for layer in layers + extra]},
     ]
+    print(json.dumps({"paths": paths, "eval_chunk": chunking}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,19 +1,25 @@
 """ES — the user-facing algorithm class.
 
-Counterpart of ``estorch_tpu/algo/es.py``'s ``ES.__init__`` and ``train``.
-The signature keeps the JAX package's names for the options this port
-supports; every other option raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item:
+Counterpart of ``estorch_tpu/algo/es.py``'s ``ES.__init__`` and ``train``
+for the device backend on one device.  The signature keeps the JAX
+package's names and defaults, so the default call runs the standard
+forward with the chunked plain update:
 
     es = ES(MLPPolicy, DeviceAgent(Pendulum(), horizon=200), adam,
             population_size=4096, sigma=0.05,
             policy_kwargs={"action_dim": 1, "hidden": (64, 64),
                            "discrete": False, "action_scale": 2.0},
-            optimizer_kwargs={"learning_rate": 1e-2},
-            streamed=True, noise_kernel=True)
+            optimizer_kwargs={"learning_rate": 1e-2})
     es.train(10)
 
-``device`` is ``"cuda"`` unless the caller passes ``"cpu"``.
+``decomposed``, ``low_rank``, ``streamed``, ``noise_kernel``, ``obs_norm``,
+``compute_dtype="bfloat16"``, ``episodes_per_member``, ``eval_chunk`` and
+``grad_chunk`` combine as in the JAX package, which rejects the same
+combinations with the same ``ValueError``s.  The options not ported yet
+(``mesh``/``shard_params``, ``scenarios``, host and pooled agents,
+recurrent policies, VBN) raise ``NotImplementedError`` naming their
+``ROADMAP.md`` item.  ``device`` is ``"cuda"`` unless the caller passes
+``"cpu"``.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import numpy as np
 import torch
 
 from ..models.decomposed import supports_decomposed
+from ..ops.lowrank import make_lowrank_spec
 from ..ops.noise import DEFAULT_TABLE_SIZE, make_noise_table
 from ..ops.noise_kernels import flat_layer_offsets, mlp_streamed_apply
 from ..ops.params import make_param_spec
@@ -32,7 +39,6 @@ from ..parallel.engine import EngineConfig, ESEngine
 from ..utils.backend import resolve_device
 
 _ROADMAP = "ROADMAP.md, port queue"
-_PATHS = "1, the standard/decomposed/low_rank/obs_norm/bf16 paths"
 _BACKENDS = "2, the remaining envs and the host and pooled backends"
 
 
@@ -51,7 +57,7 @@ def _unsupported(what: str, item: str):
 
 
 class ES:
-    """Vanilla OpenAI-ES (Salimans et al. 2017) on the streamed engine."""
+    """Vanilla OpenAI-ES (Salimans et al. 2017) on the one-device engine."""
 
     def __init__(
         self,
@@ -67,6 +73,7 @@ class ES:
         seed: int = 0,
         table_size: int = DEFAULT_TABLE_SIZE,
         eval_chunk: int = 0,
+        grad_chunk: int = 256,
         weight_decay: float = 0.0,
         mesh=None,
         compute_dtype: str = "float32",
@@ -79,25 +86,19 @@ class ES:
         streamed: bool = False,
         low_rank: int = 0,
         obs_norm: bool = False,
+        obs_clip: float = 5.0,
+        obs_probe_episodes: int = 1,
+        obs_warmup_episodes: int = 0,
         shard_params: bool = False,
         scenarios=None,
     ):
-        if not streamed:
-            _unsupported("streamed=False (the standard forward)", _PATHS)
-        if not noise_kernel:
-            _unsupported("noise_kernel=False (the chunked plain update)", _PATHS)
-        if decomposed:
-            _unsupported("decomposed=True", _PATHS)
-        if low_rank:
-            _unsupported("low_rank", _PATHS)
-        if obs_norm:
-            _unsupported("obs_norm", _PATHS)
-        if compute_dtype != "float32":
-            _unsupported(f"compute_dtype={compute_dtype!r}", _PATHS)
-        if episodes_per_member != 1:
-            _unsupported("episodes_per_member != 1", _PATHS)
-        if eval_chunk:
-            _unsupported("eval_chunk", _PATHS)
+        if compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(
+                f"compute_dtype must be float32 or bfloat16, got {compute_dtype!r}")
+        if obs_warmup_episodes and not obs_norm:
+            raise ValueError(
+                "obs_warmup_episodes warm-starts the running obs stats; "
+                "it requires obs_norm=True")
         if shard_params or mesh is not None:
             _unsupported("shard_params / mesh", "7, multi-GPU")
         if scenarios is not None:
@@ -120,10 +121,13 @@ class ES:
         self.module = _instantiate(policy, dict(policy_kwargs or {}), "policy")
         if getattr(self.module, "is_recurrent", False):
             _unsupported("recurrent policies", "3, recurrent and VBN")
-        if not supports_decomposed(self.module):
-            raise ValueError(
-                "streamed=True supports MLPPolicy without VBN "
-                f"(ops/noise_kernels.py); got {type(self.module).__name__}")
+        for option, on, where in (("decomposed", decomposed, "models/decomposed.py"),
+                                  ("streamed", streamed, "ops/noise_kernels.py"),
+                                  ("low_rank", low_rank, "ops/lowrank.py")):
+            if on and not supports_decomposed(self.module):
+                raise ValueError(
+                    f"{option} supports MLPPolicy without VBN ({where}); "
+                    f"got {type(self.module).__name__}")
 
         # params are drawn on the CPU and moved, so a seed gives the same
         # initial center on every device
@@ -136,21 +140,35 @@ class ES:
             population_size=self.population_size,
             sigma=self.sigma,
             horizon=self.agent.rollout_horizon,
+            eval_chunk=int(eval_chunk),
+            grad_chunk=int(grad_chunk),
             weight_decay=float(weight_decay),
+            compute_dtype=compute_dtype,
             sigma_decay=float(sigma_decay),
             sigma_min=float(sigma_min),
             mirrored=bool(mirrored),
-            noise_kernel=True,
-            streamed=True,
+            episodes_per_member=int(episodes_per_member),
+            decomposed=bool(decomposed),
+            noise_kernel=bool(noise_kernel),
+            streamed=bool(streamed),
+            low_rank=int(low_rank),
+            obs_norm=bool(obs_norm),
+            obs_clip=float(obs_clip),
+            obs_probe_episodes=int(obs_probe_episodes),
+            obs_warmup_episodes=int(obs_warmup_episodes),
         )
-        layer_offs = flat_layer_offsets(params)
         module = self.module
+        streamed_apply = None
+        if streamed:
+            layer_offs = flat_layer_offsets(params)
 
-        def streamed_apply(shared, table_data, offs, c, obs):
-            return mlp_streamed_apply(module, shared, table_data, offs, c, obs, layer_offs)
+            def streamed_apply(shared, table_data, offs, c, obs):
+                return mlp_streamed_apply(module, shared, table_data, offs, c, obs, layer_offs)
 
-        self.engine = ESEngine(self.env, self.spec, self.table, self.optimizer,
-                               self.config, streamed_apply, self.device)
+        lr_spec = make_lowrank_spec(params, int(low_rank)) if low_rank else None
+        self.engine = ESEngine(self.env, module, self.spec, self.table, self.optimizer,
+                               self.config, self.device, streamed_apply=streamed_apply,
+                               lowrank_spec=lr_spec)
         self.state = self.engine.init_state(flat, self.seed)
         self.best_reward = -np.inf
         self.history: list[dict] = []

@@ -6,6 +6,11 @@ horizon.  After a member's episode ends its steps still run (fixed shapes),
 but its reward is masked and its state and obs freeze, so the result equals
 early termination; ``steps`` counts the alive steps only, and the BC reads
 the final frame.
+
+With ``with_obs_moments=True`` the same loop also sums each row's raw
+observations over its alive steps, reset frame included — the obs_norm
+probe's data, as ``make_rollout(with_obs_moments=True)`` and
+``make_obs_probe`` accumulate it in the JAX package.
 """
 
 from __future__ import annotations
@@ -21,6 +26,14 @@ class RolloutResult(NamedTuple):
     steps: torch.Tensor  # (n,) int32 — alive steps actually taken
 
 
+class ObsMoments(NamedTuple):
+    """Per-row raw-observation moments over the alive steps."""
+
+    count: torch.Tensor  # (n,) float32
+    obs_sum: torch.Tensor  # (n, obs_dim) float32
+    obs_sumsq: torch.Tensor  # (n, obs_dim) float32
+
+
 def select_action(policy_out: torch.Tensor, discrete: bool) -> torch.Tensor:
     """argmax for discrete policies; continuous outputs are the actions."""
     if discrete:
@@ -28,35 +41,67 @@ def select_action(policy_out: torch.Tensor, discrete: bool) -> torch.Tensor:
     return policy_out
 
 
-def make_batched_rollout(env: Any, horizon: int) -> Callable[..., RolloutResult]:
-    """``rollout(batched_apply, states0, obs0) -> RolloutResult``.
+def member_params_apply(module, member_params: dict, obs: torch.Tensor) -> torch.Tensor:
+    """The standard forward with each member's own materialized params.
+
+    ``member_params`` leaves carry a leading member axis (kernels (n, m, h),
+    biases (n, h): θ_i unraveled from an (n, dim) stack); ``obs`` is
+    (n, e, obs_dim), e episodes a member.  Each layer is one batched product
+    over the members, x_i @ W_i + b_i, through the module's own forward.
+    """
+    tree = {layer: {"kernel": leaves["kernel"], "bias": leaves["bias"].unsqueeze(-2)}
+            for layer, leaves in member_params.items()}
+    return module.apply_params(tree, obs)
+
+
+def make_batched_rollout(env: Any, horizon: int,
+                         with_obs_moments: bool = False) -> Callable[..., Any]:
+    """``rollout(batched_apply, states0, obs0)``.
 
     ``batched_apply(obs (n, obs_dim)) -> (n, act)`` closes over the members'
     parameterization.  The JAX form takes reset keys; this one takes the
     initial ``(states, obs)``, so a caller can hand in any start states.
+    Returns a :class:`RolloutResult`, or ``(RolloutResult, ObsMoments)``
+    with ``with_obs_moments=True``.
     """
     discrete = bool(env.discrete)
 
-    def rollout(batched_apply, states0: torch.Tensor, obs0: torch.Tensor) -> RolloutResult:
+    def rollout(batched_apply, states0: torch.Tensor, obs0: torch.Tensor):
         n = obs0.shape[0]
         dev = obs0.device
         states, obs = states0, obs0
         done = torch.zeros((n,), dtype=torch.bool, device=dev)
         total = torch.zeros((n,), dtype=torch.float32, device=dev)
         steps = torch.zeros((n,), dtype=torch.int32, device=dev)
+        if with_obs_moments:
+            count = torch.zeros((n,), dtype=torch.float32, device=dev)
+            osum = torch.zeros(obs0.shape, dtype=torch.float32, device=dev)
+            osumsq = torch.zeros(obs0.shape, dtype=torch.float32, device=dev)
         for _ in range(horizon):
+            alive = torch.logical_not(done)
+            alive_f = alive.to(torch.float32)
+            if with_obs_moments:
+                # the obs this step acts on, before the step: the reset frame
+                # counts, a frozen post-termination frame does not
+                of = obs.to(torch.float32)
+                masked = alive_f[:, None] * of
+                count += alive_f
+                osum += masked
+                osumsq += masked * of
             action = select_action(batched_apply(obs), discrete)
             nstates, nobs, reward, ndone = env.step(states, action)
-            alive = torch.logical_not(done)
             # the accumulators are the rollout's own: add in place, no new
             # (n,) tensor each step
-            total += reward * alive.to(torch.float32)
+            total += reward * alive_f
             steps += alive.to(torch.int32)
             keep = alive[:, None]
             states = torch.where(keep, nstates, states)
             obs = torch.where(keep, nobs, obs)
             done = done | ndone
         bc = env.behavior(states, obs).to(torch.float32)
-        return RolloutResult(total_reward=total, bc=bc, steps=steps)
+        res = RolloutResult(total_reward=total, bc=bc, steps=steps)
+        if with_obs_moments:
+            return res, ObsMoments(count, osum, osumsq)
+        return res
 
     return rollout

@@ -41,6 +41,12 @@ def params_from_jax(tree_or_flat: Any, spec: ParamSpec | None = None,
     return flat, spec.unravel(flat)
 
 
+def obs_stats_from_jax(triple: Any, device: str | torch.device = "cpu") -> tuple:
+    """The port's ``ESState.obs_stats`` from the JAX package's
+    ``(count, mean, m2)`` Welford triple (as numpy): float32 tensors."""
+    return tuple(torch.as_tensor(np.array(x, dtype=np.float32)).to(device) for x in triple)
+
+
 def table_from_numpy(array: Any, seed: int | None = None,
                      device: str | torch.device = "cpu") -> NoiseTable:
     """The port's ``NoiseTable`` holding ``array`` (e.g. the JAX table's data)."""

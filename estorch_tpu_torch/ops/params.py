@@ -37,9 +37,14 @@ class ParamSpec:
     offsets: tuple[int, ...]
 
     def unravel(self, flat: torch.Tensor) -> dict:
-        """Nested dict of views into ``flat`` (no copies)."""
-        if flat.shape != (self.dim,):
-            raise ValueError(f"flat vector must be ({self.dim},), got {tuple(flat.shape)}")
+        """Nested dict of views into ``flat`` (no copies).
+
+        ``flat`` is (dim,) or has leading axes, (..., dim): a stack of
+        members' vectors unravels into leaves of shape (..., *leaf_shape).
+        """
+        if flat.ndim < 1 or flat.shape[-1] != self.dim:
+            raise ValueError(f"flat vector must be (..., {self.dim}), got {tuple(flat.shape)}")
+        lead = tuple(flat.shape[:-1])
         tree: dict = {}
         for path, shape, off in zip(self.paths, self.shapes, self.offsets):
             size = 1
@@ -48,8 +53,18 @@ class ParamSpec:
             node = tree
             for k in path[:-1]:
                 node = node.setdefault(k, {})
-            node[path[-1]] = flat[off:off + size].view(shape)
+            node[path[-1]] = flat[..., off:off + size].view(lead + shape)
         return tree
+
+    def flatten(self, tree: Any) -> torch.Tensor:
+        """The (dim,) vector of a dict in this spec's layout (a copy)."""
+        leaves = []
+        for path in self.paths:
+            node = tree
+            for k in path:
+                node = node[k]
+            leaves.append(node.reshape(-1))
+        return torch.cat(leaves)
 
 
 def make_param_spec(params: Any) -> tuple[torch.Tensor, ParamSpec]:

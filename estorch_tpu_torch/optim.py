@@ -1,9 +1,10 @@
-"""Adam on the flat parameter vector, matching ``optax.adam``.
+"""Optimizers on the flat parameter vector, matching optax.
 
-The JAX package's ES takes an optax factory; this is the port's
-counterpart for ``optax.adam``: the same moments, bias correction and
-epsilon placement (outside the square root), as a pure ``init``/``update``
-pair so that a generation's state can be kept and restored whole.
+The JAX package's ES takes an optax factory; these are the port's
+counterparts of ``optax.adam`` (the same moments, bias correction and
+epsilon placement, outside the square root) and ``optax.sgd``, as pure
+``init``/``update`` pairs so that a generation's state can be kept and
+restored whole.
 """
 
 from __future__ import annotations
@@ -48,3 +49,20 @@ def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
          eps: float = 1e-8) -> Adam:
     """Factory with ``optax.adam``'s signature."""
     return Adam(float(learning_rate), float(b1), float(b2), float(eps))
+
+
+@dataclasses.dataclass(frozen=True)
+class SGD:
+    learning_rate: float
+
+    def init(self, params: torch.Tensor) -> None:
+        return None
+
+    def update(self, grad: torch.Tensor, state: None) -> tuple[torch.Tensor, None]:
+        """(updates, state): ``-learning_rate · grad``, no momentum."""
+        return -self.learning_rate * grad, state
+
+
+def sgd(learning_rate: float) -> SGD:
+    """Factory with ``optax.sgd``'s first argument (no momentum)."""
+    return SGD(float(learning_rate))

@@ -1,22 +1,33 @@
 """The ES generation engine on one device.
 
-Counterpart of ``estorch_tpu/parallel/engine.py`` for the streamed path:
-``EngineConfig``, ``ESState`` and ``ESEngine.generation_step``.  One
+Counterpart of ``estorch_tpu/parallel/engine.py``: ``EngineConfig``,
+``ESState``, the obs-normalization helpers and ``ESEngine``.  One
 generation
 
-1. samples the pair offsets and the pairs' initial env states from a
-   generator seeded from ``(seed, generation)``;
-2. rolls the whole population out with one streamed forward per env step
-   (``ops.noise_kernels.mlp_streamed_apply``);
+1. samples the row offsets (one per mirrored pair, or per member) and the
+   initial env states from a generator seeded from ``(seed, generation)``;
+2. rolls the population out in ``eval_chunk``-member chunks, one policy
+   call per env step for a whole chunk, through one of four forwards:
+
+   - standard: each member's θ_i = θ + σ s_i ε_i materialized once per
+     chunk, then one batched product per layer per step;
+   - ``decomposed``: x @ W once over the chunk plus a batched noise term
+     (``models/decomposed.py``);
+   - ``low_rank``: the same with factored noise A Bᵀ/√r (``ops/lowrank.py``);
+   - ``streamed``: the noise term read from the table by the
+     ``population_noise_matvec`` kernel (``ops/noise_kernels.py``);
+
 3. ranks the fitness (``centered_rank_safe``);
-4. reduces the folded pair weights against the noise with the
-   ``weighted_noise_sum`` kernel, divided by n·σ;
-5. applies weight decay, the optimizer step and σ annealing.
+4. reduces the rank weights against the noise: the ``weighted_noise_sum``
+   kernel (``noise_kernel=True``), the chunked plain reduction
+   (``ops/gradient.py``), or one einsum per layer for ``low_rank``;
+5. applies weight decay, the optimizer step and σ annealing, and, with
+   ``obs_norm``, refreshes the running observation moments from episodes
+   of the center policy.
 
 The JAX package runs this as one program over a device mesh with a psum;
-with one device the psum is the identity.  The other noise paths
-(standard, decomposed, low-rank), obs normalization, bf16 and the mesh are
-not ported yet (ROADMAP.md, port queue).
+with one device the psum is the identity.  The mesh waits for ROADMAP.md
+port queue item 7.
 """
 
 from __future__ import annotations
@@ -27,9 +38,11 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
-from ..envs.rollout import make_batched_rollout
-from ..ops.gradient import fold_mirrored_weights
-from ..ops.noise import NoiseTable, member_offsets, pair_signs, sample_pair_offsets
+from ..envs.rollout import make_batched_rollout, member_params_apply
+from ..models.decomposed import mlp_decomposed_population_apply, mlp_lowrank_population_apply
+from ..ops.gradient import es_gradient, fold_mirrored_weights, rank_weighted_noise_sum
+from ..ops.lowrank import LowRankSpec, lowrank_noise_tree, lowrank_weighted_sum
+from ..ops.noise import NoiseTable, gather_rows, member_offsets, pair_signs, sample_pair_offsets
 from ..ops.noise_kernels import weighted_noise_sum
 from ..ops.params import ParamSpec
 from ..ops.ranks import centered_rank_safe
@@ -37,18 +50,28 @@ from ..ops.ranks import centered_rank_safe
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """Static engine configuration (the fields of the JAX package's
-    ``EngineConfig`` that this path reads)."""
+    """Static engine configuration (the JAX package's ``EngineConfig``)."""
 
     population_size: int
     sigma: float
     horizon: int
+    eval_chunk: int = 0  # members per rollout chunk; 0 → the whole population
+    grad_chunk: int = 256  # noise rows per chunk of the plain update reduction
     weight_decay: float = 0.0  # L2 pull toward 0, applied with the update
+    compute_dtype: str = "float32"  # "bfloat16" runs the policy forward in bf16;
+    # params, noise table, env dynamics and the update stay float32
     sigma_decay: float = 1.0  # per-generation multiplicative σ annealing
     sigma_min: float = 0.0  # σ floor when annealing
     mirrored: bool = True  # antithetic pairs
+    episodes_per_member: int = 1  # rollouts averaged per member
+    decomposed: bool = False  # z = x@W + c(x@E): one shared product per layer
     noise_kernel: bool = False  # the weighted_noise_sum kernel update
-    streamed: bool = False  # the streamed population forward
+    low_rank: int = 0  # >0: per-layer kernel noise A·Bᵀ/√r of this rank
+    streamed: bool = False  # the streamed population forward (kernel noise term)
+    obs_norm: bool = False  # running observation normalization
+    obs_clip: float = 5.0  # normalized-obs clip range
+    obs_probe_episodes: int = 1  # center episodes a generation feeding the stats
+    obs_warmup_episodes: int = 0  # init-policy probe episodes folded in at init
 
 
 class ESState(NamedTuple):
@@ -59,61 +82,199 @@ class ESState(NamedTuple):
     seed: int  # with ``generation``, seeds the per-generation sample
     generation: int
     sigma: torch.Tensor  # () float32 — current perturbation scale
+    obs_stats: Any = None  # obs_norm only: the (count, mean, m2) Welford triple
+    # of the raw observations, float32 tensors of shapes (), (obs_dim,), (obs_dim,)
 
 
 class Sample(NamedTuple):
-    """One generation's random draws: one table offset and one initial env
-    state per noise row (per pair when mirrored, per member otherwise)."""
+    """One generation's random draws: one table offset and the initial env
+    states of one noise row (per pair when mirrored, per member otherwise),
+    and the probe episodes' initial states."""
 
     offsets: torch.Tensor  # (rows,) int32
-    states: torch.Tensor  # (rows, state_dim) float32
+    states: torch.Tensor  # (rows, state_dim), or (rows, e, state_dim) when
+    # episodes_per_member = e > 1
+    probe_states: torch.Tensor | None = None  # (obs_probe_episodes, state_dim);
+    # obs_norm only
+
+
+def normalize_obs(obs: torch.Tensor, obs_stats, clip: float) -> torch.Tensor:
+    """(obs − mean)·rsqrt(var) clipped to ±clip, in float32; var = m2/count,
+    floored at 1e-8."""
+    cnt, mean, m2 = obs_stats
+    var = torch.clamp(m2 / cnt, min=1e-8)
+    x = (obs.to(torch.float32) - mean) * torch.rsqrt(var)
+    return torch.clamp(x, -clip, clip)
+
+
+def merge_obs_moments(obs_stats, cnt1, osum1, osumsq1):
+    """Chan's parallel update in float32: fold one generation's raw probe
+    sums (a few episodes' worth) into the running Welford triple.  For
+    larger sums use :func:`merge_obs_moments_np`."""
+    c0, mean0, m2_0 = obs_stats
+    mean1 = osum1 / cnt1
+    m2_1 = torch.clamp(osumsq1 - osum1 * mean1, min=0.0)
+    tot = c0 + cnt1
+    delta = mean1 - mean0
+    mean = mean0 + delta * (cnt1 / tot)
+    m2 = m2_0 + m2_1 + delta * delta * (c0 * cnt1 / tot)
+    return tot, mean, m2
+
+
+def _np64(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, np.float64)
+
+
+def merge_obs_moments_np(obs_stats, cnt1: float, osum1, osumsq1):
+    """The same merge in float64 on the host, for sums of many episodes
+    (where ``sumsq − sum·mean`` cancels in float32).  Returns float32
+    tensors on the device of ``obs_stats``; the stored count is a float32,
+    exact below 2^24 samples."""
+    device = obs_stats[1].device
+    c0 = float(_np64(obs_stats[0]))
+    m0, big_m0 = _np64(obs_stats[1]), _np64(obs_stats[2])
+    c1 = float(cnt1)
+    s1, q1 = _np64(osum1), _np64(osumsq1)
+    mean1 = s1 / c1
+    m2_1 = np.maximum(q1 - s1 * mean1, 0.0)
+    tot = c0 + c1
+    delta = mean1 - m0
+    mean = m0 + delta * (c1 / tot)
+    m2 = big_m0 + m2_1 + delta * delta * (c0 * c1 / tot)
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32)).to(device)
+
+    return f32(tot), f32(mean), f32(m2)
+
+
+def _choose_eval_chunk(requested: int, members: int) -> int:
+    """Largest divisor of ``members`` that is ≤ the requested chunk."""
+    if requested <= 0 or requested >= members:
+        return members
+    c = requested
+    while members % c != 0:
+        c -= 1
+    return c
 
 
 def generation_seed(seed: int, generation: int) -> int:
     """The generator seed of ``generation``: a hash of (seed, generation),
     so a re-run of a generation draws the same sample."""
-    return int(np.random.SeedSequence([int(seed), int(generation)]).generate_state(
+    return _seed_of(seed, generation)
+
+
+def _seed_of(*words: int) -> int:
+    return int(np.random.SeedSequence([int(w) for w in words]).generate_state(
         1, np.uint64)[0] >> np.uint64(1))
 
 
-class ESEngine:
-    """Runs generations of streamed-noise ES on one device."""
+# streams besides the per-generation sample, each with a seed of its own
+_CENTER_STREAM = 1  # evaluate_center's initial state
+_WARMUP_STREAM = 2  # init_state's obs-norm warm-up episodes
 
-    def __init__(self, env: Any, spec: ParamSpec, table: NoiseTable, optimizer: Any,
-                 config: EngineConfig,
-                 streamed_apply: Callable[..., torch.Tensor],
-                 device: torch.device):
-        if not (config.streamed and config.noise_kernel):
-            raise NotImplementedError(
-                "the port's engine runs streamed=True with noise_kernel=True; "
-                "the standard and decomposed paths are not ported yet "
-                "(ROADMAP.md, port queue item 1)")
+
+class ESEngine:
+    """Runs generations of ES on one device.
+
+    ``module`` is the policy (its ``apply_params`` is the standard and the
+    probe forward); ``streamed_apply(shared, table_data, member_offsets, c,
+    obs)`` is needed for ``streamed``, ``lowrank_spec`` for ``low_rank``.
+    """
+
+    def __init__(self, env: Any, module: Any, spec: ParamSpec, table: NoiseTable,
+                 optimizer: Any, config: EngineConfig, device: torch.device,
+                 streamed_apply: Callable[..., torch.Tensor] | None = None,
+                 lowrank_spec: LowRankSpec | None = None):
+        if config.low_rank:
+            if config.decomposed or config.streamed or config.noise_kernel:
+                raise ValueError(
+                    "low_rank replaces the full-rank noise pathway; it is "
+                    "mutually exclusive with decomposed/streamed/noise_kernel")
+            if lowrank_spec is None:
+                raise ValueError(
+                    "EngineConfig.low_rank needs a lowrank_spec "
+                    "(ops/lowrank.py; ES builds it for MLPPolicy)")
+        if config.streamed:
+            if config.decomposed:
+                raise ValueError("streamed IS the kernel form of decomposed — enable one")
+            if config.episodes_per_member != 1:
+                raise ValueError("streamed currently supports episodes_per_member=1")
+            if config.compute_dtype != "float32":
+                raise ValueError("streamed runs in float32 (the table and kernel are f32)")
+            if streamed_apply is None:
+                raise ValueError(
+                    "EngineConfig.streamed=True needs a streamed_apply "
+                    "(ops/noise_kernels.py::mlp_streamed_apply for MLPPolicy)")
+        if config.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(
+                f"compute_dtype must be float32 or bfloat16, got {config.compute_dtype!r}")
+        if config.episodes_per_member < 1:
+            raise ValueError(
+                f"episodes_per_member must be >= 1, got {config.episodes_per_member}")
         if config.mirrored and config.population_size % 2:
             raise ValueError(
                 f"mirrored sampling needs an even population, got {config.population_size}")
         self.env = env
+        self.module = module
         self.spec = spec
         self.table = table
         self.optimizer = optimizer
         self.config = config
         self.device = torch.device(device)
-        # streamed_apply(shared_params, table_data, member_offsets, c, obs)
         self._streamed_apply = streamed_apply
+        self.lr_spec = lowrank_spec if config.low_rank else None
+        # the per-row noise vector the table serves: (dim,) full-rank, the
+        # packed factors for low rank; everything that samples offsets or
+        # slices noise uses this, not spec.dim
+        self.noise_dim = self.lr_spec.noise_dim if config.low_rank else spec.dim
+        self._dtype = torch.bfloat16 if config.compute_dtype == "bfloat16" else torch.float32
         self._rollout = make_batched_rollout(env, config.horizon)
+        self._probe_rollout = (make_batched_rollout(env, config.horizon, with_obs_moments=True)
+                               if config.obs_norm else None)
         self.rows = config.population_size // 2 if config.mirrored else config.population_size
+        self.eval_chunk = _choose_eval_chunk(config.eval_chunk, config.population_size)
 
-    def init_state(self, params_flat: torch.Tensor, seed: int) -> ESState:
+    # ------------------------------------------------------------- state
+
+    def init_state(self, params_flat: torch.Tensor, seed: int,
+                   warmup_states: torch.Tensor | None = None) -> ESState:
+        """The state before generation 0.
+
+        With ``obs_norm`` the stats start at count 1, mean 0, m2 1 (var 1);
+        ``obs_warmup_episodes`` > 0 then folds that many episodes of the
+        initial policy in, in float64 on the host.  Their initial states
+        are ``warmup_states`` (obs_warmup_episodes, state_dim), or drawn from
+        a stream of ``seed`` of their own.
+        """
         if params_flat.shape != (self.spec.dim,):
             raise ValueError(f"params_flat must be ({self.spec.dim},), got {tuple(params_flat.shape)}")
         params_flat = params_flat.to(self.device, torch.float32)
         if not bool(torch.isfinite(params_flat).all()):
             raise ValueError("initial params contain non-finite values")
+        obs_stats = None
+        if self.config.obs_norm:
+            obs_dim = int(self.env.obs_dim)
+            obs_stats = (torch.tensor(1.0, device=self.device),
+                         torch.zeros((obs_dim,), device=self.device),
+                         torch.ones((obs_dim,), device=self.device))
+            warm = self.config.obs_warmup_episodes
+            if warm > 0:
+                if warmup_states is None:
+                    gen = torch.Generator().manual_seed(_seed_of(seed, 0, _WARMUP_STREAM))
+                    warmup_states, _ = self.env.reset(gen, warm)
+                c, s, q = self._probe_moments(params_flat, obs_stats,
+                                              warmup_states.to(self.device))
+                obs_stats = merge_obs_moments_np(obs_stats, float(c), s, q)
         return ESState(
             params_flat=params_flat,
             opt_state=self.optimizer.init(params_flat),
             seed=int(seed),
             generation=0,
             sigma=torch.tensor(self.config.sigma, dtype=torch.float32, device=self.device),
+            obs_stats=obs_stats,
         )
 
     def sample(self, state: ESState) -> Sample:
@@ -122,12 +283,23 @@ class ESEngine:
         Drawn on the CPU from a generator seeded by
         :func:`generation_seed`, then moved, so one ``(seed, generation)``
         gives the same sample on every device.  Pair members share their
-        initial state, as the JAX package's shared pair keys give them.
+        initial states (all e of them), as the JAX package's shared pair
+        keys give them.
         """
+        cfg = self.config
         gen = torch.Generator().manual_seed(generation_seed(state.seed, state.generation))
-        offsets = sample_pair_offsets(gen, self.rows, self.table.size, self.spec.dim)
-        states, _ = self.env.reset(gen, self.rows)
-        return Sample(offsets.to(self.device), states.to(self.device))
+        offsets = sample_pair_offsets(gen, self.rows, self.table.size, self.noise_dim)
+        e = cfg.episodes_per_member
+        states, _ = self.env.reset(gen, self.rows * e)
+        if e > 1:
+            states = states.view(self.rows, e, -1)
+        probe = None
+        if cfg.obs_norm:
+            probe, _ = self.env.reset(gen, cfg.obs_probe_episodes)
+            probe = probe.to(self.device)
+        return Sample(offsets.to(self.device), states.to(self.device), probe)
+
+    # --------------------------------------------------------- generation
 
     def generation_step(self, state: ESState, sample: Sample | None = None):
         """One fused ES generation: returns ``(new_state, metrics)``.
@@ -136,35 +308,15 @@ class ESEngine:
         package's); ``ES.train`` never passes it.  Nothing here waits for
         the device; the metrics are device tensors.
         """
-        cfg = self.config
         sample = self.sample(state) if sample is None else sample
-        if cfg.mirrored:
-            member_offs = member_offsets(sample.offsets)
-            signs = pair_signs(cfg.population_size, self.device)
-            states0 = torch.repeat_interleave(sample.states, 2, dim=0)
-        else:
-            member_offs = sample.offsets
-            signs = torch.ones((cfg.population_size,), dtype=torch.float32, device=self.device)
-            states0 = sample.states
-        obs0 = self.env.observe(states0)
-        c = state.sigma * signs
-        shared = self.spec.unravel(state.params_flat)
-        table_data = self.table.data
-
-        def batched_apply(obs):
-            return self._streamed_apply(shared, table_data, member_offs, c, obs)
-
-        res = self._rollout(batched_apply, states0, obs0)
-        fitness = res.total_reward
+        fitness, bc, steps = self._evaluate(state, sample)
         weights, n_valid = centered_rank_safe(fitness)
-        row_w = fold_mirrored_weights(weights) if cfg.mirrored else weights
-        grad = weighted_noise_sum(table_data, sample.offsets, row_w.contiguous(),
-                                  self.spec.dim) / (cfg.population_size * state.sigma)
-        new_state, gnorm = self._finish_update(state, grad)
+        grad = self._grad(state, weights, sample.offsets)
+        new_state, gnorm = self._finish_update(state, grad, sample)
         metrics = {
             "fitness": fitness,
-            "bc": res.bc,
-            "steps": res.steps.sum(),
+            "bc": bc,
+            "steps": steps,
             "grad_norm": gnorm,
             "n_valid": n_valid,
             # post-update guard input: ES.train rejects the generation when
@@ -174,8 +326,126 @@ class ESEngine:
         }
         return new_state, metrics
 
-    def _finish_update(self, state: ESState, grad_ascent: torch.Tensor):
-        """Weight decay, the optimizer step and σ annealing."""
+    def _cast(self, t: torch.Tensor) -> torch.Tensor:
+        """bf16 path: a member's params are cast once, where they are built."""
+        return t.to(self._dtype)
+
+    def _members(self, sample: Sample):
+        """Per-member (offsets, signs, initial states (n, e, state_dim))."""
+        cfg = self.config
+        states = sample.states
+        if states.ndim == 2:
+            states = states[:, None, :]
+        if cfg.mirrored:
+            return (member_offsets(sample.offsets),
+                    pair_signs(cfg.population_size, self.device),
+                    torch.repeat_interleave(states, 2, dim=0))
+        ones = torch.ones((cfg.population_size,), dtype=torch.float32, device=self.device)
+        return sample.offsets, ones, states
+
+    def _evaluate(self, state: ESState, sample: Sample):
+        """Fitness (n,), BC (n, bc_dim) and the summed alive steps of the
+        population, rolled out chunk by chunk."""
+        cfg = self.config
+        offs, signs, states = self._members(sample)
+        e = cfg.episodes_per_member
+        # the center, unraveled (and cast) once a generation: its product
+        # is one matmul over each chunk (the standard forward forms θ_i
+        # instead)
+        shared = self.spec.unravel(self._cast(state.params_flat))
+        fits, bcs, steps = [], [], []
+        for lo in range(0, cfg.population_size, self.eval_chunk):
+            hi = lo + self.eval_chunk
+            apply = self._chunk_apply(state, shared, offs[lo:hi], signs[lo:hi])
+            states0 = states[lo:hi].reshape((hi - lo) * e, -1)
+            res = self._rollout(apply, states0, self.env.observe(states0))
+            # fitness = mean return; BC = the first episode's; steps summed
+            fits.append(res.total_reward.view(hi - lo, e).mean(dim=1))
+            bcs.append(res.bc.view(hi - lo, e, -1)[:, 0])
+            steps.append(res.steps.sum())
+        return torch.cat(fits), torch.cat(bcs), torch.stack(steps).sum()
+
+    def _chunk_apply(self, state: ESState, shared, offs: torch.Tensor,
+                     signs: torch.Tensor) -> Callable[[torch.Tensor], torch.Tensor]:
+        """``batched_apply(raw obs (k·e, obs_dim)) -> (k·e, act)`` for the k
+        members of one chunk, their noise read once here."""
+        cfg = self.config
+        data = self.table.data
+        k = offs.shape[0]
+        c = state.sigma * signs
+        if cfg.streamed:  # float32 and one episode a member: x is (k, 1, d)
+            def fwd(x):
+                return self._streamed_apply(shared, data, offs, c, x[:, 0])
+        elif cfg.low_rank:
+            lrn = self.lr_spec.unpack(self._cast(gather_rows(data, offs, self.noise_dim)))
+            cc = self._cast(c)
+
+            def fwd(x):
+                return mlp_lowrank_population_apply(self.module, shared, lrn, cc, x)
+        elif cfg.decomposed:
+            noise = self.spec.unravel(self._cast(gather_rows(data, offs, self.spec.dim)))
+            cc = self._cast(c)
+
+            def fwd(x):
+                return mlp_decomposed_population_apply(self.module, shared, noise, cc, x)
+        else:
+            theta = state.params_flat + c[:, None] * gather_rows(data, offs, self.spec.dim)
+            members = self.spec.unravel(self._cast(theta))
+
+            def fwd(x):
+                return member_params_apply(self.module, members, x)
+
+        def batched_apply(obs: torch.Tensor) -> torch.Tensor:
+            if cfg.obs_norm:
+                # normalized in float32 against this generation's stats,
+                # then cast: every member sees the same snapshot
+                obs = normalize_obs(obs, state.obs_stats, cfg.obs_clip)
+            out = fwd(self._cast(obs).reshape(k, -1, obs.shape[-1]))
+            return out.reshape(obs.shape[0], -1).to(torch.float32)
+
+        return batched_apply
+
+    def _center_apply(self, params_flat: torch.Tensor, obs_stats
+                      ) -> Callable[[torch.Tensor], torch.Tensor]:
+        """The standard forward of the center for the probe and
+        :meth:`evaluate_center`."""
+        cfg = self.config
+        params = self.spec.unravel(self._cast(params_flat))
+
+        def apply(obs: torch.Tensor) -> torch.Tensor:
+            if cfg.obs_norm:
+                obs = normalize_obs(obs, obs_stats, cfg.obs_clip)
+            return self.module.apply_params(params, self._cast(obs)).to(torch.float32)
+
+        return apply
+
+    # -------------------------------------------------------------- update
+
+    def _grad(self, state: ESState, weights: torch.Tensor, red_offs: torch.Tensor):
+        """The ascent direction from per-member rank weights; ``red_offs``
+        is per pair (mirrored: folded estimator) or per member."""
+        cfg = self.config
+        row_w = fold_mirrored_weights(weights) if cfg.mirrored else weights
+        scale = cfg.population_size * state.sigma
+        if cfg.low_rank:
+            # one einsum per layer over the stacked factors: no member's
+            # dense E is formed
+            noise = gather_rows(self.table.data, red_offs, self.noise_dim)
+            return self.spec.flatten(lowrank_weighted_sum(self.lr_spec, noise, row_w)) / scale
+        if cfg.noise_kernel:
+            return weighted_noise_sum(self.table.data, red_offs, row_w.contiguous(),
+                                      self.spec.dim) / scale
+        if cfg.mirrored:
+            return es_gradient(self.table, red_offs, weights, sigma=state.sigma,
+                               population_size=cfg.population_size, dim=self.spec.dim,
+                               chunk=cfg.grad_chunk)
+        return rank_weighted_noise_sum(self.table, red_offs, weights, dim=self.spec.dim,
+                                       chunk=cfg.grad_chunk) / scale
+
+    def _finish_update(self, state: ESState, grad_ascent: torch.Tensor, sample: Sample):
+        """Weight decay, the optimizer step, σ annealing and, with
+        ``obs_norm``, the stats refresh from probe episodes of the
+        generation's (pre-update) center."""
         cfg = self.config
         if cfg.weight_decay > 0.0:
             grad_ascent = grad_ascent - cfg.weight_decay * state.params_flat
@@ -183,11 +453,59 @@ class ESEngine:
         new_sigma = state.sigma
         if cfg.sigma_decay != 1.0:
             new_sigma = torch.clamp(state.sigma * cfg.sigma_decay, min=cfg.sigma_min)
+        new_obs_stats = state.obs_stats
+        if cfg.obs_norm:
+            if sample.probe_states is None:
+                raise ValueError("obs_norm needs the sample's probe_states")
+            moments = self._probe_moments(state.params_flat, state.obs_stats,
+                                          sample.probe_states)
+            new_obs_stats = merge_obs_moments(state.obs_stats, *moments)
         new_state = ESState(
             params_flat=state.params_flat + updates,
             opt_state=new_opt_state,
             seed=state.seed,
             generation=state.generation + 1,
             sigma=new_sigma,
+            obs_stats=new_obs_stats,
         )
         return new_state, torch.linalg.vector_norm(grad_ascent)
+
+    def _probe_moments(self, params_flat: torch.Tensor, obs_stats, states0: torch.Tensor):
+        """Summed (count, obs_sum, obs_sumsq) of one probe episode of the
+        policy at ``params_flat`` from each row of ``states0``."""
+        apply = self._center_apply(params_flat, obs_stats)
+        _, m = self._probe_rollout(apply, states0, self.env.observe(states0))
+        return m.count.sum(), m.obs_sum.sum(dim=0), m.obs_sumsq.sum(dim=0)
+
+    # --------------------------------------------------------- inspection
+
+    def evaluate_center(self, state: ESState, states0: torch.Tensor | None = None):
+        """One episode of the unperturbed center → a RolloutResult of one
+        row.  ``states0`` (1, state_dim), or drawn from a stream of
+        ``(seed, generation)`` of its own."""
+        if states0 is None:
+            gen = torch.Generator().manual_seed(
+                _seed_of(state.seed, state.generation, _CENTER_STREAM))
+            states0, _ = self.env.reset(gen, 1)
+        states0 = states0.to(self.device)
+        apply = self._center_apply(state.params_flat, state.obs_stats)
+        return self._rollout(apply, states0, self.env.observe(states0))
+
+    def member_params(self, state: ESState, member_index: int,
+                      sample: Sample | None = None) -> torch.Tensor:
+        """One member's flat params θ + σ s ε (dense, also for low rank),
+        rebuilt from this generation's offsets, e.g. to keep the best
+        member."""
+        sample = self.sample(state) if sample is None else sample
+        if self.config.mirrored:
+            off = int(sample.offsets[member_index // 2])
+            sign = 1.0 if member_index % 2 == 0 else -1.0
+        else:
+            off = int(sample.offsets[member_index])
+            sign = 1.0
+        if self.config.low_rank:
+            noise = self.spec.flatten(
+                lowrank_noise_tree(self.lr_spec, self.table.slice(off, self.noise_dim)))
+        else:
+            noise = self.table.slice(off, self.spec.dim)
+        return state.params_flat + state.sigma * sign * noise

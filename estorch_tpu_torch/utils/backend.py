@@ -21,6 +21,8 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     Also switches TF32 off for float32 matmuls and cuDNN convolutions: TF32
     keeps about three decimal digits, and the port is held against the
     float32 JAX reference, so every float32 product stays a float32 one.
+    bf16 products likewise keep their float32 sums (no bf16 split-K
+    reductions), as XLA's do.
     """
     dev = torch.device(DEFAULT_DEVICE if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -32,4 +34,5 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
         raise ValueError(f"device must be a cuda or cpu device, got {dev}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return dev

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on a card, against their plain versions.
+"""The port's CUDA kernels on a card, against their plain versions, and the
+ES paths on the card against the same paths on the CPU.
 
 Every test here needs a CUDA card and nvcc and skips without them.  The
 file imports no JAX, so it also runs where JAX is not installed:
@@ -134,3 +135,77 @@ def test_wrapper_checks_inputs(table, cuda):
         nk.population_noise_matvec(table, torch.zeros(2, dtype=torch.int32),
                                    torch.ones(2, device=cuda), torch.ones(2, 4, device=cuda),
                                    0, 4, 3)
+
+
+# the ES paths of chip_smoke.py's phase 5: options, and whether they launch
+# the update kernel and the matvec kernel
+ES_PATHS = {
+    "a_standard": ({}, False, False),
+    "b_standard_kernel_update": ({"noise_kernel": True}, True, False),
+    "c_decomposed_bf16_kernel_update":
+        ({"decomposed": True, "compute_dtype": "bfloat16", "noise_kernel": True}, True, False),
+    "d_low_rank_bf16": ({"low_rank": 1, "compute_dtype": "bfloat16"}, False, False),
+    "e_obs_norm_streamed": ({"obs_norm": True, "streamed": True, "noise_kernel": True},
+                            True, True),
+}
+
+
+@pytest.mark.parametrize("path", list(ES_PATHS))
+def test_es_path_on_card_matches_cpu(cuda, path):
+    """Two generations, Pendulum MLP64x64, population 64, horizon 50, on the
+    card and on the CPU (plain versions).  float32: reward means within 1e-4
+    relative, params within 1e-4.  bf16, at tests/test_torch_paths.py's
+    tolerance: SGD, reward means within 1e-3 relative, the param changes'
+    cosine >= 0.99."""
+    from estorch_tpu_torch import ES, DeviceAgent, MLPPolicy, Pendulum, adam, sgd
+
+    opts, update_kernel, matvec_kernel = ES_PATHS[path]
+    bf16 = opts.get("compute_dtype") == "bfloat16"
+    kw = dict(population_size=64, sigma=0.05, table_size=1 << 22,
+              policy_kwargs={"action_dim": 1, "hidden": (64, 64), "discrete": False,
+                             "action_scale": 2.0},
+              optimizer_kwargs={"learning_rate": 1e-2}, **opts)
+    card = ES(MLPPolicy, DeviceAgent(Pendulum(), horizon=50), sgd if bf16 else adam,
+              device=cuda, **kw)
+    cpu = ES(MLPPolicy, DeviceAgent(Pendulum(), horizon=50), sgd if bf16 else adam,
+             device="cpu", **kw)
+    p0 = cpu.state.params_flat.clone()
+    nk.reset_launch_counts()
+    card.train(2, verbose=False)
+    assert nk.launch_counts == {"weighted_noise_sum": 2 if update_kernel else 0,
+                                "population_noise_matvec": 300 if matvec_kernel else 0}
+    cpu.train(2, verbose=False)
+    want = np.array([r["reward_mean"] for r in cpu.history])
+    got = np.array([r["reward_mean"] for r in card.history])
+    np.testing.assert_allclose(got, want, rtol=1e-3 if bf16 else 1e-4)
+    p_card = card.state.params_flat.cpu()
+    if bf16:
+        dg, dc = p_card - p0, cpu.state.params_flat - p0
+        assert float(dg @ dc / (dg.norm() * dc.norm())) >= 0.99
+    else:
+        torch.testing.assert_close(p_card, cpu.state.params_flat, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("path", ["a_standard", "c_decomposed_bf16_kernel_update",
+                                  "d_low_rank_bf16", "e_obs_norm_streamed"])
+def test_eval_chunk_matches_whole_population_on_card(cuda, path):
+    """At the main path's width, chunks of 1024 members against the whole
+    population, one generation at horizon 20.  Not bit for bit, as on the
+    CPU: cuBLAS picks its batched-GEMV kernel by the batch count and its
+    GEMV kernel by the row count, so a member's sums can run in another
+    order (chip_smoke.py phase 6 shows which).  Tolerance: float32
+    rounding, grown over 20 env steps — fitness within 1e-3 relative,
+    params within 1e-5 after the first Adam step."""
+    from estorch_tpu_torch import ES, DeviceAgent, MLPPolicy, Pendulum, adam
+
+    kw = dict(population_size=4096, sigma=0.05, table_size=1 << 22, device=cuda,
+              policy_kwargs={"action_dim": 1, "hidden": (64, 64), "discrete": False,
+                             "action_scale": 2.0},
+              optimizer_kwargs={"learning_rate": 1e-2}, **ES_PATHS[path][0])
+    whole = ES(MLPPolicy, DeviceAgent(Pendulum(), horizon=20), adam, **kw)
+    chunked = ES(MLPPolicy, DeviceAgent(Pendulum(), horizon=20), adam, eval_chunk=1024, **kw)
+    assert chunked.engine.eval_chunk == 1024
+    new_w, mw = whole.engine.generation_step(whole.state)
+    new_c, mc = chunked.engine.generation_step(chunked.state)
+    torch.testing.assert_close(mc["fitness"], mw["fitness"], rtol=1e-3, atol=0)
+    torch.testing.assert_close(new_c.params_flat, new_w.params_flat, rtol=0, atol=1e-5)

@@ -230,34 +230,96 @@ def test_default_device_raises_without_cuda():
         ES(MLPPolicy, DeviceAgent(Pendulum(), horizon=5), adam,
            policy_kwargs=PENDULUM_POLICY, optimizer_kwargs={"learning_rate": 1e-2},
            streamed=True, noise_kernel=True, table_size=1 << 14)
+    # the default constructor, no path options: the standard forward
+    with pytest.raises(RuntimeError, match="cuda"):
+        ES(MLPPolicy, DeviceAgent(Pendulum(), horizon=5), adam,
+           policy_kwargs=PENDULUM_POLICY, optimizer_kwargs={"learning_rate": 1e-2})
     with pytest.raises(RuntimeError, match="cuda"):
         resolve_device()
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+def test_default_constructor_trains_the_standard_forward():
+    es = ES(MLPPolicy, DeviceAgent(Pendulum(), horizon=20), adam, device="cpu",
+            policy_kwargs=PENDULUM_POLICY, optimizer_kwargs={"learning_rate": 1e-2},
+            table_size=1 << 16)
+    cfg = es.config
+    assert not (cfg.streamed or cfg.noise_kernel or cfg.decomposed or cfg.low_rank
+                or cfg.obs_norm)
+    p0 = es.state.params_flat.clone()
+    es.train(2, verbose=False)
+    assert len(es.history) == 2 and np.isfinite(es.history[-1]["reward_mean"])
+    assert not torch.equal(p0, es.state.params_flat)
+
+
+class _RecurrentPolicy:
+    """Stands for a recurrent policy: only the marker the ES reads."""
+
+    is_recurrent = True
+
+    def __init__(self, **kwargs):
+        del kwargs
+
+
+class _PooledAgent:
+    env_name = "CartPole-v1"
+
+
+class _HostAgent:
+    def rollout(self, policy):
+        return 0.0
+
+
+# the first seven cases named options that are ported now; each points at
+# an option that still waits for its ROADMAP.md item
 @pytest.mark.parametrize("option", [
-    {"streamed": False},
-    {"noise_kernel": False},
-    {"decomposed": True},
-    {"low_rank": 4},
-    {"obs_norm": True},
-    {"compute_dtype": "bfloat16"},
-    {"episodes_per_member": 2},
+    {"mesh": object()},
+    {"policy": _RecurrentPolicy},
+    {"policy_kwargs": dict(PENDULUM_POLICY, use_vbn=True)},
+    {"agent": _PooledAgent()},
+    {"agent": _HostAgent()},
+    {"policy": _RecurrentPolicy, "low_rank": 1},  # the tree form of low rank
+    {"shard_params": True, "mesh": object()},
     {"shard_params": True},
     {"scenarios": object()},
 ])
 def test_unported_options_raise(option):
+    option = dict(option)
+    policy = option.pop("policy", MLPPolicy)
+    agent = option.pop("agent", DeviceAgent(Pendulum(), horizon=20))
+    kw = dict(population_size=16, sigma=0.05, seed=0, device="cpu",
+              policy_kwargs=PENDULUM_POLICY, optimizer_kwargs={"learning_rate": 1e-2},
+              table_size=1 << 16)
+    kw.update(option)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        _torch_es(True, **option)
+        ES(policy, agent, adam, **kw)
+
+
+@pytest.mark.parametrize("option,message", [
+    ({"streamed": True, "decomposed": True}, "streamed IS the kernel form of decomposed"),
+    ({"low_rank": 1, "streamed": True}, "low_rank replaces the full-rank noise pathway"),
+    ({"low_rank": 1, "noise_kernel": True}, "low_rank replaces the full-rank noise pathway"),
+    ({"streamed": True, "compute_dtype": "bfloat16"}, "streamed runs in float32"),
+    ({"streamed": True, "episodes_per_member": 2}, "supports episodes_per_member=1"),
+    ({"obs_warmup_episodes": 2}, "requires obs_norm=True"),
+    ({"compute_dtype": "float16"}, "compute_dtype must be float32 or bfloat16"),
+], ids=["streamed+decomposed", "low_rank+streamed", "low_rank+noise_kernel",
+        "streamed+bf16", "streamed+episodes", "warmup_without_obs_norm", "float16"])
+def test_incompatible_options_raise_as_in_jax(option, message):
+    """The combinations the JAX package rejects raise the same ValueError."""
+    base = dict(population_size=16, sigma=0.05, seed=0, policy_kwargs=PENDULUM_POLICY,
+                optimizer_kwargs={"learning_rate": 1e-2}, table_size=1 << 16)
+    with pytest.raises(ValueError, match=message):
+        JES(JMLPPolicy, JaxAgent(jenvs.Pendulum(), horizon=20), optax.adam,
+            mesh=population_mesh(jax.devices()[:1]), telemetry=False, **base, **option)
+    with pytest.raises(ValueError, match=message):
+        ES(MLPPolicy, DeviceAgent(Pendulum(), horizon=20), adam, device="cpu", **base,
+           **option)
 
 
 def test_host_agent_and_vbn_raise():
-    class HostAgent:
-        def rollout(self, policy):
-            return 0.0
-
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ES(MLPPolicy, HostAgent(), adam, device="cpu", policy_kwargs=PENDULUM_POLICY,
+        ES(MLPPolicy, _HostAgent(), adam, device="cpu", policy_kwargs=PENDULUM_POLICY,
            optimizer_kwargs={"learning_rate": 1e-2}, streamed=True, noise_kernel=True)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         MLPPolicy(action_dim=1, use_vbn=True)
