@@ -15,14 +15,18 @@ Phases, in order; any failure exits non-zero before the last line:
    need the clamp, timed cold (L2 flushed before each launch by writing and
    then reading a 256 MB buffer), and timed at shapes off the main path:
    the (256, 256) layer of the JAX bench's BIG config and the CartPole
-   MLP64x64 layers;
+   MLP64x64 layers; both kernels are also checked and timed at the shapes
+   of phase 7's streamed paths (g) and (i);
 3. the main path: ES on Pendulum, MLP 64x64, population 4096, horizon 200,
    streamed forward + kernel update, 1 warm-up and 3 timed generations,
    with the kernels' launch counts read around that run, then one more
    generation under torch.profiler for the device's busy share;
 4. two generations at a small size on the card and on the CPU (plain
    versions), for the streamed path and for each path of phase 5: the
-   fitness and params must agree;
+   fitness and params must agree; then one run of each env added for phase
+   7 (classic control, synthetic, planar locomotion and its two wrappers)
+   at population 64, horizon 20, SGD: reward means and update directions
+   must agree (1e-4, cosine 0.999);
 5. the other paths at the width of phase 3, each through ``ES(...).train``
    with 1 warm-up and 3 timed generations, its launch counts read around
    that run and checked exactly, then one profiled generation: (a) the
@@ -31,7 +35,17 @@ Phases, in order; any failure exits non-zero before the last line:
    (d) low rank 1 in bf16, (e) obs_norm on the streamed path (both kernels);
 6. one generation of each path with ``eval_chunk=1024`` against the whole
    population, and the products alone over 1024 rows against 4096: which
-   results depend on the chunk (reported, not held).
+   results depend on the chunk (reported, not held);
+7. the env paths at full width, each through ``ES(...).train`` with 1
+   warm-up and 3 timed generations (1 for (h)), its launch counts read
+   around that run and checked exactly, then one profiled generation: (f)
+   Cheetah2D, MLP 64x64, pop 1024, horizon 200 (the ``cheetah2d_device``
+   recipe at the JAX bench's LOCO horizon), standard forward; (g) the same,
+   streamed forward + kernel update; (h) the ``humanoid2d_pop10k`` recipe
+   (Humanoid2D, MLP 256x256, pop 10240, rank-1 noise, obs_norm with 4 probe
+   episodes, chunks of 1024) in bf16 at horizon 100; (i) SyntheticEnv
+   (376 -> 256x256 -> 17), pop 4096, horizon 200, streamed forward + kernel
+   update.
 
 Then one JSON line of per-path numbers, one of per-kernel numbers (launches
 from phase 3), the card line, and the last line
@@ -66,6 +80,26 @@ PATHS = [
     ("e obs_norm streamed", {"obs_norm": True, **STREAMED}, GENERATIONS,
      3 * HORIZON * GENERATIONS),
 ]
+# phase 7's env paths, each through ES(...).train: label, how to build it, the
+# timed generations after 1 warm-up, and whether it runs the two kernels (the
+# streamed forward's 3 matvec launches an env step and the update's 1
+# reduction a generation)
+LOCO_HORIZON = 200  # the JAX bench's LOCO row (bench.py:285)
+LOCO10K_HORIZON = 100  # the JAX bench's LOCO10K rows (bench.py:287)
+ENV_PATHS = [
+    ("f loco/standard/f32", lambda tt, cf: cf.cheetah2d_device(
+        agent_kwargs={"env": tt.Cheetah2D(), "horizon": LOCO_HORIZON}), 3, False),
+    ("g loco/streamed/f32+nk", lambda tt, cf: cf.cheetah2d_device(
+        agent_kwargs={"env": tt.Cheetah2D(), "horizon": LOCO_HORIZON}, **STREAMED), 3, True),
+    ("h loco10k/lowrank1+obsnorm/bf16", lambda tt, cf: cf.humanoid2d_pop10k(
+        agent_kwargs={"env": tt.Humanoid2D(), "horizon": LOCO10K_HORIZON},
+        compute_dtype="bfloat16"), 1, False),
+    ("i big/streamed/f32+nk", lambda tt, cf: tt.ES(
+        tt.MLPPolicy, tt.DeviceAgent(tt.SyntheticEnv(), horizon=HORIZON), tt.adam,
+        population_size=POPULATION, sigma=0.05, optimizer_kwargs={"learning_rate": 1e-2},
+        policy_kwargs={"action_dim": 17, "hidden": (256, 256), "discrete": False,
+                       "action_scale": 1.0}, **STREAMED), 3, True),
+]
 L2_FLUSH_BYTES = 256 << 20  # written and read before each cold launch: five times the L2
 # one env step's three launches before the pair-sharing redesign, as measured
 # then on an H100 80GB HBM3 at 700 W: printed beside this run's time, never
@@ -78,6 +112,13 @@ CARD_PEAKS = {
     "H100 PCIe": (2.0e12, 51e12),
     "H100": (3.35e12, 67e12),  # SXM, the default for any other H100 name
 }
+
+
+T0 = time.perf_counter()
+
+
+def phase(title: str) -> None:
+    print(f"---- {title} (at {time.perf_counter() - T0:.1f} s)", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -162,30 +203,41 @@ def union_floats(starts, length: int) -> int:
     return total + (cur_hi - cur_lo if cur_hi is not None else 0)
 
 
-def profile_generation(torch, es, top: int = 15) -> float:
+def profile_generation(torch, es, top: int = 15) -> tuple[float, int]:
     """One more generation under torch.profiler: the device's busy share of
-    the wall time and the kernels that take it.  Returns the busy seconds."""
+    the wall time and the kernels that take it.  Returns the busy seconds
+    and the number of kernel launches (copies and fills not counted).
+
+    Only the device's activity is recorded, and its events are summed raw:
+    ``key_averages()`` builds a Python object an event (about 0.3 ms each),
+    minutes for a locomotion generation's million launches."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         es.train(1, verbose=False)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # kernel rows only: an operator's row repeats its kernels' device time
-    rows = sorted(((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
-                   if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0),
+    by_name: dict[str, list] = {}
+    for e in prof.profiler.kineto_results.events():
+        if not str(e.device_type()).endswith("CUDA"):
+            continue  # host-side events: the runtime's launch calls
+        row = by_name.setdefault(e.name(), [0, 0])
+        row[0] += e.duration_ns()
+        row[1] += 1
+    rows = sorted(((ns / 1e3, count, name) for name, (ns, count) in by_name.items()),
                   reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e6
+    kernels = sum(r[1] for r in rows if not r[2].startswith(("Memcpy", "Memset")))
     print(f"profile: one generation {wall:.4f} s wall under the profiler, device busy "
-          f"{busy_s:.4f} s ({busy_s / wall:.3f} of wall)")
+          f"{busy_s:.4f} s ({busy_s / wall:.3f} of wall), {kernels} kernel launches")
     mv = [r for r in rows if "noise_matvec" in r[2]]
     print(f"  noise_matvec kernels: {sum(r[0] for r in mv) / 1e3:.3f} ms device time, "
           f"{sum(r[1] for r in mv)} launches")
     for us, count, key in rows[:top]:
         print(f"  {us / 1e3:9.3f} ms  {count:6d}x  {key[:90]}")
-    return busy_s
+    return busy_s, kernels
 
 
 def compare_card_cpu(torch, tt) -> None:
@@ -229,6 +281,109 @@ def compare_card_cpu(torch, tt) -> None:
                   f"err {fit_err:.3g} (tol 1e-4), params max |err| {p_err:.3g} (tol 1e-4)")
 
 
+def compare_envs_card_cpu(torch, tt) -> list[dict]:
+    """Phase 4, the envs: two generations of each env added for phase 7 at
+    population 64, horizon 20 (the CPU parity tests' horizon), MLP 64x64,
+    SGD, on the card and on the CPU.  Held: reward means within 1e-4 of
+    max(|mean|, 1), and the param changes' cosine >= 0.999.  The planar
+    physics is chaotic, and the card rounds sin, cos, tanh and its sums
+    otherwise than the CPU; with SGD the change is the ascent direction,
+    which a rank swap of two near-equal members moves only a little.  The
+    first run on an H100 80GB HBM3 measured at most 6.0e-7 and a cosine of
+    0.9999998: the margins are for another card's cuBLAS choices."""
+    envs = [("Acrobot", tt.Acrobot(), True), ("MountainCar", tt.MountainCar(), True),
+            ("MountainCarContinuous", tt.MountainCarContinuous(), False),
+            ("SyntheticEnv", tt.SyntheticEnv(), False), ("RecallEnv", tt.RecallEnv(), False),
+            ("Swimmer2D", tt.Swimmer2D(), False), ("Hopper2D", tt.Hopper2D(), False),
+            ("Walker2D", tt.Walker2D(), False), ("Humanoid2D", tt.Humanoid2D(), False),
+            ("Cheetah2D", tt.Cheetah2D(), False),
+            ("PositionOnly(Walker2D)", tt.PositionOnly(tt.Walker2D()), False),
+            ("DeceptiveValley(Hopper2D)", tt.DeceptiveValley(tt.Hopper2D()), False)]
+    out = []
+    for label, env, discrete in envs:
+        kw = dict(population_size=64, sigma=0.05, table_size=1 << 22,
+                  optimizer_kwargs={"learning_rate": 1e-2},
+                  policy_kwargs={"action_dim": env.action_dim, "hidden": (64, 64),
+                                 "discrete": discrete, "action_scale": 1.0})
+        es_gpu = tt.ES(tt.MLPPolicy, tt.DeviceAgent(env, horizon=20), tt.sgd, **kw)
+        es_cpu = tt.ES(tt.MLPPolicy, tt.DeviceAgent(env, horizon=20), tt.sgd, device="cpu", **kw)
+        p0 = es_cpu.state.params_flat.clone()
+        es_gpu.train(2, verbose=False)
+        es_cpu.train(2, verbose=False)
+        fit_err = max(abs(a["reward_mean"] - b["reward_mean"]) / max(abs(b["reward_mean"]), 1.0)
+                      for a, b in zip(es_gpu.history, es_cpu.history))
+        same_steps = all(a["env_steps"] == b["env_steps"]
+                         for a, b in zip(es_gpu.history, es_cpu.history))
+        dg, dc = es_gpu.state.params_flat.cpu() - p0, es_cpu.state.params_flat - p0
+        cos = float(dg @ dc / (dg.norm() * dc.norm()))
+        p_err = float((dg - dc).abs().max())
+        rec = {"env": label, "reward_mean_rel_err": fit_err, "cosine": cos,
+               "params_max_abs_err": p_err, "same_alive_steps": same_steps}
+        print(f"card vs CPU, {label} (pop 64, horizon 20, 2 generations, SGD): reward_mean "
+              f"err {fit_err:.3g} (tol 1e-4), param change cosine {cos:.7f} (tol 0.999), "
+              f"params max |err| {p_err:.3g}, alive steps equal {same_steps}")
+        if not (fit_err <= 1e-4 and cos >= 0.999):
+            fail(f"card vs CPU, {label}: {rec}")
+        out.append(rec)
+        del es_gpu, es_cpu
+    return out
+
+
+def run_env_paths(torch, tt, nk, card: str) -> list[dict]:
+    """Phase 7: each of ENV_PATHS at full width through ``ES(...).train``:
+    the launch counts are set to 0 just before its 1 + timed generations,
+    read just after and held exact; then one profiled generation, whose
+    kernel launches over horizon x chunks give the launches an env step."""
+    from estorch_tpu_torch import configs
+
+    paths = []
+    for label, build, timed, kernels in ENV_PATHS:
+        torch.cuda.empty_cache()
+        es = build(tt, configs)
+        if es.device.type != "cuda":
+            fail(f"path {label} ran on {es.device}")
+        horizon = es.config.horizon
+        p0 = es.state.params_flat.clone()
+        torch.cuda.synchronize()
+        nk.reset_launch_counts()
+        es.train(1, verbose=False)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        es.train(timed, verbose=False)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = dict(nk.launch_counts)
+        gens = 1 + timed
+        want = {"weighted_noise_sum": gens if kernels else 0,
+                "population_noise_matvec": 3 * horizon * gens if kernels else 0}
+        if counts != want:
+            fail(f"path {label}: launch counts {counts}, expected {want}")
+        if len(es.history) != gens:
+            fail(f"path {label}: expected {gens} generations, got {len(es.history)}")
+        for r in es.history:
+            if r["n_failed"] or not all(math.isfinite(r[k])
+                                        for k in ("reward_mean", "reward_max", "grad_norm")):
+                fail(f"path {label}, generation {r['generation']}: non-finite result {r}")
+        if torch.equal(p0, es.state.params_flat):
+            fail(f"path {label}: params did not change")
+        steps = sum(r["env_steps"] for r in es.history[1:])
+        gen_s = dt / timed
+        chunks = es.population_size // es.engine.eval_chunk
+        print(f"path {label}: {steps / dt:.0f} env-steps/s (alive) over {timed} generations "
+              f"({gen_s:.4f} s a generation) on {card}; launches {counts}; reward mean "
+              f"{es.history[0]['reward_mean']:.2f} -> {es.history[-1]['reward_mean']:.2f}")
+        busy, launched = profile_generation(torch, es, top=8)  # not part of the counts
+        per_step = launched / (horizon * chunks)
+        print(f"  {launched} kernel launches in the profiled generation = {per_step:.1f} an env "
+              f"step ({horizon} steps x {chunks} chunks); busy share {busy / gen_s:.3f}")
+        paths.append({"path": label, "launches": counts, "env_steps_per_s": steps / dt,
+                      "s_per_generation": gen_s, "device_busy_s": busy,
+                      "busy_share": busy / gen_s, "kernel_launches_per_env_step": per_step,
+                      "population": es.population_size, "horizon": horizon, "chunks": chunks})
+        del es
+    return paths
+
+
 def run_paths(torch, tt, nk, card: str) -> list[dict]:
     """Phase 5: each of PATHS at full width through ``ES(...).train``: the
     launch counts are set to 0 just before its 1 + 3 generations, read just
@@ -265,7 +420,7 @@ def run_paths(torch, tt, nk, card: str) -> list[dict]:
         print(f"path {label}: {steps / dt:.0f} env-steps/s over {GENERATIONS - 1} generations "
               f"({gen_s:.4f} s a generation) on {card}; launches {counts}; reward mean "
               f"{es.history[0]['reward_mean']:.2f} -> {es.history[-1]['reward_mean']:.2f}")
-        busy = profile_generation(torch, es, top=8)  # after the counts: not part of them
+        busy, _ = profile_generation(torch, es, top=8)  # after the counts: not part of them
         paths.append({"path": label, "options": opts, "launches": counts,
                       "env_steps_per_s": steps / dt, "s_per_generation": gen_s,
                       "device_busy_s": busy, "busy_share": busy / gen_s})
@@ -321,13 +476,15 @@ def main() -> None:
         fail(f"cannot import estorch_tpu_torch from {HERE}: {e}")
     if not os.path.abspath(estorch_tpu_torch.__file__).startswith(HERE + os.sep):
         fail(f"estorch_tpu_torch comes from {estorch_tpu_torch.__file__}, not this checkout")
-    from estorch_tpu_torch import ES, CartPole, DeviceAgent, MLPPolicy, Pendulum, adam
+    from estorch_tpu_torch import (ES, CartPole, Cheetah2D, DeviceAgent, MLPPolicy, Pendulum,
+                                   SyntheticEnv, adam)
     from estorch_tpu_torch.ops import _build
     from estorch_tpu_torch.ops import noise_kernels as nk
     from estorch_tpu_torch.ops.noise import make_noise_table, member_offsets, sample_pair_offsets
     from estorch_tpu_torch.ops.params import make_param_spec
 
     # ---- 1. identity and build -------------------------------------------
+    phase("1. identity and build")
     card = card_line()
     name = torch.cuda.get_device_name(0)
     bw, f32 = card_peaks(name)
@@ -344,6 +501,7 @@ def main() -> None:
     dev = torch.device("cuda")
 
     # ---- 2. kernels against their plain versions --------------------------
+    phase("2. kernels against their plain versions")
     table = make_noise_table(TABLE_SIZE, seed=0, device=dev).data
     gen = torch.Generator().manual_seed(1)
     params = MLPPolicy(**POLICY).init_params(Pendulum().obs_dim, gen)
@@ -464,11 +622,47 @@ def main() -> None:
     cp_pairs = sample_pair_offsets(gen, n_pairs, TABLE_SIZE, make_param_spec(cp_params)[1].dim)
     for lname, d, h in (("dense_0", 4, 64), ("dense_1", 64, 64), ("head", 64, 2)):
         extra.append(time_matvec(f"cartpole {lname}", cp_pairs, cp_offs[lname]["kernel"], d, h))
+    # the shapes of phase 7's streamed paths: (g) Cheetah2D MLP 64x64 at
+    # n = 1024, whose head (64, 6) takes the narrow mapping, and (i)
+    # SyntheticEnv MLP 256x256 at n = 4096; and the reduction at their dims
+    wns["other_shapes"] = []
+    for plabel, env, hidden, pop in (("g cheetah", Cheetah2D(), (64, 64), 1024),
+                                     ("i synthetic", SyntheticEnv(), (256, 256), POPULATION)):
+        env_params = MLPPolicy(action_dim=env.action_dim, hidden=hidden, discrete=False
+                               ).init_params(env.obs_dim, gen)
+        env_offs = nk.flat_layer_offsets(env_params)
+        env_dim = make_param_spec(env_params)[1].dim
+        env_pairs = sample_pair_offsets(gen, pop // 2, TABLE_SIZE, env_dim)
+        sizes = (env.obs_dim,) + hidden + (env.action_dim,)
+        names = [f"dense_{i}" for i in range(len(hidden))] + ["head"]
+        for lname, d, h in zip(names, sizes[:-1], sizes[1:]):
+            extra.append(time_matvec(f"{plabel} {lname}", env_pairs,
+                                     env_offs[lname]["kernel"], d, h))
+        w = (torch.rand(pop // 2, generator=gen) * 2 - 1).to(dev)
+        offs = env_pairs.to(dev)
+        got = nk.weighted_noise_sum(table, offs, w, env_dim)
+        torch.cuda.synchronize()
+        want = nk.weighted_noise_sum_plain(table, offs, w, env_dim)
+        err = float((got - want).abs().max())
+        if not torch.allclose(got, want, rtol=1e-4, atol=1e-3):
+            fail(f"weighted_noise_sum {plabel} n={pop // 2} dim={env_dim}: max |err| {err:g}")
+        ms = time_ms(torch, lambda: nk.weighted_noise_sum(table, offs, w, env_dim))
+        plain_ms = time_ms(torch, lambda: nk.weighted_noise_sum_plain(table, offs, w, env_dim))
+        nbytes = 4 * (union_floats(env_pairs, env_dim) + 2 * (pop // 2) + env_dim)
+        bound = max(nbytes / bw, 2 * (pop // 2) * env_dim / f32) * 1e3
+        print(f"weighted_noise_sum {plabel} n={pop // 2} dim={env_dim}: max |err| {err:.3g} "
+              f"(tol atol 1e-3, rtol 1e-4); time {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB distinct)")
+        wns["other_shapes"].append({"shape": f"{plabel}: n={pop // 2}, dim={env_dim}", "ms": ms,
+                                    "plain_ms": plain_ms, "bound_ms": bound,
+                                    "max_abs_err": err})
+        wns["max_abs_err"] = max(wns["max_abs_err"], err)
     pnm["max_abs_err"] = max(errs + [e["max_abs_err"] for e in extra])
     del flush
     del table
 
     # ---- 3. the main path ---------------------------------------------------
+    phase("3. the main path")
     es = ES(MLPPolicy, DeviceAgent(Pendulum(), horizon=HORIZON), adam,
             population_size=POPULATION, sigma=0.05, policy_kwargs=POLICY,
             optimizer_kwargs={"learning_rate": 1e-2}, **STREAMED)
@@ -506,22 +700,31 @@ def main() -> None:
     print(f"  kernels' share of a generation: {kernel_s / gen_s:.3f} "
           f"({HORIZON} x matvec step {pnm['ms']:.4f} ms + reduction {wns['ms']:.4f} ms)")
 
-    busy3 = profile_generation(torch, es)  # after the counts are read: not part of them
+    busy3, _ = profile_generation(torch, es)  # after the counts are read: not part of them
     del es
 
     # ---- 4. the card against the CPU's plain versions at a small size -----
+    phase("4. card against CPU")
     compare_card_cpu(torch, estorch_tpu_torch)
+    env_cmp = compare_envs_card_cpu(torch, estorch_tpu_torch)
 
     # ---- 5. the slice's other paths at full width ----------------------------
+    phase("5. the other paths")
     paths = [{"path": "streamed (phase 3)", "options": STREAMED, "launches": launches,
               "env_steps_per_s": steps / dt, "s_per_generation": gen_s,
               "device_busy_s": busy3, "busy_share": busy3 / gen_s}]
     paths += run_paths(torch, estorch_tpu_torch, nk, card)
 
     # ---- 6. eval_chunk against the whole population ----------------------------
+    phase("6. eval_chunk")
     chunking = chunk_invariance(torch, estorch_tpu_torch)
 
+    # ---- 7. the env paths at full width ------------------------------------------
+    phase("7. the env paths")
+    paths += run_env_paths(torch, estorch_tpu_torch, nk, card)
+
     # ---- report --------------------------------------------------------------
+    phase("report")
     kernels = [
         {"name": "weighted_noise_sum", "route": "cuda",
          "source": "estorch_tpu_torch/ops/csrc/noise_kernels.cu",
@@ -529,7 +732,7 @@ def main() -> None:
          "launches": launches["weighted_noise_sum"], "max_abs_err": wns["max_abs_err"],
          "ms": wns["ms"], "plain_ms": wns["plain_ms"], "bound_ms": wns["bound_ms"],
          "bound_by": wns["bound_by"], "library_ms": None,
-         "shape": f"n={n_pairs} rows, dim={dim}"},
+         "shape": f"n={n_pairs} rows, dim={dim}", "other_shapes": wns["other_shapes"]},
         {"name": "population_noise_matvec", "route": "cuda",
          "source": "estorch_tpu_torch/ops/csrc/noise_kernels.cu",
          "replaces": "estorch_tpu/ops/pallas_noise.py:201",
@@ -541,7 +744,7 @@ def main() -> None:
                                            "plain_ms", "bound_ms")}
                     for layer in layers + extra]},
     ]
-    print(json.dumps({"paths": paths, "eval_chunk": chunking}))
+    print(json.dumps({"paths": paths, "eval_chunk": chunking, "card_vs_cpu_envs": env_cmp}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

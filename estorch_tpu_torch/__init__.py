@@ -4,14 +4,31 @@ The JAX package ``estorch_tpu`` stays the reference; this package mirrors
 its module paths and names, imports ``torch`` and never JAX, and runs on a
 CUDA card unless the caller passes ``device="cpu"``.  ES runs the
 standard, decomposed, low-rank and streamed forwards, with obs
-normalization and bf16 as options; the streamed forward and the
-``noise_kernel`` update run two hand-written Hopper kernels
-(``ops/csrc``), whose plain PyTorch versions sit beside them in
-``ops/noise_kernels.py``.
+normalization and bf16 as options, on every device env of the JAX package
+(classic control, synthetic, planar locomotion); ``configs`` holds the
+device recipes.  The streamed forward and the ``noise_kernel`` update run
+two hand-written Hopper kernels (``ops/csrc``), whose plain PyTorch
+versions sit beside them in ``ops/noise_kernels.py``.
 """
 
 from .algo import ES
-from .envs import CartPole, DeviceAgent, Pendulum
+from .envs import (
+    Acrobot,
+    CartPole,
+    Cheetah2D,
+    DeceptiveValley,
+    DeviceAgent,
+    Hopper2D,
+    Humanoid2D,
+    MountainCar,
+    MountainCarContinuous,
+    Pendulum,
+    PositionOnly,
+    RecallEnv,
+    Swimmer2D,
+    SyntheticEnv,
+    Walker2D,
+)
 from .models import MLPPolicy
 from .ops import NoiseTable, make_noise_table
 from .optim import adam, sgd
@@ -19,7 +36,9 @@ from .parallel import EngineConfig, ESEngine, ESState
 from .utils import resolve_device
 
 __all__ = [
-    "CartPole", "DeviceAgent", "ES", "ESEngine", "ESState", "EngineConfig",
-    "MLPPolicy", "NoiseTable", "Pendulum", "adam", "make_noise_table",
-    "resolve_device", "sgd",
+    "Acrobot", "CartPole", "Cheetah2D", "DeceptiveValley", "DeviceAgent", "ES", "ESEngine",
+    "ESState", "EngineConfig", "Hopper2D", "Humanoid2D", "MLPPolicy", "MountainCar",
+    "MountainCarContinuous", "NoiseTable", "Pendulum", "PositionOnly", "RecallEnv",
+    "Swimmer2D", "SyntheticEnv", "Walker2D", "adam", "make_noise_table", "resolve_device",
+    "sgd",
 ]

@@ -19,11 +19,13 @@ combinations with the same ``ValueError``s.  The options not ported yet
 (``mesh``/``shard_params``, ``scenarios``, host and pooled agents,
 recurrent policies, VBN) raise ``NotImplementedError`` naming their
 ``ROADMAP.md`` item.  ``device`` is ``"cuda"`` unless the caller passes
-``"cpu"``.
+``"cpu"``.  ``best_policy`` keeps the best member seen, and
+``evaluate_policy`` rolls out fresh episodes of the center or of it.
 """
 
 from __future__ import annotations
 
+import copy
 import time
 from typing import Any, Callable
 
@@ -39,7 +41,8 @@ from ..parallel.engine import EngineConfig, ESEngine
 from ..utils.backend import resolve_device
 
 _ROADMAP = "ROADMAP.md, port queue"
-_BACKENDS = "2, the remaining envs and the host and pooled backends"
+_BACKENDS = "2, the host and pooled backends"
+_NOVELTY = "4, the novelty family"
 
 
 def _instantiate(cls_or_obj, kwargs, what: str):
@@ -171,6 +174,8 @@ class ES:
                                lowrank_spec=lr_spec)
         self.state = self.engine.init_state(flat, self.seed)
         self.best_reward = -np.inf
+        self._best_flat: torch.Tensor | None = None  # the best member's params
+        self._best_module = None  # best_policy's module, built at first use
         self.history: list[dict] = []
         self.generation = 0
 
@@ -233,13 +238,21 @@ class ES:
             return "non-finite parameters/update norm after the optimizer step"
         return None
 
-    def _record(self, prev_state, fitness: np.ndarray, steps: int,
-                grad_norm: float, dt: float) -> dict:
+    def _track_best(self, prev_state, fitness: np.ndarray) -> tuple[float, bool]:
+        """Best-member snapshot: (generation max, whether it is a new best).
+        A new best's params are rebuilt from the generation's offsets."""
         finite_any = bool(np.isfinite(fitness).any())
         gen_best = float(np.nanmax(fitness)) if finite_any else float("nan")
         improved = finite_any and gen_best > self.best_reward
         if improved:
             self.best_reward = gen_best
+            self._best_flat = self.engine.member_params(prev_state, int(np.nanargmax(fitness)))
+        return gen_best, improved
+
+    def _record(self, prev_state, fitness: np.ndarray, steps: int,
+                grad_norm: float, dt: float) -> dict:
+        finite_any = bool(np.isfinite(fitness).any())
+        gen_best, improved = self._track_best(prev_state, fitness)
         return {
             "generation": self.generation,
             "reward_max": gen_best,
@@ -261,6 +274,54 @@ class ES:
     def policy(self):
         """The module with the current center params (reference: es.policy)."""
         return self.module.set_params(self.state.params_flat, self.spec)
+
+    @property
+    def best_policy(self):
+        """A module with the best-ever member's params (reference:
+        es.best_policy); the center's policy before any generation."""
+        if self._best_flat is None:
+            return self.policy
+        if self._best_module is None:
+            self._best_module = copy.deepcopy(self.module)
+        return self._best_module.set_params(self._best_flat, self.spec)
+
+    def evaluate_policy(self, n_episodes: int = 10, use_best: bool = False, seed: int = 0,
+                        meta_index: int | None = None, return_details: bool = False) -> dict:
+        """Mean/std/min/max episode return of the current (or best) policy
+        over ``n_episodes`` fresh episodes, batched in one rollout, in
+        float32, normalized with the current obs stats when ``obs_norm`` is
+        on.  ``seed`` seeds the episodes' initial states.
+
+        ``return_details=True`` adds per-episode ``rewards``, ``bc``,
+        ``steps`` and, for envs with the gait protocol (``step_metrics`` /
+        ``episode_metrics``, the locomotion family), ``gait``: per-episode
+        ``forward_velocity_mps`` and ``upright_fraction``.
+        """
+        if meta_index is not None:
+            _unsupported("meta_index (per-center evaluation)", _NOVELTY)
+        flat = self._best_flat if use_best and self._best_flat is not None else None
+        states0, _ = self.env.reset(torch.Generator().manual_seed(int(seed)), int(n_episodes))
+        want_gait = return_details and hasattr(self.env, "step_metrics")
+        out = self.engine.evaluate_episodes(self.state, states0, flat, with_env_metrics=want_gait)
+        res, gait_sums = out if want_gait else (out, None)
+        rewards = res.total_reward.cpu().numpy()
+        summary = {
+            "mean": float(rewards.mean()),
+            "std": float(rewards.std()),
+            "min": float(rewards.min()),
+            "max": float(rewards.max()),
+            "episodes": int(n_episodes),
+        }
+        if return_details:
+            bc, steps = res.bc.cpu().numpy(), res.steps.cpu().numpy()
+            summary.update(rewards=rewards, bc=bc, steps=steps)
+            if gait_sums is not None:
+                sums = gait_sums.cpu().numpy()
+                per_ep = [self.env.episode_metrics(bc[i], steps[i], sums[i])
+                          for i in range(int(n_episodes))]
+                summary["gait"] = {k: np.asarray([m[k] for m in per_ep], np.float32)
+                                   for k in per_ep[0]}
+        return summary
 
 
 def _instantiate_optimizer(optimizer: Any, optimizer_kwargs: dict | None):

@@ -10,7 +10,11 @@ the final frame.
 With ``with_obs_moments=True`` the same loop also sums each row's raw
 observations over its alive steps, reset frame included — the obs_norm
 probe's data, as ``make_rollout(with_obs_moments=True)`` and
-``make_obs_probe`` accumulate it in the JAX package.
+``make_obs_probe`` accumulate it in the JAX package.  With
+``with_env_metrics=True`` it sums the env's per-step gait metrics
+(``env.step_metrics``) over the states each alive step reached, as
+``make_rollout(with_env_metrics=True)`` does — the evaluation channel of
+``ES.evaluate_policy``.
 """
 
 from __future__ import annotations
@@ -54,16 +58,20 @@ def member_params_apply(module, member_params: dict, obs: torch.Tensor) -> torch
     return module.apply_params(tree, obs)
 
 
-def make_batched_rollout(env: Any, horizon: int,
-                         with_obs_moments: bool = False) -> Callable[..., Any]:
+def make_batched_rollout(env: Any, horizon: int, with_obs_moments: bool = False,
+                         with_env_metrics: bool = False) -> Callable[..., Any]:
     """``rollout(batched_apply, states0, obs0)``.
 
     ``batched_apply(obs (n, obs_dim)) -> (n, act)`` closes over the members'
     parameterization.  The JAX form takes reset keys; this one takes the
     initial ``(states, obs)``, so a caller can hand in any start states.
     Returns a :class:`RolloutResult`, or ``(RolloutResult, ObsMoments)``
-    with ``with_obs_moments=True``.
+    with ``with_obs_moments=True``, or ``(RolloutResult, metric_sums (n,
+    k))`` with ``with_env_metrics=True`` (k = ``len(env.metric_names)``).
     """
+    if with_env_metrics and with_obs_moments:
+        raise ValueError("one aux channel per rollout: obs moments are the "
+                         "training probe, env metrics the evaluation one")
     discrete = bool(env.discrete)
 
     def rollout(batched_apply, states0: torch.Tensor, obs0: torch.Tensor):
@@ -77,6 +85,8 @@ def make_batched_rollout(env: Any, horizon: int,
             count = torch.zeros((n,), dtype=torch.float32, device=dev)
             osum = torch.zeros(obs0.shape, dtype=torch.float32, device=dev)
             osumsq = torch.zeros(obs0.shape, dtype=torch.float32, device=dev)
+        if with_env_metrics:
+            msum = torch.zeros((n, len(env.metric_names)), dtype=torch.float32, device=dev)
         for _ in range(horizon):
             alive = torch.logical_not(done)
             alive_f = alive.to(torch.float32)
@@ -90,6 +100,10 @@ def make_batched_rollout(env: Any, horizon: int,
                 osumsq += masked * of
             action = select_action(batched_apply(obs), discrete)
             nstates, nobs, reward, ndone = env.step(states, action)
+            if with_env_metrics:
+                # metrics of the state this alive step reached; frozen
+                # (post-termination) steps add nothing
+                msum += alive_f[:, None] * env.step_metrics(nstates)
             # the accumulators are the rollout's own: add in place, no new
             # (n,) tensor each step
             total += reward * alive_f
@@ -102,6 +116,8 @@ def make_batched_rollout(env: Any, horizon: int,
         res = RolloutResult(total_reward=total, bc=bc, steps=steps)
         if with_obs_moments:
             return res, ObsMoments(count, osum, osumsq)
+        if with_env_metrics:
+            return res, msum
         return res
 
     return rollout

@@ -1,8 +1,10 @@
-"""Carry weights and noise across from the JAX package, as numpy arrays.
+"""Carry weights, noise and env states across from the JAX package, as
+numpy arrays.
 
 Both packages lay their params out the same way (``ops/params.py``), so a
 JAX param tree or its flat ``params_flat`` and the JAX noise table can be
-handed to the port and both compute the same thing.  Only numpy crosses
+handed to the port and both compute the same thing; batched JAX env states
+are packed into the port's ``(n, state_dim)`` rows.  Only numpy crosses
 the boundary; nothing here imports JAX.
 """
 
@@ -51,3 +53,18 @@ def table_from_numpy(array: Any, seed: int | None = None,
                      device: str | torch.device = "cpu") -> NoiseTable:
     """The port's ``NoiseTable`` holding ``array`` (e.g. the JAX table's data)."""
     return NoiseTable.from_numpy(array, seed=seed, device=device)
+
+
+def env_states_from_jax(env: Any, states: Any, device: str | torch.device = "cpu") -> torch.Tensor:
+    """The port's ``(..., state_dim)`` states from batched JAX env states
+    (as numpy): an array ``(..., state_dim)``, or the planar envs' dict of
+    ``pos``, ``theta``, ``vel``, ``omega``, ``t`` with any leading shape,
+    packed in ``env.layout`` (the wrappers forward their base's)."""
+    if not (isinstance(states, dict) or hasattr(states, "items")):
+        return torch.as_tensor(np.array(states, dtype=np.float32)).to(device)
+    fields = {k: np.array(v, dtype=np.float32) for k, v in states.items()}
+    lead = fields["t"].shape
+    flat = [torch.from_numpy(fields[k].reshape((-1,) + fields[k].shape[len(lead):]))
+            for k in ("pos", "theta", "vel", "omega", "t")]
+    packed = env.layout.pack_fields(*flat)
+    return packed.reshape(lead + (packed.shape[-1],)).to(device)

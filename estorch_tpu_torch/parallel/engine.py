@@ -234,6 +234,7 @@ class ESEngine:
         self._rollout = make_batched_rollout(env, config.horizon)
         self._probe_rollout = (make_batched_rollout(env, config.horizon, with_obs_moments=True)
                                if config.obs_norm else None)
+        self._eval_rollouts: dict[bool, Callable[..., Any]] = {}  # evaluate_episodes
         self.rows = config.population_size // 2 if config.mirrored else config.population_size
         self.eval_chunk = _choose_eval_chunk(config.eval_chunk, config.population_size)
 
@@ -287,7 +288,7 @@ class ESEngine:
         keys give them.
         """
         cfg = self.config
-        gen = torch.Generator().manual_seed(generation_seed(state.seed, state.generation))
+        gen = self._generation_generator(state)
         offsets = sample_pair_offsets(gen, self.rows, self.table.size, self.noise_dim)
         e = cfg.episodes_per_member
         states, _ = self.env.reset(gen, self.rows * e)
@@ -298,6 +299,12 @@ class ESEngine:
             probe, _ = self.env.reset(gen, cfg.obs_probe_episodes)
             probe = probe.to(self.device)
         return Sample(offsets.to(self.device), states.to(self.device), probe)
+
+    @staticmethod
+    def _generation_generator(state: ESState) -> torch.Generator:
+        """The generator of ``state``'s generation; the offsets are its
+        first draw."""
+        return torch.Generator().manual_seed(generation_seed(state.seed, state.generation))
 
     # --------------------------------------------------------- generation
 
@@ -405,17 +412,20 @@ class ESEngine:
 
         return batched_apply
 
-    def _center_apply(self, params_flat: torch.Tensor, obs_stats
+    def _center_apply(self, params_flat: torch.Tensor, obs_stats,
+                      dtype: torch.dtype | None = None
                       ) -> Callable[[torch.Tensor], torch.Tensor]:
-        """The standard forward of the center for the probe and
-        :meth:`evaluate_center`."""
+        """The standard forward of one policy for the probe and
+        :meth:`evaluate_center` (in the compute dtype), and for
+        :meth:`evaluate_episodes` (``dtype=torch.float32``)."""
         cfg = self.config
-        params = self.spec.unravel(self._cast(params_flat))
+        dtype = self._dtype if dtype is None else dtype
+        params = self.spec.unravel(params_flat.to(dtype))
 
         def apply(obs: torch.Tensor) -> torch.Tensor:
             if cfg.obs_norm:
                 obs = normalize_obs(obs, obs_stats, cfg.obs_clip)
-            return self.module.apply_params(params, self._cast(obs)).to(torch.float32)
+            return self.module.apply_params(params, obs.to(dtype)).to(torch.float32)
 
         return apply
 
@@ -491,17 +501,40 @@ class ESEngine:
         apply = self._center_apply(state.params_flat, state.obs_stats)
         return self._rollout(apply, states0, self.env.observe(states0))
 
+    def evaluate_episodes(self, state: ESState, states0: torch.Tensor,
+                          params_flat: torch.Tensor | None = None,
+                          with_env_metrics: bool = False):
+        """One episode from each row of ``states0`` (n, state_dim) of the
+        policy at ``params_flat`` (the center by default), in float32 and,
+        with ``obs_norm``, normalized with ``state``'s current stats — the
+        JAX package's ``ES.evaluate_policy`` rollout.  Returns a
+        RolloutResult, or ``(RolloutResult, metric_sums (n, k))`` with
+        ``with_env_metrics``."""
+        key = bool(with_env_metrics)
+        if key not in self._eval_rollouts:
+            self._eval_rollouts[key] = make_batched_rollout(
+                self.env, self.config.horizon, with_env_metrics=key)
+        flat = state.params_flat if params_flat is None else params_flat
+        apply = self._center_apply(flat.to(self.device, torch.float32), state.obs_stats,
+                                   torch.float32)
+        states0 = states0.to(self.device)
+        return self._eval_rollouts[key](apply, states0, self.env.observe(states0))
+
     def member_params(self, state: ESState, member_index: int,
                       sample: Sample | None = None) -> torch.Tensor:
         """One member's flat params θ + σ s ε (dense, also for low rank),
         rebuilt from this generation's offsets, e.g. to keep the best
         member."""
-        sample = self.sample(state) if sample is None else sample
+        if sample is None:  # this generation's offsets alone, not its states
+            offsets = sample_pair_offsets(self._generation_generator(state), self.rows,
+                                          self.table.size, self.noise_dim)
+        else:
+            offsets = sample.offsets
         if self.config.mirrored:
-            off = int(sample.offsets[member_index // 2])
+            off = int(offsets[member_index // 2])
             sign = 1.0 if member_index % 2 == 0 else -1.0
         else:
-            off = int(sample.offsets[member_index])
+            off = int(offsets[member_index])
             sign = 1.0
         if self.config.low_rank:
             noise = self.spec.flatten(

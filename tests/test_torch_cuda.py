@@ -80,6 +80,10 @@ MATVEC_CASES += [pytest.param(n, d, h, kind, id=f"{n}-{d}-{h}-{kind}") for n, d,
     (4096, 256, 256, "mirrored"),
     (9, 600, 48, "random"),  # d > 256: x staged in shared memory in chunks
     (64, 64, 64, "clamp"), (64, 64, 1, "clamp"), (63, 3, 64, "clamp"),
+    # the env paths' layers: Cheetah2D and Humanoid2D MLP 64x64 at pop 1024
+    # (their heads take the narrow mapping), SyntheticEnv MLP 256x256
+    (1024, 17, 64, "mirrored"), (1024, 64, 6, "mirrored"), (1024, 25, 64, "mirrored"),
+    (1024, 64, 10, "mirrored"), (4096, 376, 256, "mirrored"), (4096, 256, 17, "mirrored"),
 ]]
 
 
@@ -209,3 +213,92 @@ def test_eval_chunk_matches_whole_population_on_card(cuda, path):
     new_c, mc = chunked.engine.generation_step(chunked.state)
     torch.testing.assert_close(mc["fitness"], mw["fitness"], rtol=1e-3, atol=0)
     torch.testing.assert_close(new_c.params_flat, new_w.params_flat, rtol=0, atol=1e-5)
+
+
+# ------------------------------------------------------------------ the envs
+
+ENVS = ["Acrobot", "MountainCar", "MountainCarContinuous", "SyntheticEnv", "RecallEnv",
+        "Swimmer2D", "Hopper2D", "Walker2D", "Humanoid2D", "Cheetah2D", "PositionOnly",
+        "DeceptiveValley"]
+
+
+def _env(name):
+    import estorch_tpu_torch.envs as tenvs
+
+    if name == "PositionOnly":
+        return tenvs.PositionOnly(tenvs.Walker2D())
+    if name == "DeceptiveValley":
+        return tenvs.DeceptiveValley(tenvs.Hopper2D(), x_bait=0.002, x_valley=0.01)
+    return getattr(tenvs, name)()
+
+
+def _actions(env, rng, n):
+    if env.discrete:
+        return torch.from_numpy(rng.integers(0, env.action_dim, n))
+    return torch.from_numpy(rng.uniform(-1, 1, (n, env.action_dim)).astype(np.float32))
+
+
+# atol of the 20-step comparison at rtol 1e-5: the card's roundings of
+# sin, cos, tanh and of its sums, grown by the planar physics' chaos
+TWENTY_STEP_ATOL = {"Acrobot": 1e-5, "MountainCar": 1e-6, "MountainCarContinuous": 1e-6,
+                    "SyntheticEnv": 1e-6, "RecallEnv": 1e-6}
+PLANAR_TWENTY_STEP_ATOL = 5e-2
+
+
+@pytest.mark.parametrize("name", ENVS)
+def test_env_on_card_matches_cpu(cuda, name):
+    """One step and 20 steps of 64 members, on the card and on the CPU, from
+    the same reset states and actions, each side on its own trajectory
+    (members that terminate are frozen, as the rollout freezes them).  The
+    first step within rtol 1e-5 and atol 5e-5 on the state, 1e-5 on obs and
+    reward; the next 19 within rtol 1e-5 and the atol above; the done flags
+    equal.  Prints the largest error of each."""
+    env = _env(name)
+    n = 64
+    states, obs = env.reset(torch.Generator().manual_seed(3), n)
+    torch.testing.assert_close(env.observe(states.to(cuda)).cpu(), obs, rtol=1e-6, atol=1e-6)
+    rng = np.random.default_rng(3)
+    st_cpu, st_card = states, states.to(cuda)
+    done = torch.zeros(n, dtype=torch.bool)
+    excess = {0: 0.0, 1: 0.0}  # the largest |err| − 1e-5·|want|, first step and the rest
+    atol20 = TWENTY_STEP_ATOL.get(name, PLANAR_TWENTY_STEP_ATOL)
+    faults = []
+    for i in range(20):
+        a = _actions(env, rng, n)
+        out_cpu = env.step(st_cpu, a)
+        out_card = [t.cpu() for t in env.step(st_card, a.to(cuda))]
+        alive = ~done
+        for k, (got, want) in enumerate(zip(out_card[:3], out_cpu[:3])):
+            err = float(((got - want).abs() - 1e-5 * want.abs())[alive].max())
+            bound = (5e-5 if k == 0 else 1e-5) if i == 0 else atol20
+            excess[min(i, 1)] = max(excess[min(i, 1)], err)
+            if err > bound:
+                faults.append(f"step {i}, {('state', 'obs', 'reward')[k]} {err:g}")
+        if not torch.equal(out_card[3][alive], out_cpu[3][alive]):
+            faults.append(f"step {i}, done flags differ")
+        keep = alive[:, None]
+        st_cpu = torch.where(keep, out_cpu[0], st_cpu)
+        st_card = torch.where(keep.to(cuda), out_card[0].to(cuda), st_card)
+        done |= out_cpu[3]
+    print(f"{name}: card vs CPU, |err| - 1e-5|want| at most {excess[0]:.3g} after one step, "
+          f"{excess[1]:.3g} over 20 (atol {atol20:g}); {int(done.sum())} of {n} terminated")
+    assert not faults, f"{name}: {faults}"
+
+
+def test_humanoid_generation_is_bitwise_repeatable_on_card(cuda):
+    """The physics adds its joint forces in a fixed order with no atomics,
+    so a re-run of a Humanoid2D generation gives the same bits, as
+    ``ES.train``'s re-run of a rejected generation promises."""
+    from estorch_tpu_torch import ES, DeviceAgent, Humanoid2D, MLPPolicy, adam
+
+    es = ES(MLPPolicy, DeviceAgent(Humanoid2D(), horizon=50), adam, population_size=512,
+            sigma=0.08, device=cuda, table_size=1 << 22, obs_norm=True,
+            policy_kwargs={"action_dim": 10, "hidden": (64, 64), "discrete": False},
+            optimizer_kwargs={"learning_rate": 2e-2})
+    s0 = es.state
+    s1, m1 = es.engine.generation_step(s0)
+    s2, m2 = es.engine.generation_step(s0)
+    assert torch.equal(m1["fitness"], m2["fitness"])
+    assert torch.equal(s1.params_flat, s2.params_flat)
+    assert all(torch.equal(a, b) for a, b in zip(s1.obs_stats, s2.obs_stats))
+    assert int(m1["steps"]) < 512 * 50  # members fell: the done mask ran
