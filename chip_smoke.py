@@ -6,7 +6,9 @@
 Phases, in order; any failure exits non-zero before the last line:
 
 1. identity — the card (nvidia-smi name and power limit), torch and CUDA
-   versions, and the build of the kernels from ops/csrc in this checkout;
+   versions, the build of the kernels from ops/csrc in this checkout, and
+   the build of the C++ envpool from native/envpool.cpp (its pools of
+   cartpole, pendulum and pong84 must be native);
 2. each kernel against its plain PyTorch version at the shapes of the main
    path, on a real 2^25-float noise table, with its device time (CUDA
    events around 30 calls queued back to back, inputs warm in L2 as on the
@@ -16,7 +18,9 @@ Phases, in order; any failure exits non-zero before the last line:
    then reading a 256 MB buffer), and timed at shapes off the main path:
    the (256, 256) layer of the JAX bench's BIG config and the CartPole
    MLP64x64 layers; both kernels are also checked and timed at the shapes
-   of phase 7's streamed paths (g) and (i);
+   of phase 7's streamed paths (g) and (i); the reduction also at the
+   pong84_conv shape (128 pair rows, dim 1,685,987, a 2^23-float table),
+   warm and cold;
 3. the main path: ES on Pendulum, MLP 64x64, population 4096, horizon 200,
    streamed forward + kernel update, 1 warm-up and 3 timed generations,
    with the kernels' launch counts read around that run, then one more
@@ -26,7 +30,10 @@ Phases, in order; any failure exits non-zero before the last line:
    fitness and params must agree; then one run of each env added for phase
    7 (classic control, synthetic, planar locomotion and its two wrappers)
    at population 64, horizon 20, SGD: reward means and update directions
-   must agree (1e-4, cosine 0.999);
+   must agree (1e-4, cosine 0.999); then pooled Pendulum (pop 32, horizon
+   60, SGD: returns within 1e-4 relative, update cosine 0.999) and the
+   NatureCNN population forward on 20 recorded pong84 observations at
+   population 4 (logits within 1e-4 of their scale, TF32 off);
 5. the other paths at the width of phase 3, each through ``ES(...).train``
    with 1 warm-up and 3 timed generations, its launch counts read around
    that run and checked exactly, then one profiled generation: (a) the
@@ -45,10 +52,18 @@ Phases, in order; any failure exits non-zero before the last line:
    (Humanoid2D, MLP 256x256, pop 10240, rank-1 noise, obs_norm with 4 probe
    episodes, chunks of 1024) in bf16 at horizon 100; (i) SyntheticEnv
    (376 -> 256x256 -> 17), pop 4096, horizon 200, streamed forward + kernel
-   update.
+   update;
+8. the pooled paths, each through ``ES(...).train`` with 1 warm-up and 3
+   timed generations (2 for (l)), launch counts exact, then one profiled
+   generation: (j) PooledAgent("pendulum", horizon=200), MLP 64x64, pop
+   4096, the kernel update; (k) the same with ``double_buffer=True``; (l)
+   the ``pong84_conv`` recipe (NatureCNN with VBN, pop 256, 84x84x4, action
+   repeat 2, sticky 0.25, horizon 500), with the host-clock shares of the
+   four parts of its env step timed apart for one generation.
 
 Then one JSON line of per-path numbers, one of per-kernel numbers (launches
-from phase 3), the card line, and the last line
+from phase 3, and of the reduction in (j) and (k)), the card line, and the
+last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
@@ -100,6 +115,20 @@ ENV_PATHS = [
         policy_kwargs={"action_dim": 17, "hidden": (256, 256), "discrete": False,
                        "action_scale": 1.0}, **STREAMED), 3, True),
 ]
+# phase 8's pooled paths: label, how to build it, the timed generations after
+# 1 warm-up, and the reduction's launches a generation
+POOLED_PATHS = [
+    ("j pooled/pendulum/standard+nk", lambda tt, cf: tt.ES(
+        tt.MLPPolicy, tt.PooledAgent("pendulum", horizon=HORIZON), tt.adam,
+        population_size=POPULATION, sigma=0.05, policy_kwargs=POLICY,
+        optimizer_kwargs={"learning_rate": 1e-2}, noise_kernel=True), 3, 1),
+    ("k pooled/pendulum/standard+nk/double_buffer", lambda tt, cf: tt.ES(
+        tt.MLPPolicy, tt.PooledAgent("pendulum", horizon=HORIZON, double_buffer=True), tt.adam,
+        population_size=POPULATION, sigma=0.05, policy_kwargs=POLICY,
+        optimizer_kwargs={"learning_rate": 1e-2}, noise_kernel=True), 3, 1),
+    ("l pooled/pong84_conv", lambda tt, cf: cf.pong84_conv(), 2, 0),
+]
+PONG_PAIRS, PONG_TABLE = 128, 1 << 23  # the pong84_conv recipe's update shape
 L2_FLUSH_BYTES = 256 << 20  # written and read before each cold launch: five times the L2
 # one env step's three launches before the pair-sharing redesign, as measured
 # then on an H100 80GB HBM3 at 700 W: printed beside this run's time, never
@@ -464,6 +493,297 @@ def chunk_invariance(torch, tt) -> list[dict]:
     return out
 
 
+def time_pong_reduction(torch, nk, bw: float, f32: float, flush) -> dict:
+    """Phase 2: the reduction at the pong84_conv recipe's update shape, 128
+    pair rows of dim 1,685,987 from a 2^23-float table, checked against the
+    plain version and timed warm, cold and plain.  The table (33.5 MB) fits
+    in the 50 MB L2, so the bound counts the distinct bytes; the kernel
+    reads every row whole, 128 x dim floats, mostly from L2."""
+    from estorch_tpu_torch import NatureCNN
+    from estorch_tpu_torch.ops.noise import make_noise_table, sample_pair_offsets
+    from estorch_tpu_torch.ops.params import make_param_spec
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(5)
+    dim = make_param_spec(NatureCNN(3).init_params((84, 84, 4), gen))[1].dim
+    table = make_noise_table(PONG_TABLE, seed=0, device=dev).data
+    offs = sample_pair_offsets(gen, PONG_PAIRS, PONG_TABLE, dim)
+    w = (torch.rand(PONG_PAIRS, generator=gen) * 2 - 1).to(dev)
+    offs_dev = offs.to(dev)
+    got = nk.weighted_noise_sum(table, offs_dev, w, dim)
+    torch.cuda.synchronize()
+    want = nk.weighted_noise_sum_plain(table, offs_dev, w, dim)
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=1e-4, atol=1e-3):
+        fail(f"weighted_noise_sum pong84 n={PONG_PAIRS} dim={dim}: max |err| {err:g}")
+    distinct = 4 * (union_floats(offs, dim) + 2 * PONG_PAIRS + dim)
+    read = 4 * (PONG_PAIRS * dim + 2 * PONG_PAIRS + dim)
+    flops = 2 * PONG_PAIRS * dim
+    bound = max(distinct / bw, flops / f32) * 1e3
+
+    def kernel():
+        return nk.weighted_noise_sum(table, offs_dev, w, dim)
+
+    ms, cold = time_ms(torch, kernel), time_cold_ms(torch, kernel, flush)
+    plain_ms = time_ms(torch, lambda: nk.weighted_noise_sum_plain(table, offs_dev, w, dim), reps=5)
+    print(f"weighted_noise_sum pong84_conv n={PONG_PAIRS} dim={dim}: max |err| {err:.3g} (tol "
+          f"atol 1e-3, rtol 1e-4); warm {ms:.4f} ms, cold {cold:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bound:.4f} ms ({distinct / 1e6:.1f} MB distinct; the kernel reads "
+          f"{read / 1e6:.1f} MB, {read / bw * 1e3:.4f} ms at the HBM rate)")
+    del table
+    return {"shape": f"pong84_conv: n={PONG_PAIRS}, dim={dim}, table 2^23", "ms": ms,
+            "cold_ms": cold, "plain_ms": plain_ms, "bound_ms": bound, "max_abs_err": err,
+            "bytes_distinct": distinct, "bytes_read": read}
+
+
+def compare_pooled_card_cpu(torch, tt) -> list[dict]:
+    """Phase 4, the pooled path: (1) pooled Pendulum, population 32, horizon
+    60, two generations with SGD on the card and on the CPU from the same
+    pools: reward means within 1e-4 relative, the update direction's cosine
+    >= 0.999; (2) the NatureCNN population forward (VBN, population 4) on 20
+    recorded pong84 observations, card against CPU with TF32 off: logits
+    within 1e-4 of their scale."""
+    import numpy as np
+
+    from estorch_tpu_torch.envs.atari_wrappers import AtariPreprocessPool
+    from estorch_tpu_torch.envs.native_pool import NativeEnvPool
+    from estorch_tpu_torch.envs.rollout import population_forward
+    from estorch_tpu_torch.models import capture_reference_stats
+    from estorch_tpu_torch.ops.params import make_param_spec
+
+    kw = dict(population_size=32, sigma=0.05, table_size=1 << 22, policy_kwargs=POLICY,
+              optimizer_kwargs={"learning_rate": 1e-2})
+    agent = tt.PooledAgent("pendulum", horizon=60)
+    es_gpu = tt.ES(tt.MLPPolicy, agent, tt.sgd, **kw)
+    es_cpu = tt.ES(tt.MLPPolicy, agent, tt.sgd, device="cpu", **kw)
+    p0 = es_cpu.state.params_flat.clone()
+    es_gpu.train(2, verbose=False)
+    es_cpu.train(2, verbose=False)
+    fit_err = max(abs(a["reward_mean"] - b["reward_mean"]) / abs(b["reward_mean"])
+                  for a, b in zip(es_gpu.history, es_cpu.history))
+    dg, dc = es_gpu.state.params_flat.cpu() - p0, es_cpu.state.params_flat - p0
+    cos = float(dg @ dc / (dg.norm() * dc.norm()))
+    print(f"card vs CPU, pooled pendulum (pop 32, horizon 60, 2 generations, SGD): reward_mean "
+          f"rel err {fit_err:.3g} (tol 1e-4), update cosine {cos:.7f} (tol 0.999)")
+    if not (fit_err <= 1e-4 and cos >= 0.999):
+        fail(f"card vs CPU, pooled pendulum: rel err {fit_err:g}, cosine {cos:g}")
+    es_gpu.engine.close()
+    es_cpu.engine.close()
+
+    dev = tt.resolve_device("cuda")  # TF32 off
+    pool = AtariPreprocessPool(NativeEnvPool("pong84", 4, seed=0), frame_stack=4,
+                               action_repeat=2, sticky_prob=0.25, seed=0)
+    rng = np.random.default_rng(0)
+    frames = [pool.reset()]
+    for _ in range(19):
+        frames.append(pool.step(rng.integers(0, 3, (4, 1)).astype(np.float32))[0])
+    pool.close()
+    gen = torch.Generator().manual_seed(0)
+    module = tt.NatureCNN(3)
+    params = module.init_params((84, 84, 4), gen)
+    flat, spec = make_param_spec(params)
+    ref = torch.from_numpy(np.concatenate(frames[:8]).reshape(-1, 84, 84, 4))
+    stats = capture_reference_stats(module, params, ref)
+    thetas = flat + 0.02 * torch.randn((4, spec.dim), generator=gen)
+    module.vbn_stats = stats
+    fwd = population_forward(module, spec.unravel(thetas))
+    want = torch.stack([fwd(torch.from_numpy(f)) for f in frames])
+    module.vbn_stats = {k: {n: v.to(dev) for n, v in d.items()} for k, d in stats.items()}
+    fwd = population_forward(module, spec.unravel(thetas.to(dev)))
+    got = torch.stack([fwd(torch.from_numpy(f).to(dev)) for f in frames]).cpu()
+    err = float((got - want).abs().max() / want.abs().max())
+    print(f"card vs CPU, NatureCNN+VBN population forward (pop 4, 20 pong84 observations): "
+          f"max |err| / max |logit| {err:.3g} (tol 1e-4)")
+    if err > 1e-4:
+        fail(f"card vs CPU, NatureCNN forward: {err:g}")
+    convs = time_conv_forms(torch, tt, gen, dev)
+    return [{"check": "pooled pendulum", "reward_mean_rel_err": fit_err, "cosine": cos},
+            {"check": "naturecnn forward", "rel_err": err}, convs]
+
+
+def time_conv_forms(torch, tt, gen, dev) -> dict:
+    """The three convolutions of 256 members on one pong84 observation each,
+    two ways on the same laid-out weights: the port's patch copy +
+    ``torch.bmm`` (``NatureCNN.population_apply``) and one grouped
+    ``F.conv2d`` (``groups`` = members).  Checked against each other, then
+    timed (device time, ``time_ms``) and their kernel launches counted."""
+    import torch.nn.functional as F
+
+    from estorch_tpu_torch.ops.params import make_param_spec
+
+    module = tt.NatureCNN(3, use_vbn=False)
+    params = module.init_params((84, 84, 4), gen)
+    flat, spec = make_param_spec(params)
+    p = 256
+    thetas = (flat + 0.02 * torch.randn((p, spec.dim), generator=gen)).to(dev)
+    layout = module.population_layout(spec.unravel(thetas))
+    obs = (torch.rand((p, 1, 84, 84, 4), generator=gen) < 0.05).float().to(dev)
+    layers = []
+    for i, (feat, k, stride) in enumerate(((32, 8, 4), (64, 4, 2), (64, 3, 1))):
+        w, b = layout[f"conv_{i}"]
+        layers.append((w.view(p * feat, -1, k, k), b.reshape(-1), stride))
+
+    def grouped():
+        x = obs[:, 0].permute(0, 3, 1, 2).reshape(1, p * 4, 84, 84)
+        for w, b, stride in layers:
+            x = F.relu(F.conv2d(x, w, b, stride=stride, groups=p))
+        return x.view(p, 64, 7, 7)
+
+    def port_forward():  # the port's whole forward: its convolutions, fc and head
+        return module.population_apply(layout, obs)
+
+    want = grouped().permute(0, 2, 3, 1).reshape(p, 1, -1)
+    fc_w, fc_b = layout["fc"]
+    head_w, head_b = layout["head"]
+    via_grouped = torch.bmm(F.relu(torch.bmm(want, fc_w) + fc_b), head_w) + head_b
+    got = port_forward()
+    err = float((got - via_grouped).abs().max() / via_grouped.abs().max())
+    if err > 1e-4:
+        fail(f"NatureCNN convolutions, patch copy + bmm against grouped conv2d: {err:g}")
+    ms_bmm = time_ms(torch, port_forward, reps=10)
+    ms_grouped = time_ms(torch, grouped, reps=3)
+    n_bmm, n_grouped = count_launches(torch, port_forward), count_launches(torch, grouped)
+    print(f"NatureCNN, 256 members, one observation each: the port's forward (patch copy + "
+          f"bmm convolutions, fc and head) {ms_bmm:.3f} ms in {n_bmm} kernel launches; the "
+          f"convolutions alone as one grouped F.conv2d {ms_grouped:.3f} ms in {n_grouped} "
+          f"launches; logits agree to {err:.3g}")
+    return {"check": "conv forms, 256 members", "forward_bmm_ms": ms_bmm,
+            "forward_bmm_launches": n_bmm, "convs_grouped_conv2d_ms": ms_grouped,
+            "convs_grouped_conv2d_launches": n_grouped, "rel_err": err}
+
+
+def count_launches(torch, fn) -> int:
+    """Kernel launches (copies and fills not counted) of one call of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.profiler.kineto_results.events()
+               if str(e.device_type()).endswith("CUDA")
+               and not e.name().startswith(("Memcpy", "Memset")))
+
+
+class TimedPool:
+    """A pool whose ``step`` adds its host-clock seconds to ``seconds``."""
+
+    def __init__(self, pool):
+        self.pool = pool
+        self.seconds = 0.0
+
+    def __getattr__(self, name):
+        return getattr(self.pool, name)
+
+    def step(self, actions):
+        t0 = time.perf_counter()
+        out = self.pool.step(actions)
+        self.seconds += time.perf_counter() - t0
+        return out
+
+
+def pong_step_shares(torch, es) -> dict:
+    """Phase 8 (l): one generation's env steps with its four parts timed
+    apart on the host clock: the C++ pool step (the raw steps of the action
+    repeat), the NumPy frame stack (the rest of the Atari wrapper's step),
+    the host-to-device copy of the observation batch (synchronized), and
+    the forward with the actions' copy back.  A pool of its own, seeded
+    apart from the training pools, and this generation's members."""
+    from estorch_tpu_torch.envs.atari_wrappers import AtariPreprocessPool
+    from estorch_tpu_torch.envs.native_pool import NativeEnvPool
+    from estorch_tpu_torch.envs.rollout import population_forward
+
+    eng = es.engine
+    dev = es.device
+    fwd = population_forward(es.module, eng.materialize(es.state, eng.all_pair_offsets(es.state)))
+    raw = TimedPool(NativeEnvPool("pong84", es.population_size, seed=es.seed + 7))
+    pool = AtariPreprocessPool(raw, seed=es.seed + 7, **es.agent.prep)
+    obs = pool.reset()
+    parts = {"pool_step": 0.0, "frame_stack": 0.0, "h2d_copy": 0.0, "forward_and_actions": 0.0}
+    torch.cuda.synchronize()
+    for _ in range(es.config.horizon):
+        t0 = time.perf_counter()
+        x = torch.from_numpy(obs).to(dev, non_blocking=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        acts = torch.argmax(fwd(x), dim=-1).to(torch.float32).cpu().numpy()
+        t2 = time.perf_counter()
+        before = raw.seconds
+        obs, _, _ = pool.step(acts)
+        t3 = time.perf_counter()
+        cpp = raw.seconds - before
+        parts["h2d_copy"] += t1 - t0
+        parts["forward_and_actions"] += t2 - t1
+        parts["pool_step"] += cpp
+        parts["frame_stack"] += t3 - t2 - cpp
+    pool.close()
+    total = sum(parts.values())
+    print(f"  (l) one generation's {es.config.horizon} env steps timed apart: {total:.3f} s; "
+          + ", ".join(f"{k} {v:.3f} s ({v / total:.3f})" for k, v in parts.items())
+          + f"; observation batch {obs.nbytes / 1e6:.1f} MB")
+    return {"seconds": parts, "total_s": total, "obs_batch_mb": obs.nbytes / 1e6}
+
+
+def run_pooled_paths(torch, tt, nk, card: str) -> list[dict]:
+    """Phase 8: each of POOLED_PATHS through ``ES(...).train``: the launch
+    counts are set to 0 just before its 1 + timed generations, read just
+    after and held exact; then one profiled generation (device busy counts
+    the copies too), whose launches over the horizon give the launches an
+    env step; for (l) the step's parts timed apart."""
+    from estorch_tpu_torch import configs
+
+    paths = []
+    for label, build, timed, wns_per_gen in POOLED_PATHS:
+        torch.cuda.empty_cache()
+        es = build(tt, configs)
+        if es.device.type != "cuda" or es.backend != "pooled":
+            fail(f"path {label} ran on {es.device}, backend {es.backend}")
+        if not es.engine.pool.is_native:
+            fail(f"path {label}: the pool is not the C++ envpool")
+        horizon = es.config.horizon
+        p0 = es.state.params_flat.clone()
+        torch.cuda.synchronize()
+        nk.reset_launch_counts()
+        es.train(1, verbose=False)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        es.train(timed, verbose=False)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = dict(nk.launch_counts)
+        gens = 1 + timed
+        want = {"weighted_noise_sum": wns_per_gen * gens, "population_noise_matvec": 0}
+        if counts != want:
+            fail(f"path {label}: launch counts {counts}, expected {want}")
+        if len(es.history) != gens:
+            fail(f"path {label}: expected {gens} generations, got {len(es.history)}")
+        for r in es.history:
+            if r["n_failed"] or not all(math.isfinite(r[k])
+                                        for k in ("reward_mean", "reward_max", "grad_norm")):
+                fail(f"path {label}, generation {r['generation']}: non-finite result {r}")
+        if torch.equal(p0, es.state.params_flat):
+            fail(f"path {label}: params did not change")
+        steps = sum(r["env_steps"] for r in es.history[1:])
+        gen_s = dt / timed
+        print(f"path {label}: {steps / dt:.0f} env-steps/s (alive) over {timed} generations "
+              f"({gen_s:.4f} s a generation) on {card}; launches {counts}; reward mean "
+              f"{es.history[0]['reward_mean']:.2f} -> {es.history[-1]['reward_mean']:.2f}")
+        busy, launched = profile_generation(torch, es, top=8)  # not part of the counts
+        per_step = launched / horizon
+        print(f"  {launched} kernel launches in the profiled generation = {per_step:.1f} an env "
+              f"step ({horizon} steps); busy share {busy / gen_s:.3f}")
+        rec = {"path": label, "launches": counts, "env_steps_per_s": steps / dt,
+               "s_per_generation": gen_s, "device_busy_s": busy, "busy_share": busy / gen_s,
+               "kernel_launches_per_env_step": per_step, "population": es.population_size,
+               "horizon": horizon, "param_dim": es.spec.dim}
+        if label.startswith("l"):
+            rec["step_parts"] = pong_step_shares(torch, es)
+        paths.append(rec)
+        es.engine.close()
+        del es
+    return paths
+
+
 def main() -> None:
     import torch
 
@@ -498,6 +818,19 @@ def main() -> None:
     for line in _build.build_info["log"].splitlines():
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
+    from estorch_tpu_torch.envs import native_pool
+    t_build = time.perf_counter()
+    try:
+        envpool_lib = native_pool.build()
+    except RuntimeError as e:
+        fail(f"envpool build: {e}")
+    for env_name in ("cartpole", "pendulum", "pong84"):
+        pool = native_pool.NativeEnvPool(env_name, 4)
+        if not pool.is_native or pool.reset().shape != (4, pool.obs_dim):
+            fail(f"the {env_name} pool is not the C++ envpool")
+        pool.close()
+    print(f"envpool built in {time.perf_counter() - t_build:.2f} s -> {envpool_lib}; "
+          "cartpole, pendulum and pong84 pools are native")
     dev = torch.device("cuda")
 
     # ---- 2. kernels against their plain versions --------------------------
@@ -658,6 +991,9 @@ def main() -> None:
                                     "max_abs_err": err})
         wns["max_abs_err"] = max(wns["max_abs_err"], err)
     pnm["max_abs_err"] = max(errs + [e["max_abs_err"] for e in extra])
+    pong_wns = time_pong_reduction(torch, nk, bw, f32, flush)
+    wns["other_shapes"].append(pong_wns)
+    wns["max_abs_err"] = max(wns["max_abs_err"], pong_wns["max_abs_err"])
     del flush
     del table
 
@@ -707,6 +1043,7 @@ def main() -> None:
     phase("4. card against CPU")
     compare_card_cpu(torch, estorch_tpu_torch)
     env_cmp = compare_envs_card_cpu(torch, estorch_tpu_torch)
+    env_cmp += compare_pooled_card_cpu(torch, estorch_tpu_torch)
 
     # ---- 5. the slice's other paths at full width ----------------------------
     phase("5. the other paths")
@@ -723,6 +1060,11 @@ def main() -> None:
     phase("7. the env paths")
     paths += run_env_paths(torch, estorch_tpu_torch, nk, card)
 
+    # ---- 8. the pooled paths ------------------------------------------------------
+    phase("8. the pooled paths")
+    pooled = run_pooled_paths(torch, estorch_tpu_torch, nk, card)
+    paths += pooled
+
     # ---- report --------------------------------------------------------------
     phase("report")
     kernels = [
@@ -732,7 +1074,8 @@ def main() -> None:
          "launches": launches["weighted_noise_sum"], "max_abs_err": wns["max_abs_err"],
          "ms": wns["ms"], "plain_ms": wns["plain_ms"], "bound_ms": wns["bound_ms"],
          "bound_by": wns["bound_by"], "library_ms": None,
-         "shape": f"n={n_pairs} rows, dim={dim}", "other_shapes": wns["other_shapes"]},
+         "shape": f"n={n_pairs} rows, dim={dim}", "other_shapes": wns["other_shapes"],
+         "launches_pooled": {p["path"]: p["launches"]["weighted_noise_sum"] for p in pooled}},
         {"name": "population_noise_matvec", "route": "cuda",
          "source": "estorch_tpu_torch/ops/csrc/noise_kernels.cu",
          "replaces": "estorch_tpu/ops/pallas_noise.py:201",

@@ -5,8 +5,10 @@ its module paths and names, imports ``torch`` and never JAX, and runs on a
 CUDA card unless the caller passes ``device="cpu"``.  ES runs the
 standard, decomposed, low-rank and streamed forwards, with obs
 normalization and bf16 as options, on every device env of the JAX package
-(classic control, synthetic, planar locomotion); ``configs`` holds the
-device recipes.  The streamed forward and the ``noise_kernel`` update run
+(classic control, synthetic, planar locomotion), and on the pooled backend
+(``PooledAgent``: the C++ envpool's CartPole, Pendulum and pixel Pong84,
+or gymnasium envs, with Atari preprocessing; ``NatureCNN`` with
+VirtualBatchNorm); ``configs`` holds the device and pooled recipes.  The streamed forward and the ``noise_kernel`` update run
 two hand-written Hopper kernels (``ops/csrc``), whose plain PyTorch
 versions sit beside them in ``ops/noise_kernels.py``.
 """
@@ -23,22 +25,23 @@ from .envs import (
     MountainCar,
     MountainCarContinuous,
     Pendulum,
+    PooledAgent,
     PositionOnly,
     RecallEnv,
     Swimmer2D,
     SyntheticEnv,
     Walker2D,
 )
-from .models import MLPPolicy
+from .models import MLPPolicy, NatureCNN, VirtualBatchNorm
 from .ops import NoiseTable, make_noise_table
 from .optim import adam, sgd
-from .parallel import EngineConfig, ESEngine, ESState
+from .parallel import EngineConfig, ESEngine, ESState, PooledEngine
 from .utils import resolve_device
 
 __all__ = [
     "Acrobot", "CartPole", "Cheetah2D", "DeceptiveValley", "DeviceAgent", "ES", "ESEngine",
     "ESState", "EngineConfig", "Hopper2D", "Humanoid2D", "MLPPolicy", "MountainCar",
-    "MountainCarContinuous", "NoiseTable", "Pendulum", "PositionOnly", "RecallEnv",
-    "Swimmer2D", "SyntheticEnv", "Walker2D", "adam", "make_noise_table", "resolve_device",
-    "sgd",
+    "MountainCarContinuous", "NatureCNN", "NoiseTable", "Pendulum", "PooledAgent",
+    "PooledEngine", "PositionOnly", "RecallEnv", "Swimmer2D", "SyntheticEnv",
+    "VirtualBatchNorm", "Walker2D", "adam", "make_noise_table", "resolve_device", "sgd",
 ]

@@ -1,9 +1,9 @@
 """ES — the user-facing algorithm class.
 
 Counterpart of ``estorch_tpu/algo/es.py``'s ``ES.__init__`` and ``train``
-for the device backend on one device.  The signature keeps the JAX
-package's names and defaults, so the default call runs the standard
-forward with the chunked plain update:
+on one device, for the device and pooled backends.  The signature keeps
+the JAX package's names and defaults, so the default call runs the
+standard forward with the chunked plain update:
 
     es = ES(MLPPolicy, DeviceAgent(Pendulum(), horizon=200), adam,
             population_size=4096, sigma=0.05,
@@ -12,14 +12,20 @@ forward with the chunked plain update:
             optimizer_kwargs={"learning_rate": 1e-2})
     es.train(10)
 
+A ``DeviceAgent`` runs the device backend (``parallel/engine.py``: env and
+policy on the card); a ``PooledAgent`` the pooled backend
+(``parallel/pooled.py``: the envs in a host pool, the population's forward
+on the card), e.g. ``NatureCNN`` with VBN on the C++ pixel pong
+(``configs.pong84_conv``).  ``es.backend`` says which.
+
 ``decomposed``, ``low_rank``, ``streamed``, ``noise_kernel``, ``obs_norm``,
 ``compute_dtype="bfloat16"``, ``episodes_per_member``, ``eval_chunk`` and
 ``grad_chunk`` combine as in the JAX package, which rejects the same
 combinations with the same ``ValueError``s.  The options not ported yet
-(``mesh``/``shard_params``, ``scenarios``, host and pooled agents,
-recurrent policies, VBN) raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item.  ``device`` is ``"cuda"`` unless the caller passes
-``"cpu"``.  ``best_policy`` keeps the best member seen, and
+(``mesh``/``shard_params``, ``scenarios``, host agents, recurrent
+policies, VBN on the device path) raise ``NotImplementedError`` naming
+their ``ROADMAP.md`` item.  ``device`` is ``"cuda"`` unless the caller
+passes ``"cpu"``.  ``best_policy`` keeps the best member seen, and
 ``evaluate_policy`` rolls out fresh episodes of the center or of it.
 """
 
@@ -33,15 +39,18 @@ import numpy as np
 import torch
 
 from ..models.decomposed import supports_decomposed
+from ..models.vbn import capture_reference_stats
 from ..ops.lowrank import make_lowrank_spec
 from ..ops.noise import DEFAULT_TABLE_SIZE, make_noise_table
 from ..ops.noise_kernels import flat_layer_offsets, mlp_streamed_apply
 from ..ops.params import make_param_spec
 from ..parallel.engine import EngineConfig, ESEngine
+from ..parallel.pooled import PooledEngine
 from ..utils.backend import resolve_device
 
 _ROADMAP = "ROADMAP.md, port queue"
-_BACKENDS = "2, the host and pooled backends"
+_HOST = "2, the host backend"
+_RECURRENT = "3, recurrent policies and device-path VBN"
 _NOVELTY = "4, the novelty family"
 
 
@@ -79,6 +88,7 @@ class ES:
         grad_chunk: int = 256,
         weight_decay: float = 0.0,
         mesh=None,
+        vbn_batch: int = 128,
         compute_dtype: str = "float32",
         sigma_decay: float = 1.0,
         sigma_min: float = 0.0,
@@ -102,47 +112,89 @@ class ES:
             raise ValueError(
                 "obs_warmup_episodes warm-starts the running obs stats; "
                 "it requires obs_norm=True")
+        self.agent = _instantiate(agent, dict(agent_kwargs or {}), "agent")
+        if hasattr(self.agent, "rollout"):
+            _unsupported("host agents (rollout(policy))", _HOST)
+        pooled = hasattr(self.agent, "env_name")
+        if pooled:
+            if shard_params:
+                raise ValueError(
+                    "shard_params needs device-native rollouts: the pooled path "
+                    "materializes per-member thetas host-side, the exact replicate "
+                    "the sharded engine exists to avoid")
+            if obs_warmup_episodes:
+                raise ValueError(
+                    "obs_warmup_episodes is a device-path option; the pooled path's "
+                    "stats are fed by every member's observations from generation 0, "
+                    "so its init transient is one generation long already")
+            if scenarios is not None:
+                raise ValueError(
+                    "scenarios needs device-native rollouts (traced physics constants); "
+                    "the pooled path steps C++ envs host-side with compiled-in constants")
+        elif not hasattr(self.agent, "env"):
+            raise TypeError("agent must be a DeviceAgent wrapping a batched device env or a "
+                            "PooledAgent naming a pool env")
         if shard_params or mesh is not None:
             _unsupported("shard_params / mesh", "7, multi-GPU")
         if scenarios is not None:
             _unsupported("scenarios", "8, scenarios")
+        policy_kwargs = dict(policy_kwargs or {})
+        if pooled and (getattr(policy, "learned_carry", False)
+                       or policy_kwargs.get("learned_carry")):
+            raise ValueError(
+                "learned_carry is a device-path feature: the pooled backend initializes "
+                "episode carries before member params exist (parallel/pooled.py), so a "
+                "params-dependent episode-start carry has no pooled form yet")
 
         self.device = resolve_device(device)
         self.population_size = int(population_size)
         self.sigma = float(sigma)
         self.seed = int(seed)
-
-        self.agent = _instantiate(agent, dict(agent_kwargs or {}), "agent")
-        if hasattr(self.agent, "rollout"):
-            _unsupported("host agents (rollout(policy))", _BACKENDS)
-        if hasattr(self.agent, "env_name"):
-            _unsupported("pooled agents (env_name)", _BACKENDS)
-        if not hasattr(self.agent, "env"):
-            raise TypeError("agent must be a DeviceAgent wrapping a batched device env")
-        self.env = self.agent.env
-
-        self.module = _instantiate(policy, dict(policy_kwargs or {}), "policy")
+        self.backend = "pooled" if pooled else "device"
+        self.module = _instantiate(policy, policy_kwargs, "policy")
         if getattr(self.module, "is_recurrent", False):
-            _unsupported("recurrent policies", "3, recurrent and VBN")
-        for option, on, where in (("decomposed", decomposed, "models/decomposed.py"),
-                                  ("streamed", streamed, "ops/noise_kernels.py"),
-                                  ("low_rank", low_rank, "ops/lowrank.py")):
-            if on and not supports_decomposed(self.module):
-                raise ValueError(
-                    f"{option} supports MLPPolicy without VBN ({where}); "
-                    f"got {type(self.module).__name__}")
+            _unsupported("recurrent policies", _RECURRENT)
+        use_vbn = bool(getattr(self.module, "use_vbn", False))
+        if pooled:
+            spec_info = self._pool_spec()
+            self.env = None
+            obs_shape, horizon = tuple(spec_info["obs_shape"]), int(self.agent.horizon)
+        else:
+            if use_vbn:
+                _unsupported("VBN on the device path (collect_reference_batch)", _RECURRENT)
+            if hasattr(self.module, "population_layout"):
+                _unsupported(f"{type(self.module).__name__} on the device path", _RECURRENT)
+            self.env = self.agent.env
+            obs_shape, horizon = self.env.obs_dim, self.agent.rollout_horizon
+            for option, on, where in (("decomposed", decomposed, "models/decomposed.py"),
+                                      ("streamed", streamed, "ops/noise_kernels.py"),
+                                      ("low_rank", low_rank, "ops/lowrank.py")):
+                if on and not supports_decomposed(self.module):
+                    raise ValueError(
+                        f"{option} supports MLPPolicy without VBN ({where}); "
+                        f"got {type(self.module).__name__}")
 
         # params are drawn on the CPU and moved, so a seed gives the same
         # initial center on every device
         init_gen = torch.Generator().manual_seed(self.seed)
-        params = self.module.init_params(self.env.obs_dim, init_gen)
+        params = self.module.init_params(obs_shape, init_gen)
         flat, self.spec = make_param_spec(params)
+        if use_vbn:
+            if obs_norm:
+                raise ValueError(
+                    "VirtualBatchNorm + obs_norm is unsupported: the VBN reference batch "
+                    "is captured in RAW observation space at init, so its frozen stats "
+                    "would mis-calibrate against normalized rollout inputs — pick one "
+                    "input-normalization scheme")
+            self.module.vbn_stats = capture_reference_stats(
+                self.module, self.spec.unravel(flat.to(self.device)),
+                self._pooled_reference_batch(vbn_batch))
         self.table = make_noise_table(table_size, seed=self.seed, device=self.device)
         self.optimizer = _instantiate_optimizer(optimizer, optimizer_kwargs)
         self.config = EngineConfig(
             population_size=self.population_size,
             sigma=self.sigma,
-            horizon=self.agent.rollout_horizon,
+            horizon=horizon,
             eval_chunk=int(eval_chunk),
             grad_chunk=int(grad_chunk),
             weight_decay=float(weight_decay),
@@ -160,6 +212,23 @@ class ES:
             obs_probe_episodes=int(obs_probe_episodes),
             obs_warmup_episodes=int(obs_warmup_episodes),
         )
+        if pooled:
+            a = self.agent
+            self.engine = PooledEngine(
+                a.env_name, self.module, self.spec, self.table, self.optimizer, self.config,
+                self.device, n_threads=a.n_threads, seed=self.seed,
+                double_buffer=a.double_buffer, prep=a.prep, env_kwargs=a.env_kwargs,
+                bc_indices=a.bc_indices)
+        else:
+            self.engine = self._device_engine(params, streamed, low_rank)
+        self.state = self.engine.init_state(flat, self.seed)
+        self.best_reward = -np.inf
+        self._best_flat: torch.Tensor | None = None  # the best member's params
+        self._best_module = None  # best_policy's module, built at first use
+        self.history: list[dict] = []
+        self.generation = 0
+
+    def _device_engine(self, params: dict, streamed: bool, low_rank: int) -> ESEngine:
         module = self.module
         streamed_apply = None
         if streamed:
@@ -169,15 +238,47 @@ class ES:
                 return mlp_streamed_apply(module, shared, table_data, offs, c, obs, layer_offs)
 
         lr_spec = make_lowrank_spec(params, int(low_rank)) if low_rank else None
-        self.engine = ESEngine(self.env, module, self.spec, self.table, self.optimizer,
-                               self.config, self.device, streamed_apply=streamed_apply,
-                               lowrank_spec=lr_spec)
-        self.state = self.engine.init_state(flat, self.seed)
-        self.best_reward = -np.inf
-        self._best_flat: torch.Tensor | None = None  # the best member's params
-        self._best_module = None  # best_policy's module, built at first use
-        self.history: list[dict] = []
-        self.generation = 0
+        return ESEngine(self.env, module, self.spec, self.table, self.optimizer, self.config,
+                        self.device, streamed_apply=streamed_apply, lowrank_spec=lr_spec)
+
+    # --------------------------------------------------------- pooled backend
+
+    def _pool_spec(self) -> dict:
+        """The pool env's spec, with the preprocessing's stacked shape."""
+        from ..envs.atari_wrappers import apply_prep_to_spec
+        from ..envs.gym_vec_pool import pool_env_spec
+
+        spec = pool_env_spec(self.agent.env_name, self.agent.env_kwargs)
+        prep = self.agent.prep
+        return apply_prep_to_spec(spec, prep["frame_stack"]) if prep else spec
+
+    def _pooled_reference_batch(self, n: int) -> torch.Tensor:
+        """Random-action observations of the pool for the VBN statistics, in
+        the policy's input shape (stacked frames with preprocessing), drawn
+        as the JAX package draws them: a pool of n // 4 envs, ``default_rng
+        (seed)``, the reset frame and 4 steps."""
+        from ..envs.gym_vec_pool import make_pool
+
+        pool = make_pool(self.agent.env_name, max(1, n // 4), env_kwargs=self.agent.env_kwargs)
+        prep = self.agent.prep
+        if prep:
+            from ..envs.atari_wrappers import AtariPreprocessPool
+
+            pool = AtariPreprocessPool(pool, seed=self.seed, **prep)
+        rng = np.random.default_rng(self.seed)
+        try:
+            frames = [pool.reset()]
+            for _ in range(4):
+                if pool.discrete:
+                    acts = rng.integers(0, pool.n_actions, (pool.n_envs, 1)).astype(np.float32)
+                else:
+                    acts = rng.uniform(-1, 1, (pool.n_envs, pool.act_dim)).astype(np.float32)
+                obs, _, _ = pool.step(acts)
+                frames.append(obs)
+        finally:
+            pool.close()
+        batch = np.concatenate(frames, axis=0)[:n]
+        return torch.from_numpy(batch.reshape((-1,) + tuple(pool.obs_shape))).to(self.device)
 
     # ------------------------------------------------------------------ train
 
@@ -201,7 +302,7 @@ class ES:
             t0 = time.perf_counter()
             prev_state = self.state
             self.state, metrics = self.engine.generation_step(prev_state)
-            fitness = metrics["fitness"].cpu().numpy()  # waits for the device
+            fitness = np.asarray(_host(metrics["fitness"]))  # waits for the device
             dt = time.perf_counter() - t0
 
             reason = self._update_anomaly(metrics)
@@ -296,22 +397,30 @@ class ES:
         ``steps`` and, for envs with the gait protocol (``step_metrics`` /
         ``episode_metrics``, the locomotion family), ``gait``: per-episode
         ``forward_velocity_mps`` and ``upright_fraction``.
+
+        On the pooled backend the episodes run in one pooled pass from a
+        fresh pool seeded by ``seed``, in the compute dtype, as in the JAX
+        package; the details are ``rewards`` and ``bc``.
         """
         if meta_index is not None:
             _unsupported("meta_index (per-center evaluation)", _NOVELTY)
         flat = self._best_flat if use_best and self._best_flat is not None else None
+        if self.backend == "pooled":
+            # one pooled pass of fresh episodes from a pool seeded by ``seed``,
+            # in the compute dtype, as the JAX package's pooled path evaluates
+            state = self.state if flat is None else self.state._replace(params_flat=flat)
+            res = self.engine.evaluate_center_batch(state, int(n_episodes), seed=seed)
+            rewards = np.asarray(res.fitness, np.float32)
+            summary = _summary(rewards, n_episodes)
+            if return_details:
+                summary.update(rewards=rewards, bc=res.bc)
+            return summary
         states0, _ = self.env.reset(torch.Generator().manual_seed(int(seed)), int(n_episodes))
         want_gait = return_details and hasattr(self.env, "step_metrics")
         out = self.engine.evaluate_episodes(self.state, states0, flat, with_env_metrics=want_gait)
         res, gait_sums = out if want_gait else (out, None)
         rewards = res.total_reward.cpu().numpy()
-        summary = {
-            "mean": float(rewards.mean()),
-            "std": float(rewards.std()),
-            "min": float(rewards.min()),
-            "max": float(rewards.max()),
-            "episodes": int(n_episodes),
-        }
+        summary = _summary(rewards, n_episodes)
         if return_details:
             bc, steps = res.bc.cpu().numpy(), res.steps.cpu().numpy()
             summary.update(rewards=rewards, bc=bc, steps=steps)
@@ -322,6 +431,18 @@ class ES:
                 summary["gait"] = {k: np.asarray([m[k] for m in per_ep], np.float32)
                                    for k in per_ep[0]}
         return summary
+
+
+def _host(x):
+    """A metric on the host: device tensors are copied, the pooled
+    engine's numpy arrays pass through."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+
+
+def _summary(rewards: np.ndarray, n_episodes: int) -> dict:
+    return {"mean": float(rewards.mean()), "std": float(rewards.std()),
+            "min": float(rewards.min()), "max": float(rewards.max()),
+            "episodes": int(n_episodes)}
 
 
 def _instantiate_optimizer(optimizer: Any, optimizer_kwargs: dict | None):

@@ -9,9 +9,18 @@ The device recipes run here with the JAX package's options and defaults:
 - ``humanoid2d_pop10k``  — Humanoid2D at population 10240, MLP (256, 256),
   rank-1 noise, obs normalization with 4 probe episodes, chunks of 1024.
 
+The pooled recipes (``PooledAgent``: host envs, the population's forward
+on the card):
+
+- ``pong84_conv``        — NatureCNN with VBN on the C++ pixel pong
+  (84×84, 4 stacked frames, action repeat 2, sticky actions 0.25), pop 256;
+- ``halfcheetah_pooled``, ``humanoid_pooled`` — gymnasium MuJoCo in
+  ``gym.vector`` workers (wherever gymnasium and MuJoCo are installed);
+- ``atari_frostbite``    — gated on ``ale_py``, as in the JAX package.
+
 Every recipe takes ``**over`` to override any ``ES`` argument, ``device``
-included.  The host, pooled, novelty and Atari recipes of the JAX package
-raise ``NotImplementedError`` naming their ``ROADMAP.md`` port item.
+included.  The host and novelty recipes of the JAX package raise
+``NotImplementedError`` naming their ``ROADMAP.md`` port item.
 
 Use:  python -m estorch_tpu_torch.configs <name> [--generations N]
       [--population P] [--device cuda|cpu]
@@ -23,8 +32,9 @@ import argparse
 from typing import Callable
 
 from .algo import ES
-from .envs import CartPole, Cheetah2D, DeviceAgent, Hopper2D, Humanoid2D, Swimmer2D, Walker2D
-from .models import MLPPolicy
+from .envs import (CartPole, Cheetah2D, DeviceAgent, Hopper2D, Humanoid2D, PooledAgent,
+                   Swimmer2D, Walker2D)
+from .models import MLPPolicy, NatureCNN
 from .optim import adam
 
 
@@ -98,6 +108,79 @@ def humanoid2d_pop10k(**over) -> ES:
                            "eval_chunk": 1024, **over})
 
 
+def halfcheetah_pooled(**over) -> ES:
+    """HalfCheetah physics in ``gym.vector`` workers, the population's MLP
+    forwards on the card; pass ``obs_norm=True`` for the OpenAI-ES MuJoCo
+    setup."""
+    kw = dict(
+        policy=MLPPolicy,
+        agent=PooledAgent,
+        optimizer=adam,
+        population_size=1000,
+        sigma=0.02,
+        policy_kwargs={"action_dim": 6, "hidden": (64, 64), "discrete": False},
+        agent_kwargs={"env_name": "gym:HalfCheetah-v5", "horizon": 1000},
+        optimizer_kwargs={"learning_rate": 1e-2},
+        weight_decay=0.005,
+    )
+    kw.update(over)
+    return ES(**kw)
+
+
+def humanoid_pooled(**over) -> ES:
+    """Humanoid-v5 physics in ``gym.vector`` workers: MLP 348 → 256×256 →
+    17, actions squashed to the env's ±0.4, mirrored sampling, obs
+    normalization; population 512 (pass ``population_size=10000`` for the
+    full scale)."""
+    kw = dict(
+        policy=MLPPolicy,
+        agent=PooledAgent,
+        optimizer=adam,
+        population_size=512,
+        sigma=0.02,
+        policy_kwargs={"action_dim": 17, "hidden": (256, 256), "discrete": False,
+                       "action_scale": 0.4},
+        agent_kwargs={"env_name": "gym:Humanoid-v5", "horizon": 1000},
+        optimizer_kwargs={"learning_rate": 1e-2},
+        weight_decay=0.005,
+        obs_norm=True,
+    )
+    kw.update(over)
+    return ES(**kw)
+
+
+def pong84_conv(**over) -> ES:
+    """NatureCNN with VBN on the bundled C++ pixel pong (84×84), with the
+    Atari preprocessing (4 stacked frames → the CNN's 84×84×4 input, action
+    repeat 2, sticky actions 0.25): the pooled conv path without ALE."""
+    kw = dict(
+        policy=NatureCNN,
+        agent=PooledAgent,
+        optimizer=adam,
+        population_size=256,
+        sigma=0.02,
+        policy_kwargs={"action_dim": 3, "use_vbn": True},
+        agent_kwargs={"env_name": "pong84", "horizon": 500, "frame_stack": 4,
+                      "action_repeat": 2, "sticky_prob": 0.25},
+        optimizer_kwargs={"learning_rate": 1e-2},
+        table_size=1 << 23,
+    )
+    kw.update(over)
+    return ES(**kw)
+
+
+def atari_frostbite(**over) -> ES:
+    """Frostbite, Nature CNN, pop 5k: gated on ``ale_py``, as in the JAX
+    package."""
+    try:
+        import ale_py  # noqa: F401
+    except ImportError as e:
+        raise ImportError(
+            "the Atari config needs ale_py, which is not installed; the NatureCNN policy "
+            "and the pooled path are ready for it once ALE is available") from e
+    raise NotImplementedError("wire up ALE via PooledAgent once available")
+
+
 def _not_ported(name: str, item: str) -> Callable[..., ES]:
     def recipe(**over) -> ES:
         raise NotImplementedError(
@@ -107,7 +190,7 @@ def _not_ported(name: str, item: str) -> Callable[..., ES]:
     return recipe
 
 
-_HOST_POOLED = "2, the host and pooled backends"
+_HOST = "2, the host backend"
 _NOVELTY = "4, the novelty family"
 
 CONFIGS: dict[str, Callable[..., ES]] = {
@@ -118,16 +201,15 @@ CONFIGS: dict[str, Callable[..., ES]] = {
     "humanoid2d_device": humanoid2d_device,
     "humanoid2d_pop10k": humanoid2d_pop10k,
     "cheetah2d_device": cheetah2d_device,
-    # host agents on gymnasium MuJoCo (VBN: item 3)
-    "halfcheetah_vbn": _not_ported("halfcheetah_vbn", _HOST_POOLED),
-    "humanoid_mirrored": _not_ported("humanoid_mirrored", _HOST_POOLED),
+    # host agents on gymnasium MuJoCo
+    "halfcheetah_vbn": _not_ported("halfcheetah_vbn", _HOST),
+    "humanoid_mirrored": _not_ported("humanoid_mirrored", _HOST),
     "humanoid_nsres": _not_ported("humanoid_nsres", _NOVELTY),
-    "halfcheetah_pooled": _not_ported("halfcheetah_pooled", _HOST_POOLED),
+    "halfcheetah_pooled": halfcheetah_pooled,
     "halfcheetah_nsres": _not_ported("halfcheetah_nsres", _NOVELTY),
-    "humanoid_pooled": _not_ported("humanoid_pooled", _HOST_POOLED),
-    # the pooled C++ pixel pong and Atari (NatureCNN: item 3)
-    "pong84_conv": _not_ported("pong84_conv", _HOST_POOLED),
-    "atari_frostbite": _not_ported("atari_frostbite", _HOST_POOLED),
+    "humanoid_pooled": humanoid_pooled,
+    "pong84_conv": pong84_conv,
+    "atari_frostbite": atari_frostbite,
 }
 
 

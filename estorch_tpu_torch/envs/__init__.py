@@ -1,5 +1,5 @@
 from .acrobot import Acrobot
-from .agent import DeviceAgent
+from .agent import DeviceAgent, PooledAgent
 from .base import DeviceEnv
 from .cartpole import CartPole
 from .locomotion import (
@@ -20,6 +20,7 @@ from .rollout import (
     RolloutResult,
     make_batched_rollout,
     member_params_apply,
+    population_forward,
     select_action,
 )
 from .synthetic import RecallEnv, SyntheticEnv
@@ -27,6 +28,7 @@ from .synthetic import RecallEnv, SyntheticEnv
 __all__ = [
     "Acrobot", "CartPole", "Cheetah2D", "DeceptiveValley", "DeviceAgent", "DeviceEnv",
     "Hopper2D", "Humanoid2D", "MountainCar", "MountainCarContinuous", "ObsMoments",
-    "Pendulum", "PlanarLayout", "PositionOnly", "RecallEnv", "RolloutResult", "Swimmer2D",
-    "SyntheticEnv", "Walker2D", "make_batched_rollout", "member_params_apply", "select_action",
+    "Pendulum", "PlanarLayout", "PooledAgent", "PositionOnly", "RecallEnv", "RolloutResult", "Swimmer2D",
+    "SyntheticEnv", "Walker2D", "make_batched_rollout", "member_params_apply",
+    "population_forward", "select_action",
 ]

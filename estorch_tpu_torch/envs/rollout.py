@@ -49,13 +49,27 @@ def member_params_apply(module, member_params: dict, obs: torch.Tensor) -> torch
     """The standard forward with each member's own materialized params.
 
     ``member_params`` leaves carry a leading member axis (kernels (n, m, h),
-    biases (n, h): θ_i unraveled from an (n, dim) stack); ``obs`` is
-    (n, e, obs_dim), e episodes a member.  Each layer is one batched product
-    over the members, x_i @ W_i + b_i, through the module's own forward.
+    biases and VBN scales (n, h): θ_i unraveled from an (n, dim) stack);
+    ``obs`` is (n, e, obs_dim), e episodes a member.  Each layer is one
+    batched product over the members, x_i @ W_i + b_i, through the module's
+    own forward.
     """
-    tree = {layer: {"kernel": leaves["kernel"], "bias": leaves["bias"].unsqueeze(-2)}
+    tree = {layer: {name: v if name == "kernel" else v.unsqueeze(-2)
+                    for name, v in leaves.items()}
             for layer, leaves in member_params.items()}
     return module.apply_params(tree, obs)
+
+
+def population_forward(module, member_params: dict) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``forward(obs (n, obs_dim)) -> (n, out)`` for n members, one
+    observation each, with their materialized params (leaves with a leading
+    member axis).  A policy with a population layout of its own
+    (``NatureCNN``: a ``bmm`` a layer) lays the weights out here, once; the
+    MLP runs :func:`member_params_apply`."""
+    if hasattr(module, "population_layout"):
+        layout = module.population_layout(member_params)
+        return lambda obs: module.population_apply(layout, obs)[:, 0]
+    return lambda obs: member_params_apply(module, member_params, obs[:, None, :])[:, 0]
 
 
 def make_batched_rollout(env: Any, horizon: int, with_obs_moments: bool = False,

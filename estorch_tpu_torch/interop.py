@@ -2,8 +2,10 @@
 numpy arrays.
 
 Both packages lay their params out the same way (``ops/params.py``), so a
-JAX param tree or its flat ``params_flat`` and the JAX noise table can be
-handed to the port and both compute the same thing; batched JAX env states
+JAX param tree (the MLP's, or NatureCNN's with its conv kernels in HWIO and
+its VBN ``scale``/``bias``) or its flat ``params_flat``, a policy's frozen
+``vbn_stats`` and the JAX noise table can be handed to the port and both
+compute the same thing; batched JAX env states
 are packed into the port's ``(n, state_dim)`` rows.  Only numpy crosses
 the boundary; nothing here imports JAX.
 """
@@ -41,6 +43,12 @@ def params_from_jax(tree_or_flat: Any, spec: ParamSpec | None = None,
         raise ValueError("a flat params vector needs the spec of its layout")
     flat = torch.as_tensor(np.array(tree_or_flat, dtype=np.float32)).to(device)
     return flat, spec.unravel(flat)
+
+
+def vbn_stats_from_jax(stats: Any, device: str | torch.device = "cpu") -> dict:
+    """A policy's ``vbn_stats`` from the JAX package's frozen ``vbn_stats``
+    collection (``{"vbn_i": {"mean", "var"}}``, as numpy): float32 tensors."""
+    return _to_torch_tree(stats, device)
 
 
 def obs_stats_from_jax(triple: Any, device: str | torch.device = "cpu") -> tuple:

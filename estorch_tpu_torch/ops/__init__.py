@@ -18,11 +18,11 @@ from .noise_kernels import (
 )
 from .lowrank import LowRankSpec, lowrank_noise_tree, lowrank_weighted_sum, make_lowrank_spec
 from .params import ParamSpec, make_param_spec
-from .ranks import centered_rank, centered_rank_safe, compute_ranks
+from .ranks import centered_rank, centered_rank_np, centered_rank_safe, compute_ranks
 
 __all__ = [
     "DEFAULT_TABLE_SIZE", "LowRankSpec", "NoiseTable", "ParamSpec", "centered_rank",
-    "centered_rank_safe", "compute_ranks", "es_gradient",
+    "centered_rank_np", "centered_rank_safe", "compute_ranks", "es_gradient",
     "flat_layer_offsets", "fold_mirrored_weights", "launch_counts",
     "lowrank_noise_tree", "lowrank_weighted_sum", "make_lowrank_spec",
     "make_noise_table", "make_param_spec", "member_noise", "member_offsets",

@@ -94,12 +94,12 @@ def member_offsets(pair_offsets: torch.Tensor) -> torch.Tensor:
 
 def gather_rows(table_data: torch.Tensor, starts: torch.Tensor, length: int) -> torch.Tensor:
     """(n, length) rows ``table[s : s + length]``, out-of-range starts
-    handled as in :meth:`NoiseTable.slice`."""
+    handled as in :meth:`NoiseTable.slice`.  The rows are indexed out of
+    the table's overlapping window view, so no (n, length) index is built."""
     size = table_data.shape[0]
     starts = starts.to(torch.int64)
     starts = torch.where(starts < 0, starts + size, starts).clamp(0, size - length)
-    idx = starts[:, None] + torch.arange(length, device=table_data.device)
-    return table_data[idx]
+    return table_data.unfold(0, length, 1)[starts]
 
 
 def member_noise(table: NoiseTable, offsets: torch.Tensor, signs: torch.Tensor,

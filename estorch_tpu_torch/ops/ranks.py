@@ -7,6 +7,7 @@ break by position (stable sort), as in the JAX package.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -57,3 +58,17 @@ def centered_rank_safe(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     weights = torch.where(valid, sub * scale, zero)
     weights = torch.where(n_valid >= 2, weights, zero)
     return weights, n_valid
+
+
+def centered_rank_np(x) -> np.ndarray:
+    """NumPy twin of :func:`centered_rank` for ranking on the host (the
+    pooled path): a stable ``argsort``, so tied fitness, common with
+    integer returns, ranks by position exactly as the JAX package's
+    ``centered_rank_np`` does."""
+    x = np.asarray(x)
+    n = x.shape[0]
+    if n < 2:
+        return np.zeros_like(x, dtype=np.float32)
+    ranks = np.empty(n, dtype=np.int32)
+    ranks[np.argsort(x, kind="stable")] = np.arange(n, dtype=np.int32)
+    return (ranks.astype(np.float32) / (n - 1) - 0.5).astype(np.float32)

@@ -8,8 +8,10 @@ from .engine import (
     merge_obs_moments_np,
     normalize_obs,
 )
+from .pooled import PooledEngine, PooledEvalResult
 
 __all__ = [
     "ESEngine", "ESState", "EngineConfig", "Sample", "generation_seed",
-    "merge_obs_moments", "merge_obs_moments_np", "normalize_obs",
+    "merge_obs_moments", "merge_obs_moments_np", "normalize_obs", "PooledEngine",
+    "PooledEvalResult",
 ]

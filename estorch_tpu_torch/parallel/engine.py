@@ -182,12 +182,21 @@ class ESEngine:
     ``module`` is the policy (its ``apply_params`` is the standard and the
     probe forward); ``streamed_apply(shared, table_data, member_offsets, c,
     obs)`` is needed for ``streamed``, ``lowrank_spec`` for ``low_rank``.
+
+    With ``env=None`` the engine builds no rollouts (update-only mode): the
+    evaluation happens elsewhere (the pooled path, ``parallel/pooled.py``),
+    which draws this generation's offsets with :meth:`all_pair_offsets` and
+    hands the rank weights back to :meth:`apply_weights`.
     """
 
     def __init__(self, env: Any, module: Any, spec: ParamSpec, table: NoiseTable,
                  optimizer: Any, config: EngineConfig, device: torch.device,
                  streamed_apply: Callable[..., torch.Tensor] | None = None,
                  lowrank_spec: LowRankSpec | None = None):
+        if config.obs_norm and env is None:
+            raise ValueError(
+                "obs_norm needs device-native rollouts to carry the running stats "
+                "in-program; it is a device-path option")
         if config.low_rank:
             if config.decomposed or config.streamed or config.noise_kernel:
                 raise ValueError(
@@ -204,7 +213,7 @@ class ESEngine:
                 raise ValueError("streamed currently supports episodes_per_member=1")
             if config.compute_dtype != "float32":
                 raise ValueError("streamed runs in float32 (the table and kernel are f32)")
-            if streamed_apply is None:
+            if streamed_apply is None and env is not None:
                 raise ValueError(
                     "EngineConfig.streamed=True needs a streamed_apply "
                     "(ops/noise_kernels.py::mlp_streamed_apply for MLPPolicy)")
@@ -231,7 +240,7 @@ class ESEngine:
         # slices noise uses this, not spec.dim
         self.noise_dim = self.lr_spec.noise_dim if config.low_rank else spec.dim
         self._dtype = torch.bfloat16 if config.compute_dtype == "bfloat16" else torch.float32
-        self._rollout = make_batched_rollout(env, config.horizon)
+        self._rollout = make_batched_rollout(env, config.horizon) if env is not None else None
         self._probe_rollout = (make_batched_rollout(env, config.horizon, with_obs_moments=True)
                                if config.obs_norm else None)
         self._eval_rollouts: dict[bool, Callable[..., Any]] = {}  # evaluate_episodes
@@ -306,6 +315,13 @@ class ESEngine:
         first draw."""
         return torch.Generator().manual_seed(generation_seed(state.seed, state.generation))
 
+    def all_pair_offsets(self, state: ESState) -> torch.Tensor:
+        """This generation's offsets, per pair (mirrored) or per member, on
+        the device: exactly those :meth:`sample` draws first, so an outside
+        evaluator perturbs with the noise the update reduces."""
+        return sample_pair_offsets(self._generation_generator(state), self.rows,
+                                   self.table.size, self.noise_dim).to(self.device)
+
     # --------------------------------------------------------- generation
 
     def generation_step(self, state: ESState, sample: Sample | None = None):
@@ -319,7 +335,7 @@ class ESEngine:
         fitness, bc, steps = self._evaluate(state, sample)
         weights, n_valid = centered_rank_safe(fitness)
         grad = self._grad(state, weights, sample.offsets)
-        new_state, gnorm = self._finish_update(state, grad, sample)
+        new_state, gnorm = self._finish_update(state, grad, sample.probe_states)
         metrics = {
             "fitness": fitness,
             "bc": bc,
@@ -452,10 +468,21 @@ class ESEngine:
         return rank_weighted_noise_sum(self.table, red_offs, weights, dim=self.spec.dim,
                                        chunk=cfg.grad_chunk) / scale
 
-    def _finish_update(self, state: ESState, grad_ascent: torch.Tensor, sample: Sample):
+    def apply_weights(self, state: ESState, weights: torch.Tensor,
+                      pair_offsets: torch.Tensor | None = None):
+        """The update from per-member rank weights of an evaluation made
+        elsewhere: ``(new_state, grad_norm)``.  ``pair_offsets`` are the
+        generation's offsets (tests hand in the JAX package's), by default
+        :meth:`all_pair_offsets`."""
+        offs = self.all_pair_offsets(state) if pair_offsets is None else pair_offsets
+        grad = self._grad(state, weights.to(self.device, torch.float32), offs.to(self.device))
+        return self._finish_update(state, grad)
+
+    def _finish_update(self, state: ESState, grad_ascent: torch.Tensor,
+                       probe_states: torch.Tensor | None = None):
         """Weight decay, the optimizer step, σ annealing and, with
         ``obs_norm``, the stats refresh from probe episodes of the
-        generation's (pre-update) center."""
+        generation's (pre-update) center, from ``probe_states``."""
         cfg = self.config
         if cfg.weight_decay > 0.0:
             grad_ascent = grad_ascent - cfg.weight_decay * state.params_flat
@@ -465,10 +492,9 @@ class ESEngine:
             new_sigma = torch.clamp(state.sigma * cfg.sigma_decay, min=cfg.sigma_min)
         new_obs_stats = state.obs_stats
         if cfg.obs_norm:
-            if sample.probe_states is None:
+            if probe_states is None:
                 raise ValueError("obs_norm needs the sample's probe_states")
-            moments = self._probe_moments(state.params_flat, state.obs_stats,
-                                          sample.probe_states)
+            moments = self._probe_moments(state.params_flat, state.obs_stats, probe_states)
             new_obs_stats = merge_obs_moments(state.obs_stats, *moments)
         new_state = ESState(
             params_flat=state.params_flat + updates,
@@ -525,11 +551,7 @@ class ESEngine:
         """One member's flat params θ + σ s ε (dense, also for low rank),
         rebuilt from this generation's offsets, e.g. to keep the best
         member."""
-        if sample is None:  # this generation's offsets alone, not its states
-            offsets = sample_pair_offsets(self._generation_generator(state), self.rows,
-                                          self.table.size, self.noise_dim)
-        else:
-            offsets = sample.offsets
+        offsets = self.all_pair_offsets(state) if sample is None else sample.offsets
         if self.config.mirrored:
             off = int(offsets[member_index // 2])
             sign = 1.0 if member_index % 2 == 0 else -1.0

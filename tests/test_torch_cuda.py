@@ -302,3 +302,58 @@ def test_humanoid_generation_is_bitwise_repeatable_on_card(cuda):
     assert torch.equal(s1.params_flat, s2.params_flat)
     assert all(torch.equal(a, b) for a, b in zip(s1.obs_stats, s2.obs_stats))
     assert int(m1["steps"]) < 512 * 50  # members fell: the done mask ran
+
+
+# ------------------------------------------------------------ the pooled path
+
+
+@pytest.mark.parametrize("double_buffer", [False, True], ids=["sync", "double_buffer"])
+def test_pooled_pendulum_on_card_matches_cpu(cuda, double_buffer):
+    """Pooled Pendulum, population 32, horizon 60, two generations with the
+    kernel update, on the card and on the CPU from the same pools: reward
+    means within 1e-4 relative, the update direction's cosine >= 0.999
+    (SGD).  With ``double_buffer`` the actions come back through the
+    pinned buffers and CUDA events."""
+    from estorch_tpu_torch import ES, MLPPolicy, PooledAgent, sgd
+
+    kw = dict(population_size=32, sigma=0.05, table_size=1 << 20, noise_kernel=True,
+              policy_kwargs={"action_dim": 1, "hidden": (64, 64), "discrete": False,
+                             "action_scale": 2.0},
+              optimizer_kwargs={"learning_rate": 1e-2})
+    agent = PooledAgent("pendulum", horizon=60, double_buffer=double_buffer)
+    card = ES(MLPPolicy, agent, sgd, device=cuda, **kw)
+    cpu = ES(MLPPolicy, agent, sgd, device="cpu", **kw)
+    p0 = cpu.state.params_flat.clone()
+    nk.reset_launch_counts()
+    card.train(2, verbose=False)
+    assert nk.launch_counts == {"weighted_noise_sum": 2, "population_noise_matvec": 0}
+    cpu.train(2, verbose=False)
+    np.testing.assert_allclose([r["reward_mean"] for r in card.history],
+                               [r["reward_mean"] for r in cpu.history], rtol=1e-4)
+    dg, dc = card.state.params_flat.cpu() - p0, cpu.state.params_flat - p0
+    assert float(dg @ dc / (dg.norm() * dc.norm())) >= 0.999
+
+
+def test_naturecnn_population_forward_on_card_matches_cpu(cuda):
+    """The grouped-conv NatureCNN forward with VBN, population 4, on the
+    card (TF32 off, as ``resolve_device`` sets it) and on the CPU: logits
+    within 1e-4 of their scale."""
+    from estorch_tpu_torch import NatureCNN, resolve_device
+    from estorch_tpu_torch.envs.rollout import population_forward
+    from estorch_tpu_torch.models import capture_reference_stats
+    from estorch_tpu_torch.ops.params import make_param_spec
+
+    resolve_device(cuda)
+    g = torch.Generator().manual_seed(0)
+    module = NatureCNN(3)
+    params = module.init_params((84, 84, 4), g)
+    flat, spec = make_param_spec(params)
+    ref = (torch.rand((32, 84, 84, 4), generator=g) < 0.05).float()
+    module.vbn_stats = capture_reference_stats(module, params, ref)
+    thetas = flat + 0.02 * torch.randn((4, spec.dim), generator=g)
+    obs = (torch.rand((4, 84 * 84 * 4), generator=g) < 0.05).float()
+    want = population_forward(module, spec.unravel(thetas))(obs)
+    module.vbn_stats = {k: {n: v.to(cuda) for n, v in s.items()}
+                        for k, s in module.vbn_stats.items()}
+    got = population_forward(module, spec.unravel(thetas.to(cuda)))(obs.to(cuda)).cpu()
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-4

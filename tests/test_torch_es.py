@@ -262,7 +262,7 @@ class _RecurrentPolicy:
 
 
 class _PooledAgent:
-    env_name = "CartPole-v1"
+    env_name = "cartpole"
 
 
 class _HostAgent:
@@ -276,7 +276,7 @@ class _HostAgent:
     {"mesh": object()},
     {"policy": _RecurrentPolicy},
     {"policy_kwargs": dict(PENDULUM_POLICY, use_vbn=True)},
-    {"agent": _PooledAgent()},
+    {"agent": _PooledAgent(), "policy": _RecurrentPolicy},  # recurrent on the pooled path
     {"agent": _HostAgent()},
     {"policy": _RecurrentPolicy, "low_rank": 1},  # the tree form of low rank
     {"shard_params": True, "mesh": object()},
@@ -321,8 +321,10 @@ def test_host_agent_and_vbn_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ES(MLPPolicy, _HostAgent(), adam, device="cpu", policy_kwargs=PENDULUM_POLICY,
            optimizer_kwargs={"learning_rate": 1e-2}, streamed=True, noise_kernel=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        MLPPolicy(action_dim=1, use_vbn=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):  # VBN on the device path
+        ES(MLPPolicy, DeviceAgent(Pendulum(), horizon=20), adam, device="cpu",
+           policy_kwargs=dict(PENDULUM_POLICY, use_vbn=True),
+           optimizer_kwargs={"learning_rate": 1e-2})
 
 
 def test_import_loads_no_jax_and_no_reference_package():

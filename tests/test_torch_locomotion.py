@@ -456,8 +456,7 @@ def test_recipe_builds_with_the_jax_recipes_options(name, monkeypatch):
 
 @pytest.mark.parametrize("name,item", [
     ("halfcheetah_vbn", "2"), ("humanoid_mirrored", "2"), ("humanoid_nsres", "4"),
-    ("halfcheetah_pooled", "2"), ("halfcheetah_nsres", "4"), ("humanoid_pooled", "2"),
-    ("pong84_conv", "2"), ("atari_frostbite", "2"),
+    ("halfcheetah_nsres", "4"),
 ])
 def test_unported_recipe_raises_naming_its_item(name, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md, port queue item: {item}"):
