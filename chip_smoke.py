@@ -20,7 +20,8 @@ Phases, in order; any failure exits non-zero before the last line:
    MLP64x64 layers; both kernels are also checked and timed at the shapes
    of phase 7's streamed paths (g) and (i); the reduction also at the
    pong84_conv shape (128 pair rows, dim 1,685,987, a 2^23-float table),
-   warm and cold;
+   warm and cold, and at the host path's (m) shape (500 pair rows, dim
+   4737, the host path's NumPy-built 2^25-float table), warm;
 3. the main path: ES on Pendulum, MLP 64x64, population 4096, horizon 200,
    streamed forward + kernel update, 1 warm-up and 3 timed generations,
    with the kernels' launch counts read around that run, then one more
@@ -33,7 +34,12 @@ Phases, in order; any failure exits non-zero before the last line:
    must agree (1e-4, cosine 0.999); then pooled Pendulum (pop 32, horizon
    60, SGD: returns within 1e-4 relative, update cosine 0.999) and the
    NatureCNN population forward on 20 recorded pong84 observations at
-   population 4 (logits within 1e-4 of their scale, TF32 off);
+   population 4 (logits within 1e-4 of their scale, TF32 off); then the
+   host path (a torch MLP 64x64 with TorchVirtualBatchNorm, a
+   ``rollout(policy)`` Pendulum agent, pop 32, horizon 60, 2 generations,
+   Adam, 4 threads: returns within 1e-4 relative, update cosine 0.999) and
+   one generation in process mode (4 forked workers beside the live CUDA
+   context) against the CPU's threads (fitness within 1e-5 relative);
 5. the other paths at the width of phase 3, each through ``ES(...).train``
    with 1 warm-up and 3 timed generations, its launch counts read around
    that run and checked exactly, then one profiled generation: (a) the
@@ -59,10 +65,24 @@ Phases, in order; any failure exits non-zero before the last line:
    4096, the kernel update; (k) the same with ``double_buffer=True``; (l)
    the ``pong84_conv`` recipe (NatureCNN with VBN, pop 256, 84x84x4, action
    repeat 2, sticky 0.25, horizon 500), with the host-clock shares of the
-   four parts of its env step timed apart for one generation.
+   four parts of its env step timed apart for one generation;
+9. the host path at full width, (m) host/pendulum/vbn64x64: the
+   ``halfcheetah_vbn`` recipe's torch MLP 64x64 with TorchVirtualBatchNorm
+   (frozen from 128 random-action observations), pop 1000, sigma 0.02,
+   ``torch.optim.Adam`` lr 1e-2, weight decay 0.005, a 2^25 table, on a
+   ``rollout(policy)`` agent over the port's NumPy Pendulum pool (the
+   output times 2; the card machine has no MuJoCo, so obs/action dims are
+   3/1, not 17/6), Pendulum's horizon 200, 8 forked workers rolling out
+   on the CPU with the update on the card, 1 warm-up and 2 timed
+   generations with the reduction's launches exact (1 a generation), and
+   the same run with ``device="cpu"``; then the policies on the card: one
+   generation with one worker on each device, the launches an env step
+   over 4 members' rollouts, the device's busy share of one profiled
+   generation at population 16 with 8 threads; and, at horizon 10, 8
+   thread workers against one on each device.
 
 Then one JSON line of per-path numbers, one of per-kernel numbers (launches
-from phase 3, and of the reduction in (j) and (k)), the card line, and the
+from phase 3, and of the reduction in (j), (k) and (m)), the card line, and the
 last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -129,6 +149,17 @@ POOLED_PATHS = [
     ("l pooled/pong84_conv", lambda tt, cf: cf.pong84_conv(), 2, 0),
 ]
 PONG_PAIRS, PONG_TABLE = 128, 1 << 23  # the pong84_conv recipe's update shape
+# phase 9, (m): the halfcheetah_vbn recipe's policy and hyperparameters on a
+# rollout(policy) agent over Pendulum (the card machine has no MuJoCo), at
+# Pendulum's horizon of 200, timed in process mode (8 forked workers).  The
+# 8 thread workers step a few hundred env-steps/s on either device, minutes
+# a generation at 200 steps, so they are a side reading at horizon 10
+HOST_POPULATION, HOST_HORIZON, HOST_WORKERS = 1000, 200, 8
+HOST_SIDE_HORIZON = 10  # the thread workers' side readings
+HOST_TIMED = 2  # generations after 1 warm-up
+HOST_RECIPE = dict(population_size=HOST_POPULATION, sigma=0.02, optimizer_kwargs={"lr": 1e-2},
+                   weight_decay=0.005, table_size=TABLE_SIZE)
+HOST_PAIRS, HOST_DIM = HOST_POPULATION // 2, 4737  # the update's shape: 3 -> 64x64 VBN -> 1
 L2_FLUSH_BYTES = 256 << 20  # written and read before each cold launch: five times the L2
 # one env step's three launches before the pair-sharing redesign, as measured
 # then on an H100 80GB HBM3 at 700 W: printed beside this run's time, never
@@ -232,7 +263,7 @@ def union_floats(starts, length: int) -> int:
     return total + (cur_hi - cur_lo if cur_hi is not None else 0)
 
 
-def profile_generation(torch, es, top: int = 15) -> tuple[float, int]:
+def profile_generation(torch, es, top: int = 15, **train_kw) -> tuple[float, int]:
     """One more generation under torch.profiler: the device's busy share of
     the wall time and the kernels that take it.  Returns the busy seconds
     and the number of kernel launches (copies and fills not counted).
@@ -245,7 +276,7 @@ def profile_generation(torch, es, top: int = 15) -> tuple[float, int]:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        es.train(1, verbose=False)
+        es.train(1, verbose=False, **train_kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name: dict[str, list] = {}
@@ -783,6 +814,234 @@ def run_pooled_paths(torch, tt, nk, card: str) -> list[dict]:
         del es
     return paths
 
+class PendulumRolloutAgent:
+    """A reference-style ``rollout(policy)`` agent: one Pendulum episode of
+    ``horizon`` steps in the port's NumPy pool, the policy's output times 2
+    as the torque.  Observations go to the policy's device and actions come
+    back with ``.cpu()``, as the reference contract asks of a card run."""
+
+    def __init__(self, horizon: int = HOST_HORIZON):
+        from estorch_tpu_torch.envs.native_pool import NumpyEnvPool
+
+        self.pool = NumpyEnvPool("pendulum", 1)
+        self.horizon = horizon
+
+    def rollout(self, policy):
+        import torch
+
+        device = next(policy.parameters()).device
+        obs = self.pool.reset()
+        total = 0.0
+        with torch.no_grad():
+            for _ in range(self.horizon):
+                action = 2.0 * policy(torch.from_numpy(obs).to(device))
+                obs, reward, _ = self.pool.step(action.cpu().numpy())
+                total += float(reward[0])
+        self.last_episode_steps = self.horizon
+        return total
+
+
+def host_es(tt, device=None, horizon: int = HOST_HORIZON, **over):
+    """The (m) configuration through ``ES(...)``, its VBN frozen from 128
+    random-action Pendulum observations (the same batch on every device)."""
+    import numpy as np
+    import torch
+
+    from estorch_tpu_torch import configs
+    from estorch_tpu_torch.envs.native_pool import NumpyEnvPool
+
+    kw = dict(HOST_RECIPE, **over)
+    es = tt.ES(configs._torch_mlp(3, 1, hidden=(64, 64), vbn=True), PendulumRolloutAgent,
+               torch.optim.Adam, device=device, agent_kwargs={"horizon": horizon}, **kw)
+    pool, rng = NumpyEnvPool("pendulum", 1, seed=0), np.random.default_rng(0)
+    frames = [pool.reset()]
+    for _ in range(127):
+        frames.append(pool.step(rng.uniform(-2, 2, (1, 1)).astype(np.float32))[0])
+    es.engine.freeze_vbn(np.concatenate(frames))
+    return es
+
+
+def time_host_reduction(torch, nk, bw: float, f32: float) -> dict:
+    """Phase 2: the reduction at the host path's update shape (m): 500 pair
+    rows of dim 4737 from the host path's NumPy-built 2^25-float table, at
+    the SeedSequence offsets of generation 0, checked against the plain
+    version and timed warm and plain."""
+    import numpy as np
+
+    dev = torch.device("cuda")
+    table = torch.from_numpy(
+        np.random.default_rng(0).standard_normal(TABLE_SIZE, dtype=np.float32)).to(dev)
+    rng = np.random.default_rng(np.random.SeedSequence(entropy=0, spawn_key=(0,)))
+    offs = rng.integers(0, TABLE_SIZE - HOST_DIM + 1, size=HOST_PAIRS, dtype=np.int64)
+    offs_dev = torch.from_numpy(offs.astype(np.int32)).to(dev)
+    w = torch.from_numpy(rng.uniform(-1, 1, HOST_PAIRS).astype(np.float32)).to(dev)
+    got = nk.weighted_noise_sum(table, offs_dev, w, HOST_DIM)
+    torch.cuda.synchronize()
+    want = nk.weighted_noise_sum_plain(table, offs_dev, w, HOST_DIM)
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=1e-4, atol=1e-3):
+        fail(f"weighted_noise_sum host n={HOST_PAIRS} dim={HOST_DIM}: max |err| {err:g}")
+    nbytes = 4 * (union_floats(offs, HOST_DIM) + 2 * HOST_PAIRS + HOST_DIM)
+    flops = 2 * HOST_PAIRS * HOST_DIM
+    bound = max(nbytes / bw, flops / f32) * 1e3
+    ms = time_ms(torch, lambda: nk.weighted_noise_sum(table, offs_dev, w, HOST_DIM))
+    plain_ms = time_ms(torch, lambda: nk.weighted_noise_sum_plain(table, offs_dev, w, HOST_DIM))
+    print(f"weighted_noise_sum host (m) n={HOST_PAIRS} dim={HOST_DIM}: max |err| {err:.3g} (tol "
+          f"atol 1e-3, rtol 1e-4); warm {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB distinct)")
+    del table
+    return {"shape": f"host (m): n={HOST_PAIRS}, dim={HOST_DIM}, table 2^25 (NumPy)", "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "max_abs_err": err}
+
+
+def compare_host_card_cpu(torch, tt) -> list[dict]:
+    """Phase 4, the host path: the (m) policy with VBN at population 32,
+    horizon 60, two generations with Adam, on the card and on the CPU: the
+    returns within 1e-4 relative, the update's cosine >= 0.999 (the card's
+    matmuls and the reduction round otherwise than the CPU's).  Then one
+    generation in process mode (4 forked workers) after CUDA is up, against
+    the CPU's thread workers: fitness within 1e-5 relative (both roll out on
+    the CPU; the forked children never touch CUDA)."""
+    import numpy as np
+
+    small = dict(population_size=32, table_size=1 << 22, horizon=60)
+    es_gpu, es_cpu = host_es(tt, **small), host_es(tt, device="cpu", **small)
+    if es_gpu.device.type != "cuda" or es_gpu.engine.table.device.type != "cuda":
+        fail(f"host path ran on {es_gpu.device}")
+    p0 = es_cpu.state.params_flat.clone()
+    es_gpu.train(2, n_proc=4, verbose=False)
+    es_cpu.train(2, n_proc=4, verbose=False)
+    fit_err = max(abs(a["reward_mean"] - b["reward_mean"]) / abs(b["reward_mean"])
+                  for a, b in zip(es_gpu.history, es_cpu.history))
+    dg, dc = es_gpu.state.params_flat.cpu() - p0, es_cpu.state.params_flat - p0
+    cos = float(dg @ dc / (dg.norm() * dc.norm()))
+    print(f"card vs CPU, host path (VBN 64x64, pop 32, horizon 60, 2 generations, Adam, 4 "
+          f"threads): reward_mean rel err {fit_err:.3g} (tol 1e-4), update cosine {cos:.7f} "
+          f"(tol 0.999)")
+    if not (fit_err <= 1e-4 and cos >= 0.999):
+        fail(f"card vs CPU, host path: rel err {fit_err:g}, cosine {cos:g}")
+    es_gpu.engine.close()
+    es_cpu.engine.close()
+
+    es_proc = host_es(tt, worker_mode="process", **small)
+    es_thr = host_es(tt, device="cpu", **small)
+    try:
+        es_proc.engine.set_n_proc(4)
+        es_thr.engine.set_n_proc(4)
+        got = es_proc.engine.evaluate(es_proc.state).fitness
+        want = es_thr.engine.evaluate(es_thr.state).fitness
+    finally:
+        es_proc.engine.close()
+        es_thr.engine.close()
+    proc_err = float(np.max(np.abs(got - want) / np.abs(want)))
+    print(f"process mode on the card's ES (4 forked workers, CUDA initialized) vs CPU threads: "
+          f"fitness rel err {proc_err:.3g} (tol 1e-5)")
+    if not np.all(np.isfinite(got)) or proc_err > 1e-5:
+        fail(f"process mode after CUDA init: fitness rel err {proc_err:g}, {got}")
+    return [{"check": "host path", "reward_mean_rel_err": fit_err, "cosine": cos},
+            {"check": "host process mode after CUDA init", "fitness_rel_err": proc_err}]
+
+
+def run_host_path(torch, tt, nk, card: str) -> dict:
+    """Phase 9, (m) host/pendulum/vbn64x64 at horizon ``HOST_HORIZON``:
+    ``HOST_WORKERS`` forked workers (rollouts on the CPU, the table, center
+    and update on the card), 1 warm-up and ``HOST_TIMED`` timed generations,
+    the reduction's launches counted around that run (1 a generation), and
+    the same run with device="cpu".  Then the policies on the card: one
+    generation with one worker on each device at the full horizon; the
+    launches an env step over 4 members' rollouts; the device's busy share
+    of one profiled generation at population 16 with ``HOST_WORKERS``
+    threads, against the generation before it, unprofiled (a whole
+    generation's events would take the profiler minutes); and, at horizon
+    ``HOST_SIDE_HORIZON``, ``HOST_WORKERS`` threads against one worker on
+    each device, for the threads' scaling."""
+    from estorch_tpu_torch.host.engine import call_rollout, load_flat
+
+    def timed_run(device, n_proc: int, timed: int, warm: int = 1,
+                  **over) -> tuple[dict, object]:
+        es = host_es(tt, device=device, **over)
+        p0 = es.state.params_flat.clone()
+        if device is None:
+            torch.cuda.synchronize()
+            nk.reset_launch_counts()
+        if warm:
+            es.train(warm, n_proc=n_proc, verbose=False)
+        t0 = time.perf_counter()
+        es.train(timed, n_proc=n_proc, verbose=False)
+        if device is None:
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        for r in es.history:
+            if r["n_failed"] or not all(math.isfinite(r[k])
+                                        for k in ("reward_mean", "reward_max", "grad_norm")):
+                fail(f"path (m) on {device or 'cuda'}, generation {r['generation']}: {r}")
+        if torch.equal(p0.cpu(), es.state.params_flat.cpu()):
+            fail(f"path (m) on {device or 'cuda'}: params did not change")
+        steps = sum(r["env_steps"] for r in es.history[warm:])
+        return {"env_steps_per_s": steps / dt, "s_per_generation": dt / timed,
+                "reward_mean": [r["reward_mean"] for r in es.history]}, es
+
+    def report(what: str, rec: dict) -> None:
+        print(f"  {what}: {rec['env_steps_per_s']:.0f} env-steps/s "
+              f"({rec['s_per_generation']:.3f} s a generation)")
+
+    label = "m host/pendulum/vbn64x64"
+    rec, es = timed_run(None, HOST_WORKERS, HOST_TIMED, worker_mode="process")
+    counts = dict(nk.launch_counts)
+    want = {"weighted_noise_sum": 1 + HOST_TIMED, "population_noise_matvec": 0}
+    if counts != want:
+        fail(f"path {label}: launch counts {counts}, expected {want}")
+    es.engine.close()
+    print(f"path {label}, horizon {HOST_HORIZON}: {rec['env_steps_per_s']:.0f} env-steps/s over "
+          f"{HOST_TIMED} generations ({rec['s_per_generation']:.3f} s a generation), "
+          f"{HOST_WORKERS} forked CPU workers, the update on {card}; launches {counts}; reward "
+          f"mean {rec['reward_mean'][0]:.2f} -> {rec['reward_mean'][-1]:.2f}")
+    cpu, es_cpu = timed_run("cpu", HOST_WORKERS, 1, worker_mode="process")
+    es_cpu.engine.close()
+    report(f"the same with device=\"cpu\", 1 timed generation", cpu)
+
+    # the policies on the card, at the full horizon
+    single = {}
+    for device in (None, "cpu"):
+        one, es_one = timed_run(device, 1, 1, warm=0)
+        if device is None:
+            policy, agent = es_one.engine._workers[0]
+            state = es_one.state
+
+            def four_members():
+                for i in range(4):
+                    load_flat(policy, es_one.engine.member_params(state, i))
+                    call_rollout(agent, policy)
+
+            per_step = count_launches(torch, four_members) / (4 * HOST_HORIZON)
+        es_one.engine.close()
+        single[device or "cuda"] = one
+        report(f"one worker, policies on {device or 'cuda'}, 1 generation", one)
+    small = host_es(tt, population_size=16)
+    small.train(1, n_proc=HOST_WORKERS, verbose=False)
+    wall = small.history[-1]["wall_time_s"]
+    busy, launched = profile_generation(torch, small, top=8, n_proc=HOST_WORKERS)
+    small.engine.close()
+    print(f"  {per_step:.2f} kernel launches an env step (4 members' rollouts); population 16, "
+          f"{HOST_WORKERS} threads, profiled: {launched} launches, busy {busy:.4f} s against "
+          f"{wall:.3f} s for the unprofiled generation before it ({busy / wall:.3f})")
+
+    # the thread workers, a side reading at horizon HOST_SIDE_HORIZON
+    side = {}
+    for device in (None, "cpu"):
+        for n_proc in (HOST_WORKERS, 1):
+            got, es_side = timed_run(device, n_proc, 1, warm=0, horizon=HOST_SIDE_HORIZON)
+            es_side.engine.close()
+            side[f"{device or 'cuda'}_{n_proc}"] = got
+            report(f"horizon {HOST_SIDE_HORIZON}, {n_proc} thread worker(s) on "
+                   f"{device or 'cuda'}, 1 generation", got)
+    return {"path": label, "launches": counts, **rec, "kernel_launches_per_env_step": per_step,
+            "busy_share_pop16": busy / wall, "device_busy_s_pop16": busy,
+            "population": HOST_POPULATION, "horizon": HOST_HORIZON,
+            "workers": HOST_WORKERS, "worker_mode": "process", "param_dim": HOST_DIM,
+            "cpu": cpu, "one_worker": single,
+            "threads_side_reading": {"horizon": HOST_SIDE_HORIZON, **side}}
+
 
 def main() -> None:
     import torch
@@ -994,6 +1253,9 @@ def main() -> None:
     pong_wns = time_pong_reduction(torch, nk, bw, f32, flush)
     wns["other_shapes"].append(pong_wns)
     wns["max_abs_err"] = max(wns["max_abs_err"], pong_wns["max_abs_err"])
+    host_wns = time_host_reduction(torch, nk, bw, f32)
+    wns["other_shapes"].append(host_wns)
+    wns["max_abs_err"] = max(wns["max_abs_err"], host_wns["max_abs_err"])
     del flush
     del table
 
@@ -1044,6 +1306,7 @@ def main() -> None:
     compare_card_cpu(torch, estorch_tpu_torch)
     env_cmp = compare_envs_card_cpu(torch, estorch_tpu_torch)
     env_cmp += compare_pooled_card_cpu(torch, estorch_tpu_torch)
+    env_cmp += compare_host_card_cpu(torch, estorch_tpu_torch)
 
     # ---- 5. the slice's other paths at full width ----------------------------
     phase("5. the other paths")
@@ -1065,6 +1328,11 @@ def main() -> None:
     pooled = run_pooled_paths(torch, estorch_tpu_torch, nk, card)
     paths += pooled
 
+    # ---- 9. the host path at full width ---------------------------------------------
+    phase("9. the host path")
+    host = run_host_path(torch, estorch_tpu_torch, nk, card)
+    paths.append(host)
+
     # ---- report --------------------------------------------------------------
     phase("report")
     kernels = [
@@ -1075,7 +1343,8 @@ def main() -> None:
          "ms": wns["ms"], "plain_ms": wns["plain_ms"], "bound_ms": wns["bound_ms"],
          "bound_by": wns["bound_by"], "library_ms": None,
          "shape": f"n={n_pairs} rows, dim={dim}", "other_shapes": wns["other_shapes"],
-         "launches_pooled": {p["path"]: p["launches"]["weighted_noise_sum"] for p in pooled}},
+         "launches_pooled": {p["path"]: p["launches"]["weighted_noise_sum"] for p in pooled},
+         "launches_host": {host["path"]: host["launches"]["weighted_noise_sum"]}},
         {"name": "population_noise_matvec", "route": "cuda",
          "source": "estorch_tpu_torch/ops/csrc/noise_kernels.cu",
          "replaces": "estorch_tpu/ops/pallas_noise.py:201",

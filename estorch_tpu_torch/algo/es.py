@@ -1,8 +1,8 @@
 """ES — the user-facing algorithm class.
 
 Counterpart of ``estorch_tpu/algo/es.py``'s ``ES.__init__`` and ``train``
-on one device, for the device and pooled backends.  The signature keeps
-the JAX package's names and defaults, so the default call runs the
+on one device, for the device, pooled and host backends.  The signature
+keeps the JAX package's names and defaults, so the default call runs the
 standard forward with the chunked plain update:
 
     es = ES(MLPPolicy, DeviceAgent(Pendulum(), horizon=200), adam,
@@ -16,28 +16,41 @@ A ``DeviceAgent`` runs the device backend (``parallel/engine.py``: env and
 policy on the card); a ``PooledAgent`` the pooled backend
 (``parallel/pooled.py``: the envs in a host pool, the population's forward
 on the card), e.g. ``NatureCNN`` with VBN on the C++ pixel pong
-(``configs.pong84_conv``).  ``es.backend`` says which.
+(``configs.pong84_conv``); an agent with ``rollout(policy)`` the host
+backend (``host/engine.py``): the reference's own contract, a torch
+policy class and a torch optimizer class,
+
+    es = ES(TorchPolicy, GymAgent, torch.optim.Adam, optimizer_kwargs={"lr": 1e-2})
+    es.train(n_steps, n_proc=8)
+
+with the policies, the center, the noise and the update on ``device``
+(``worker_mode="process"`` forks CPU workers for the rollouts).  The
+``rollout`` marker is checked first, so a reference agent that also holds a
+gym ``env`` runs on the host backend.  ``es.backend`` says which.
 
 ``decomposed``, ``low_rank``, ``streamed``, ``noise_kernel``, ``obs_norm``,
 ``compute_dtype="bfloat16"``, ``episodes_per_member``, ``eval_chunk`` and
 ``grad_chunk`` combine as in the JAX package, which rejects the same
 combinations with the same ``ValueError``s.  The options not ported yet
-(``mesh``/``shard_params``, ``scenarios``, host agents, recurrent
-policies, VBN on the device path) raise ``NotImplementedError`` naming
-their ``ROADMAP.md`` item.  ``device`` is ``"cuda"`` unless the caller
-passes ``"cpu"``.  ``best_policy`` keeps the best member seen, and
-``evaluate_policy`` rolls out fresh episodes of the center or of it.
+(``mesh``/``shard_params`` and the sharding options, ``telemetry``,
+``scenarios``, recurrent policies, VBN on the device path) raise
+``NotImplementedError`` naming their ``ROADMAP.md`` item.  ``device`` is
+``"cuda"`` unless the caller passes ``"cpu"``.  ``best_policy`` keeps the
+best member seen, and ``evaluate_policy`` rolls out fresh episodes of the
+center or of it.
 """
 
 from __future__ import annotations
 
 import copy
 import time
+import warnings
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
+from ..host.engine import HostEngine, load_flat
 from ..models.decomposed import supports_decomposed
 from ..models.vbn import capture_reference_stats
 from ..ops.lowrank import make_lowrank_spec
@@ -49,9 +62,31 @@ from ..parallel.pooled import PooledEngine
 from ..utils.backend import resolve_device
 
 _ROADMAP = "ROADMAP.md, port queue"
-_HOST = "2, the host backend"
 _RECURRENT = "3, recurrent policies and device-path VBN"
 _NOVELTY = "4, the novelty family"
+_OBSERVABILITY = "6, checkpoint, resilience and observability"
+_MULTI_GPU = "7, multi-GPU"
+
+# options that only the device and pooled backends have: (keyword, its
+# default, the JAX package's ValueError for a host agent)
+_DEVICE_ONLY = (
+    ("shard_params", False, "shard_params is a device-path option "
+     "(parallel/sharded.py); host torch agents replicate"),
+    ("compute_dtype", "float32", "compute_dtype is a device/pooled-path option; the host "
+     "backend runs torch policies in their native dtype"),
+    ("episodes_per_member", 1, "episodes_per_member is a device-path option; host agents "
+     "control their own rollout count inside rollout()"),
+    ("decomposed", False, "decomposed is a device-path option (models/decomposed.py)"),
+    ("noise_kernel", False, "noise_kernel is a device/pooled-path option (the host path's "
+     "update runs the reduction kernel already)"),
+    ("streamed", False, "streamed is a device-path option (ops/noise_kernels.py)"),
+    ("low_rank", 0, "low_rank is a device-path option (ops/lowrank.py)"),
+    ("obs_norm", False, "obs_norm is a device/pooled-path option (running stats ride the "
+     "training state); host agents own their rollouts — use models.TorchRunningObsNorm "
+     "there"),
+    ("scenarios", None, "scenarios is a device-path option: randomized physics constants "
+     "enter the rollout as operands; host agents step their envs in Python"),
+)
 
 
 def _instantiate(cls_or_obj, kwargs, what: str):
@@ -94,6 +129,7 @@ class ES:
         sigma_min: float = 0.0,
         mirrored: bool = True,
         episodes_per_member: int = 1,
+        worker_mode: str = "thread",
         decomposed: bool = False,
         noise_kernel: bool = False,
         streamed: bool = False,
@@ -102,9 +138,18 @@ class ES:
         obs_clip: float = 5.0,
         obs_probe_episodes: int = 1,
         obs_warmup_episodes: int = 0,
+        telemetry=None,
         shard_params: bool = False,
+        model_shards: int | None = None,
+        partition_rules=None,
+        noise_mode: str = "auto",
         scenarios=None,
     ):
+        if telemetry not in (None, False):
+            _unsupported("telemetry", _OBSERVABILITY)
+        if model_shards is not None or partition_rules is not None or noise_mode != "auto":
+            _unsupported("model_shards / partition_rules / noise_mode (the param-sharded "
+                         "engine)", _MULTI_GPU)
         if compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(
                 f"compute_dtype must be float32 or bfloat16, got {compute_dtype!r}")
@@ -112,9 +157,36 @@ class ES:
             raise ValueError(
                 "obs_warmup_episodes warm-starts the running obs stats; "
                 "it requires obs_norm=True")
+        self.population_size = int(population_size)
+        self.sigma = float(sigma)
+        self.seed = int(seed)
+        self.best_reward = -np.inf
+        self._best_flat: torch.Tensor | None = None  # the best member's params
+        self._best_module = None  # best_policy's module, built at first use
+        self.history: list[dict] = []
+        self.generation = 0
         self.agent = _instantiate(agent, dict(agent_kwargs or {}), "agent")
+        # a reference agent usually holds a gym ``env`` AND rollout(): the
+        # rollout contract is the host marker, so it is checked first
         if hasattr(self.agent, "rollout"):
-            _unsupported("host agents (rollout(policy))", _HOST)
+            given = dict(shard_params=shard_params, compute_dtype=compute_dtype,
+                         episodes_per_member=episodes_per_member, decomposed=decomposed,
+                         noise_kernel=noise_kernel, streamed=streamed, low_rank=low_rank,
+                         obs_norm=obs_norm, scenarios=scenarios)
+            for option, default, message in _DEVICE_ONLY:
+                if given[option] != default:
+                    raise ValueError(message)
+            if mesh is not None:
+                _unsupported("mesh", _MULTI_GPU)
+            self.backend = "host"
+            self._init_host(policy, dict(policy_kwargs or {}), agent, dict(agent_kwargs or {}),
+                            optimizer, dict(optimizer_kwargs or {}), table_size, device,
+                            weight_decay, worker_mode, sigma_decay, sigma_min, mirrored)
+            return
+        if worker_mode != "thread":
+            raise ValueError(
+                "worker_mode is a host-path option (thread|process); device/"
+                "pooled paths parallelize on the device")
         pooled = hasattr(self.agent, "env_name")
         if pooled:
             if shard_params:
@@ -135,7 +207,7 @@ class ES:
             raise TypeError("agent must be a DeviceAgent wrapping a batched device env or a "
                             "PooledAgent naming a pool env")
         if shard_params or mesh is not None:
-            _unsupported("shard_params / mesh", "7, multi-GPU")
+            _unsupported("shard_params / mesh", _MULTI_GPU)
         if scenarios is not None:
             _unsupported("scenarios", "8, scenarios")
         policy_kwargs = dict(policy_kwargs or {})
@@ -147,9 +219,6 @@ class ES:
                 "params-dependent episode-start carry has no pooled form yet")
 
         self.device = resolve_device(device)
-        self.population_size = int(population_size)
-        self.sigma = float(sigma)
-        self.seed = int(seed)
         self.backend = "pooled" if pooled else "device"
         self.module = _instantiate(policy, policy_kwargs, "policy")
         if getattr(self.module, "is_recurrent", False):
@@ -222,11 +291,6 @@ class ES:
         else:
             self.engine = self._device_engine(params, streamed, low_rank)
         self.state = self.engine.init_state(flat, self.seed)
-        self.best_reward = -np.inf
-        self._best_flat: torch.Tensor | None = None  # the best member's params
-        self._best_module = None  # best_policy's module, built at first use
-        self.history: list[dict] = []
-        self.generation = 0
 
     def _device_engine(self, params: dict, streamed: bool, low_rank: int) -> ESEngine:
         module = self.module
@@ -240,6 +304,59 @@ class ES:
         lr_spec = make_lowrank_spec(params, int(low_rank)) if low_rank else None
         return ESEngine(self.env, module, self.spec, self.table, self.optimizer, self.config,
                         self.device, streamed_apply=streamed_apply, lowrank_spec=lr_spec)
+
+    # ----------------------------------------------------------- host backend
+
+    def _init_host(self, policy, policy_kwargs: dict, agent, agent_kwargs: dict, optimizer,
+                   optimizer_kwargs: dict, table_size: int, device, weight_decay: float,
+                   worker_mode: str, sigma_decay: float, sigma_min: float,
+                   mirrored: bool) -> None:
+        """The reference's path: a torch policy, ``rollout(policy)`` workers and
+        a torch optimizer class (``host/engine.py``)."""
+        if isinstance(policy, type):
+            def policy_factory():
+                return policy(**policy_kwargs)
+        else:
+            if policy_kwargs:
+                raise ValueError("policy_kwargs were given alongside a policy instance; "
+                                 "pass the class, or the instance without kwargs")
+
+            def policy_factory():
+                return copy.deepcopy(policy)
+
+        if isinstance(agent, type):
+            def agent_factory():
+                return agent(**agent_kwargs)
+        else:
+            def agent_factory():  # one shared instance: train() keeps n_proc at 1
+                return agent
+        self._agent_is_shared_instance = not isinstance(agent, type)
+        self.env = None
+        self.module = None
+        self.device = resolve_device(device)
+        # the master's initial weights come from torch's global generator on
+        # the CPU, seeded here as the JAX package's host path seeds it
+        torch.manual_seed(self.seed)
+        self.engine = HostEngine(
+            policy_factory=policy_factory, agent_factory=agent_factory,
+            optimizer_ctor=optimizer, optimizer_kwargs=optimizer_kwargs,
+            population_size=self.population_size, sigma=self.sigma, table_size=table_size,
+            seed=self.seed, device=self.device,
+            prototype_agent=self.agent,  # the dispatch probe doubles as worker 0
+            weight_decay=weight_decay, worker_mode=worker_mode, sigma_decay=sigma_decay,
+            sigma_min=sigma_min, mirrored=mirrored)
+        self.state = self.engine.init_state()
+
+    def _setup_n_proc(self, n_proc: int) -> None:
+        if self.backend != "host":
+            return
+        if self._agent_is_shared_instance and n_proc > 1:
+            warnings.warn(
+                "agent was passed as a shared instance; host workers would race on it — "
+                "running with n_proc=1. Pass the agent CLASS (with agent_kwargs) to "
+                "parallelize.", stacklevel=3)
+            n_proc = 1
+        self.engine.set_n_proc(n_proc)
 
     # --------------------------------------------------------- pooled backend
 
@@ -285,8 +402,9 @@ class ES:
     def train(self, n_steps: int, n_proc: int = 1,
               log_fn: Callable[[dict], None] | None = None, verbose: bool = True,
               max_consecutive_rejections: int = 3) -> "ES":
-        """Run ``n_steps`` generations (``n_proc`` is accepted for API
-        parity and ignored: the device batches the population).
+        """Run ``n_steps`` generations.  On the host backend ``n_proc`` sizes
+        the worker pool, as the reference's ``train(n_steps, n_proc)``; the
+        device and pooled backends batch the population and ignore it.
 
         A generation whose population collapsed (<2 valid members) or whose
         update came out non-finite is rejected: the state is restored and
@@ -295,7 +413,7 @@ class ES:
         never faulted.  More than ``max_consecutive_rejections`` in a row
         raise.
         """
-        del n_proc
+        self._setup_n_proc(n_proc)
         done = 0
         rejected_streak = 0
         while done < n_steps:
@@ -373,18 +491,40 @@ class ES:
 
     @property
     def policy(self):
-        """The module with the current center params (reference: es.policy)."""
+        """The current center's policy (reference: es.policy): on the host
+        backend the torch master module, else the module with the center's
+        params."""
+        if self.backend == "host":
+            load_flat(self.engine.master, self.state.params_flat)
+            return self.engine.master
         return self.module.set_params(self.state.params_flat, self.spec)
 
     @property
+    def policy_variables(self) -> dict:
+        """The JAX package's param-dict accessor, device-path only there;
+        not ported: ``.policy`` holds the params on every backend."""
+        raise AttributeError("policy_variables is device-path only in the JAX package and "
+                             "not ported; use .policy")
+
+    @property
     def best_policy(self):
-        """A module with the best-ever member's params (reference:
+        """A policy with the best-ever member's params (reference:
         es.best_policy); the center's policy before any generation."""
         if self._best_flat is None:
             return self.policy
         if self._best_module is None:
-            self._best_module = copy.deepcopy(self.module)
+            self._best_module = (self.engine._new_scratch_policy() if self.backend == "host"
+                                 else copy.deepcopy(self.module))
+        if self.backend == "host":
+            load_flat(self._best_module, self._best_flat)
+            return self._best_module
         return self._best_module.set_params(self._best_flat, self.spec)
+
+    @property
+    def best_policy_variables(self) -> dict:
+        """Not ported, as ``policy_variables``."""
+        raise AttributeError("best_policy_variables is device-path only in the JAX package "
+                             "and not ported; use .best_policy")
 
     def evaluate_policy(self, n_episodes: int = 10, use_best: bool = False, seed: int = 0,
                         meta_index: int | None = None, return_details: bool = False) -> dict:
@@ -400,11 +540,22 @@ class ES:
 
         On the pooled backend the episodes run in one pooled pass from a
         fresh pool seeded by ``seed``, in the compute dtype, as in the JAX
-        package; the details are ``rewards`` and ``bc``.
+        package; the details are ``rewards`` and ``bc``.  On the host
+        backend they are serial ``rollout`` calls of worker 0's agent (the
+        agent owns its episodes' randomness, so ``seed`` is not used); the
+        details are ``rewards``, with ``bc`` None.
         """
         if meta_index is not None:
             _unsupported("meta_index (per-center evaluation)", _NOVELTY)
         flat = self._best_flat if use_best and self._best_flat is not None else None
+        if self.backend == "host":
+            state = self.state if flat is None else self.state._replace(params_flat=flat)
+            rewards = np.asarray([self.engine.evaluate_center(state).total_reward
+                                  for _ in range(int(n_episodes))], np.float32)
+            summary = _summary(rewards, n_episodes)
+            if return_details:
+                summary.update(rewards=rewards, bc=None)
+            return summary
         if self.backend == "pooled":
             # one pooled pass of fresh episodes from a pool seeded by ``seed``,
             # in the compute dtype, as the JAX package's pooled path evaluates

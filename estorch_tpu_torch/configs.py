@@ -18,12 +18,21 @@ on the card):
   ``gym.vector`` workers (wherever gymnasium and MuJoCo are installed);
 - ``atari_frostbite``    — gated on ``ale_py``, as in the JAX package.
 
+The host recipes (``rollout(policy)`` agents on gymnasium MuJoCo, torch
+MLPs, ``torch.optim.Adam``; wherever gymnasium and MuJoCo are installed):
+
+- ``halfcheetah_vbn``    — HalfCheetah-v5, MLP 64x64 with
+  ``TorchVirtualBatchNorm`` frozen from 128 random-action observations,
+  pop 1000;
+- ``humanoid_mirrored``  — Humanoid-v5, MLP 256x256, mirrored sampling,
+  pop 10000.
+
 Every recipe takes ``**over`` to override any ``ES`` argument, ``device``
-included.  The host and novelty recipes of the JAX package raise
+included.  The novelty recipes of the JAX package raise
 ``NotImplementedError`` naming their ``ROADMAP.md`` port item.
 
 Use:  python -m estorch_tpu_torch.configs <name> [--generations N]
-      [--population P] [--device cuda|cpu]
+      [--population P] [--device cuda|cpu] [--n-proc K]
 """
 
 from __future__ import annotations
@@ -31,11 +40,77 @@ from __future__ import annotations
 import argparse
 from typing import Callable
 
+import numpy as np
+import torch
+
 from .algo import ES
 from .envs import (CartPole, Cheetah2D, DeviceAgent, Hopper2D, Humanoid2D, PooledAgent,
                    Swimmer2D, Walker2D)
-from .models import MLPPolicy, NatureCNN
+from .models import MLPPolicy, NatureCNN, TorchVirtualBatchNorm
 from .optim import adam
+
+
+def _torch_mlp(n_in: int, n_out: int, hidden=(64, 64), vbn: bool = False) -> type:
+    """A torch MLP class: Linear, (TorchVirtualBatchNorm,) Tanh per hidden
+    layer, then a linear head."""
+
+    class MLP(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            layers, last = [], n_in
+            for h in hidden:
+                layers.append(torch.nn.Linear(last, h))
+                if vbn:
+                    layers.append(TorchVirtualBatchNorm(h))
+                layers.append(torch.nn.Tanh())
+                last = h
+            layers.append(torch.nn.Linear(last, n_out))
+            self.net = torch.nn.Sequential(*layers)
+
+        def forward(self, x):
+            return self.net(x)
+
+    return MLP
+
+
+def _mujoco_agent(env_id: str) -> type:
+    """A ``rollout(policy)`` agent over a gymnasium env: each observation
+    goes to the policy's device, each action comes back with ``.cpu()``."""
+    import gymnasium as gym
+
+    class MujocoAgent:
+        def __init__(self):
+            self.env = gym.make(env_id)
+
+        def rollout(self, policy, render=False):
+            device = next(policy.parameters()).device
+            obs, _ = self.env.reset()
+            total, steps, done = 0.0, 0, False
+            with torch.no_grad():
+                while not done:
+                    a = policy(torch.from_numpy(np.asarray(obs, np.float32)).to(device))
+                    obs, r, term, trunc, _ = self.env.step(a.cpu().numpy())
+                    total += float(r)
+                    steps += 1
+                    done = term or trunc
+            self.last_episode_steps = steps
+            return total
+
+    return MujocoAgent
+
+
+def _freeze_host_vbn(es: ES) -> None:
+    """Freeze the VBN statistics from 128 random-action observations of the
+    prototype agent's env."""
+    env = es.agent.env
+    frames = []
+    obs, _ = env.reset(seed=0)
+    for _ in range(128):
+        obs, _, term, trunc, _ = env.step(env.action_space.sample())
+        frames.append(np.asarray(obs, np.float32))
+        if term or trunc:
+            obs, _ = env.reset()
+    es.engine.freeze_vbn(np.stack(frames))
 
 
 def cartpole_smoke(**over) -> ES:
@@ -106,6 +181,39 @@ def humanoid2d_pop10k(**over) -> ES:
     return _planar_device(Humanoid2D(), 10240, (256, 256), 400, 2e-2,
                           {"low_rank": 1, "obs_norm": True, "obs_probe_episodes": 4,
                            "eval_chunk": 1024, **over})
+
+
+def halfcheetah_vbn(**over) -> ES:
+    """HalfCheetah-v5, torch MLP 64x64 with VBN, population 1000 (host path)."""
+    kw = dict(
+        policy=_torch_mlp(17, 6, hidden=(64, 64), vbn=True),
+        agent=_mujoco_agent("HalfCheetah-v5"),
+        optimizer=torch.optim.Adam,
+        population_size=1000,
+        sigma=0.02,
+        optimizer_kwargs={"lr": 1e-2},
+        weight_decay=0.005,
+    )
+    kw.update(over)
+    es = ES(**kw)
+    _freeze_host_vbn(es)
+    return es
+
+
+def humanoid_mirrored(**over) -> ES:
+    """Humanoid-v5, torch MLP 256x256, mirrored sampling, population 10000
+    (host path)."""
+    kw = dict(
+        policy=_torch_mlp(348, 17, hidden=(256, 256)),
+        agent=_mujoco_agent("Humanoid-v5"),
+        optimizer=torch.optim.Adam,
+        population_size=10000,
+        sigma=0.02,
+        optimizer_kwargs={"lr": 1e-2},
+        weight_decay=0.005,
+    )
+    kw.update(over)
+    return ES(**kw)
 
 
 def halfcheetah_pooled(**over) -> ES:
@@ -190,7 +298,6 @@ def _not_ported(name: str, item: str) -> Callable[..., ES]:
     return recipe
 
 
-_HOST = "2, the host backend"
 _NOVELTY = "4, the novelty family"
 
 CONFIGS: dict[str, Callable[..., ES]] = {
@@ -202,8 +309,8 @@ CONFIGS: dict[str, Callable[..., ES]] = {
     "humanoid2d_pop10k": humanoid2d_pop10k,
     "cheetah2d_device": cheetah2d_device,
     # host agents on gymnasium MuJoCo
-    "halfcheetah_vbn": _not_ported("halfcheetah_vbn", _HOST),
-    "humanoid_mirrored": _not_ported("humanoid_mirrored", _HOST),
+    "halfcheetah_vbn": halfcheetah_vbn,
+    "humanoid_mirrored": humanoid_mirrored,
     "humanoid_nsres": _not_ported("humanoid_nsres", _NOVELTY),
     "halfcheetah_pooled": halfcheetah_pooled,
     "halfcheetah_nsres": _not_ported("halfcheetah_nsres", _NOVELTY),
@@ -220,6 +327,7 @@ def main(argv=None) -> ES:
     p.add_argument("--generations", type=int, default=10)
     p.add_argument("--population", type=int, default=None)
     p.add_argument("--device", type=str, default=None, help="cuda (default) or cpu")
+    p.add_argument("--n-proc", type=int, default=8, help="host recipes' rollout workers")
     args = p.parse_args(argv)
 
     over = {}
@@ -228,7 +336,7 @@ def main(argv=None) -> ES:
     if args.device:
         over["device"] = args.device
     es = CONFIGS[args.config](**over)
-    es.train(args.generations)
+    es.train(args.generations, n_proc=args.n_proc)
     print(f"\nbest reward: {es.best_reward:.2f}")
     return es
 

@@ -357,3 +357,138 @@ def test_naturecnn_population_forward_on_card_matches_cpu(cuda):
                         for k, s in module.vbn_stats.items()}
     got = population_forward(module, spec.unravel(thetas.to(cuda)))(obs.to(cuda)).cpu()
     assert float((got - want).abs().max() / want.abs().max()) <= 1e-4
+
+
+# -------------------------------------------------------------- the host path
+
+
+def test_weighted_noise_sum_at_the_host_shape(cuda):
+    """The host path's update: 500 pair rows of dim 4737 (the 64x64 VBN
+    policy on Pendulum) from its NumPy-built 2^25-float table, at the
+    SeedSequence offsets the engine draws."""
+    size, n, dim = 1 << 25, 500, 4737
+    table = torch.from_numpy(np.random.default_rng(0).standard_normal(size, dtype=np.float32))
+    rng = np.random.default_rng(np.random.SeedSequence(entropy=0, spawn_key=(0,)))
+    offs = torch.from_numpy(rng.integers(0, size - dim + 1, n).astype(np.int32))
+    w = torch.from_numpy(rng.uniform(-1, 1, n).astype(np.float32))
+    want = nk.weighted_noise_sum_plain(table, offs, w, dim)
+    before = nk.launch_counts["weighted_noise_sum"]
+    got = nk.weighted_noise_sum(table.to(cuda), offs.to(cuda), w.to(cuda), dim)
+    assert nk.launch_counts["weighted_noise_sum"] == before + 1
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-4)
+
+
+class _VBNMLP(torch.nn.Module):
+    def __init__(self):
+        super().__init__()
+        from estorch_tpu_torch.models import TorchVirtualBatchNorm
+
+        self.net = torch.nn.Sequential(
+            torch.nn.Linear(3, 32), TorchVirtualBatchNorm(32), torch.nn.Tanh(),
+            torch.nn.Linear(32, 1))
+
+    def forward(self, x):
+        return self.net(x)
+
+
+class _PendulumAgent:
+    """A NumPy Pendulum episode of 40 steps; observations go to the
+    policy's device, the torque 2·tanh(output) comes back as a float."""
+
+    def __init__(self):
+        self.rng = np.random.default_rng(0)
+
+    def rollout(self, policy):
+        device = next(policy.parameters()).device
+        th, thdot = self.rng.uniform(-np.pi, np.pi), self.rng.uniform(-1.0, 1.0)
+        total = 0.0
+        with torch.no_grad():
+            for _ in range(40):
+                obs = np.array([np.cos(th), np.sin(th), thdot], np.float32)
+                u = float(2.0 * torch.tanh(policy(torch.from_numpy(obs).to(device)))[0])
+                total -= ((th + np.pi) % (2 * np.pi) - np.pi) ** 2 + 0.1 * thdot**2 \
+                    + 0.001 * u**2
+                thdot = np.clip(thdot + (15.0 * np.sin(th) + 3.0 * u) * 0.05, -8.0, 8.0)
+                th = th + thdot * 0.05
+        self.last_episode_steps = 40
+        return total
+
+
+def _host_es(device, **over):
+    from estorch_tpu_torch import ES
+
+    kw = dict(population_size=16, sigma=0.05, seed=0, table_size=1 << 20,
+              optimizer_kwargs={"lr": 1e-2})
+    kw.update(over)
+    es = ES(_VBNMLP, _PendulumAgent, torch.optim.Adam, device=device, **kw)
+    es.engine.freeze_vbn(np.random.default_rng(1).standard_normal((64, 3)).astype(np.float32))
+    return es
+
+
+def test_host_generation_on_card_matches_cpu(cuda):
+    """Two host-path generations (4 threads) with the table, center,
+    policies, optimizer and the reduction kernel on the card, against the
+    CPU: fitness within 1e-4 relative, the update's cosine >= 0.999, one
+    kernel launch a generation."""
+    card, cpu = _host_es(cuda), _host_es("cpu")
+    assert card.engine.table.device.type == "cuda"
+    assert next(card.engine.master.parameters()).device.type == "cuda"
+    p0 = cpu.state.params_flat.clone()
+    nk.reset_launch_counts()
+    card.train(2, n_proc=4, verbose=False)
+    assert nk.launch_counts == {"weighted_noise_sum": 2, "population_noise_matvec": 0}
+    cpu.train(2, n_proc=4, verbose=False)
+    np.testing.assert_allclose([r["reward_mean"] for r in card.history],
+                               [r["reward_mean"] for r in cpu.history], rtol=1e-4)
+    dg, dc = card.state.params_flat.cpu() - p0, cpu.state.params_flat - p0
+    assert float(dg @ dc / (dg.norm() * dc.norm())) >= 0.999
+    card.engine.close()
+    cpu.engine.close()
+
+
+def test_host_process_mode_after_cuda_init(cuda):
+    """Forked workers beside a live CUDA context: they roll out on the CPU
+    from CPU copies of the table, center and VBN buffers, and give the CPU
+    thread workers' fitness; the update then runs on the card."""
+    proc, thr = _host_es(cuda, worker_mode="process"), _host_es("cpu")
+    torch.cuda.synchronize()
+    try:
+        proc.engine.set_n_proc(2)
+        thr.engine.set_n_proc(2)
+        got = proc.engine.evaluate(proc.state).fitness
+        want = thr.engine.evaluate(thr.state).fitness
+        assert np.all(np.isfinite(got))
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+        proc.train(1, n_proc=2, verbose=False)
+        assert proc.history[0]["n_failed"] == 0
+        assert proc.state.params_flat.device.type == "cuda"
+    finally:
+        proc.engine.close()
+        thr.engine.close()
+
+
+@pytest.mark.parametrize("name", ["CartPole", "Pendulum"])
+def test_gym_adapter_on_card_matches_cpu(cuda, name):
+    """``GymFromDeviceEnv`` steps on the card by default; from the same
+    injected state and actions it gives the CPU adapter's observations,
+    rewards and flags (30 steps, truncation at 25)."""
+    pytest.importorskip("gymnasium")
+    import estorch_tpu_torch.envs as tenvs
+    from estorch_tpu_torch.envs.gym_adapter import GymFromDeviceEnv
+
+    env = getattr(tenvs, name)()
+    card, cpu = GymFromDeviceEnv(env, max_steps=25), GymFromDeviceEnv(env, max_steps=25,
+                                                                      device="cpu")
+    obs, _ = card.reset(seed=3)
+    assert card._state.device.type == "cuda" and obs.dtype == np.float32
+    states, _ = env.reset(torch.Generator().manual_seed(3), 1)
+    card._state, cpu._state = states.to(cuda), states
+    rng = np.random.default_rng(0)
+    for t in range(30):
+        a = (int(rng.integers(0, 2)) if env.discrete
+             else rng.uniform(-1, 1, env.action_dim).astype(np.float32))
+        go, gr, gd, gt, _ = card.step(a)
+        wo, wr, wd, wt, _ = cpu.step(a)
+        np.testing.assert_allclose(go, wo, rtol=1e-5, atol=1e-5, err_msg=f"{name} step {t}")
+        assert gr == pytest.approx(wr, rel=1e-5, abs=1e-5)
+        assert (gd, gt) == (wd, wt) and gt == (t + 1 >= 25)

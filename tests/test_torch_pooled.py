@@ -362,8 +362,9 @@ def test_halfcheetah_pooled_recipe_runs(sync_gym):
 
 def test_pooled_recipes_take_the_jax_options(monkeypatch):
     """pong84_conv, halfcheetah_pooled and humanoid_pooled carry the JAX
-    recipes' options; the host recipes raise naming the host backend; Atari
-    keeps the ale_py gate."""
+    recipes' options, and so does the host recipe humanoid_mirrored (its
+    torch policy and agent built by the same helpers); Atari keeps the
+    ale_py gate."""
     import estorch_tpu
     import estorch_tpu.configs as jconfigs
 
@@ -384,9 +385,14 @@ def test_pooled_recipes_take_the_jax_options(monkeypatch):
             assert port_kw.get(key) == jax_kw.get(key), (name, key)
         assert port_kw["policy"].__name__ == jax_kw["policy"].__name__
         assert port_kw["agent"].__name__ == jax_kw["agent"].__name__ == "PooledAgent"
-    for name in ("halfcheetah_vbn", "humanoid_mirrored"):
-        with pytest.raises(NotImplementedError, match="item: 2, the host backend"):
-            configs.CONFIGS[name]()
+    seen.clear()
+    configs.humanoid_mirrored()
+    jconfigs.humanoid_mirrored()
+    port_kw, jax_kw = seen
+    for key in ("population_size", "sigma", "optimizer", "optimizer_kwargs", "weight_decay"):
+        assert port_kw[key] == jax_kw[key], key
+    assert port_kw["policy"].__name__ == jax_kw["policy"].__name__ == "MLP"
+    assert port_kw["agent"].__name__ == jax_kw["agent"].__name__ == "MujocoAgent"
     try:
         import ale_py  # noqa: F401
     except ImportError:
