@@ -20,8 +20,10 @@ Phases, in order; any failure exits non-zero before the last line:
    MLP64x64 layers; both kernels are also checked and timed at the shapes
    of phase 7's streamed paths (g) and (i); the reduction also at the
    pong84_conv shape (128 pair rows, dim 1,685,987, a 2^23-float table),
-   warm and cold, and at the host path's (m) shape (500 pair rows, dim
-   4737, the host path's NumPy-built 2^25-float table), warm;
+   warm and cold, at the host path's (m) shape (500 pair rows, dim
+   4737, the host path's NumPy-built 2^25-float table), warm, and at the
+   recurrent paths' shape (2048 pair rows, dim 25,153: RecurrentPolicy's
+   defaults on Pendulum), warm and cold;
 3. the main path: ES on Pendulum, MLP 64x64, population 4096, horizon 200,
    streamed forward + kernel update, 1 warm-up and 3 timed generations,
    with the kernels' launch counts read around that run, then one more
@@ -39,7 +41,10 @@ Phases, in order; any failure exits non-zero before the last line:
    ``rollout(policy)`` Pendulum agent, pop 32, horizon 60, 2 generations,
    Adam, 4 threads: returns within 1e-4 relative, update cosine 0.999) and
    one generation in process mode (4 forked workers beside the live CUDA
-   context) against the CPU's threads (fitness within 1e-5 relative);
+   context) against the CPU's threads (fitness within 1e-5 relative); then
+   the recurrent paths of phase 10 at a small size: (n) GRU 64, (p) stacked
+   LSTM 64 with a learned carry in bf16, (q) MLP 64x64 with VBN on the
+   device path, (r) GRU 64 on pooled Pendulum;
 5. the other paths at the width of phase 3, each through ``ES(...).train``
    with 1 warm-up and 3 timed generations, its launch counts read around
    that run and checked exactly, then one profiled generation: (a) the
@@ -60,7 +65,7 @@ Phases, in order; any failure exits non-zero before the last line:
    (376 -> 256x256 -> 17), pop 4096, horizon 200, streamed forward + kernel
    update;
 8. the pooled paths, each through ``ES(...).train`` with 1 warm-up and 3
-   timed generations (2 for (l)), launch counts exact, then one profiled
+   timed generations (1 for (l)), launch counts exact, then one profiled
    generation: (j) PooledAgent("pendulum", horizon=200), MLP 64x64, pop
    4096, the kernel update; (k) the same with ``double_buffer=True``; (l)
    the ``pong84_conv`` recipe (NatureCNN with VBN, pop 256, 84x84x4, action
@@ -76,14 +81,28 @@ Phases, in order; any failure exits non-zero before the last line:
    on the CPU with the update on the card, 1 warm-up and 2 timed
    generations with the reduction's launches exact (1 a generation), and
    the same run with ``device="cpu"``; then the policies on the card: one
-   generation with one worker on each device, the launches an env step
+   generation with one worker on each device at population 250 (cut from
+   1000: it steps one member at a time), the launches an env step
    over 4 members' rollouts, the device's busy share of one profiled
    generation at population 16 with 8 threads; and, at horizon 10, 8
-   thread workers against one on each device.
+   thread workers against one on each device;
+10. the recurrent paths, each through ``ES(...).train`` with 1 warm-up and
+   2 timed generations, the reduction's launches exact (1 a generation
+   with ``noise_kernel``), then one profiled generation: (n)
+   ``RecurrentPolicy`` at its defaults (hidden (64,), GRU 64, dim 25,153)
+   on Pendulum, pop 4096, horizon 200, the kernel update; (o) the same
+   with ``low_rank=1`` (the tree form); (p) LSTM 64, two layers, learned
+   carry, bf16, the kernel update; (q) MLP 64x64 with VBN from 128
+   reference steps on the device path, the kernel update; (r) (n)'s policy
+   on ``PooledAgent("pendulum", horizon=200)``; (s) ``RecurrentNatureCNN``
+   (GRU 256, dim 2,275,747) on the pong84_conv recipe's pooled pong, pop
+   256, horizon 100 (cut from 500); then the memory check, the JAX
+   package's RecallEnv recipe (GRU 8, pop 256, 80 generations) at seeds 0,
+   1 and 2: ``evaluate_policy(64, seed=9)`` above 8.0 at two of them.
 
 Then one JSON line of per-path numbers, one of per-kernel numbers (launches
-from phase 3, and of the reduction in (j), (k) and (m)), the card line, and the
-last line
+from phase 3, and of the reduction in (j), (k), (m) and phase 10), the card
+line, and the last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
@@ -146,7 +165,8 @@ POOLED_PATHS = [
         tt.MLPPolicy, tt.PooledAgent("pendulum", horizon=HORIZON, double_buffer=True), tt.adam,
         population_size=POPULATION, sigma=0.05, policy_kwargs=POLICY,
         optimizer_kwargs={"learning_rate": 1e-2}, noise_kernel=True), 3, 1),
-    ("l pooled/pong84_conv", lambda tt, cf: cf.pong84_conv(), 2, 0),
+    # (l) times 1 generation (2 before PR 7) to keep the script within its time
+    ("l pooled/pong84_conv", lambda tt, cf: cf.pong84_conv(), 1, 0),
 ]
 PONG_PAIRS, PONG_TABLE = 128, 1 << 23  # the pong84_conv recipe's update shape
 # phase 9, (m): the halfcheetah_vbn recipe's policy and hyperparameters on a
@@ -157,9 +177,49 @@ PONG_PAIRS, PONG_TABLE = 128, 1 << 23  # the pong84_conv recipe's update shape
 HOST_POPULATION, HOST_HORIZON, HOST_WORKERS = 1000, 200, 8
 HOST_SIDE_HORIZON = 10  # the thread workers' side readings
 HOST_TIMED = 2  # generations after 1 warm-up
+HOST_ONE_WORKER_POP = 250  # the one-worker generations step members one by one
 HOST_RECIPE = dict(population_size=HOST_POPULATION, sigma=0.02, optimizer_kwargs={"lr": 1e-2},
                    weight_decay=0.005, table_size=TABLE_SIZE)
 HOST_PAIRS, HOST_DIM = HOST_POPULATION // 2, 4737  # the update's shape: 3 -> 64x64 VBN -> 1
+# phase 10, the recurrent paths (n)-(s): label, how to build it, the timed
+# generations after 1 warm-up, and the reduction's launches a generation.
+# RecurrentPolicy at its defaults (hidden (64,), GRU 64) on Pendulum is
+# dim 25,153; the timed generations are cut to 2 and (s)'s horizon from 500
+# to 100, the cuts printed on each path's line
+REC_POLICY = {"action_dim": 1, "discrete": False, "action_scale": 2.0}
+REC_TIMED = 2
+REC_COMMON = dict(population_size=POPULATION, sigma=0.05, optimizer_kwargs={"learning_rate": 1e-2})
+PONG_REC_HORIZON = 100  # cut from the pong84_conv recipe's 500
+REC_PATHS = [
+    ("n recurrent/pendulum/gru64+nk", lambda tt, cf: tt.ES(
+        tt.RecurrentPolicy, tt.DeviceAgent(tt.Pendulum(), horizon=HORIZON), tt.adam,
+        policy_kwargs=REC_POLICY, noise_kernel=True, **REC_COMMON), 1, "2 timed generations"),
+    ("o recurrent/pendulum/gru64+lowrank1 (tree form)", lambda tt, cf: tt.ES(
+        tt.RecurrentPolicy, tt.DeviceAgent(tt.Pendulum(), horizon=HORIZON), tt.adam,
+        policy_kwargs=REC_POLICY, low_rank=1, **REC_COMMON), 0, "2 timed generations"),
+    ("p recurrent/pendulum/lstm64x2+learned_carry/bf16+nk", lambda tt, cf: tt.ES(
+        tt.RecurrentPolicy, tt.DeviceAgent(tt.Pendulum(), horizon=HORIZON), tt.adam,
+        policy_kwargs=dict(REC_POLICY, cell="lstm", n_layers=2, learned_carry=True),
+        compute_dtype="bfloat16", noise_kernel=True, **REC_COMMON), 1, "2 timed generations"),
+    ("q device/pendulum/mlp64x64+vbn+nk", lambda tt, cf: tt.ES(
+        tt.MLPPolicy, tt.DeviceAgent(tt.Pendulum(), horizon=HORIZON), tt.adam,
+        policy_kwargs=dict(POLICY, use_vbn=True), vbn_batch=128, noise_kernel=True,
+        **REC_COMMON), 1, "2 timed generations"),
+    ("r pooled/pendulum/gru64+nk", lambda tt, cf: tt.ES(
+        tt.RecurrentPolicy, tt.PooledAgent("pendulum", horizon=HORIZON), tt.adam,
+        policy_kwargs=REC_POLICY, noise_kernel=True, **REC_COMMON), 1, "2 timed generations"),
+    ("s pooled/pong84/recurrent_nature_cnn256", lambda tt, cf: cf.pong84_conv(
+        policy=tt.RecurrentNatureCNN, policy_kwargs={"action_dim": 3, "gru_size": 256},
+        agent_kwargs={"env_name": "pong84", "horizon": PONG_REC_HORIZON, "frame_stack": 4,
+                      "action_repeat": 2, "sticky_prob": 0.25}), 0,
+     f"2 timed generations; horizon {PONG_REC_HORIZON}, cut from 500"),
+]
+REC_PAIRS = POPULATION // 2  # the update's rows on (n) and (r)
+# the memory check: the JAX package's recipe (tests/test_recurrent.py:104-119)
+MEMORY_RECIPE = dict(population_size=256, sigma=0.1, optimizer_kwargs={"learning_rate": 5e-2},
+                     policy_kwargs={"action_dim": 1, "hidden": (8,), "gru_size": 8,
+                                    "discrete": False})
+MEMORY_SEEDS, MEMORY_GENERATIONS, MEMORY_HORIZON = (0, 1, 2), 80, 16
 L2_FLUSH_BYTES = 256 << 20  # written and read before each cold launch: five times the L2
 # one env step's three launches before the pair-sharing redesign, as measured
 # then on an H100 80GB HBM3 at 700 W: printed beside this run's time, never
@@ -948,7 +1008,8 @@ def run_host_path(torch, tt, nk, card: str) -> dict:
     and update on the card), 1 warm-up and ``HOST_TIMED`` timed generations,
     the reduction's launches counted around that run (1 a generation), and
     the same run with device="cpu".  Then the policies on the card: one
-    generation with one worker on each device at the full horizon; the
+    generation with one worker on each device at the full horizon and
+    population ``HOST_ONE_WORKER_POP`` (cut from 1000); the
     launches an env step over 4 members' rollouts; the device's busy share
     of one profiled generation at population 16 with ``HOST_WORKERS``
     threads, against the generation before it, unprofiled (a whole
@@ -1003,7 +1064,7 @@ def run_host_path(torch, tt, nk, card: str) -> dict:
     # the policies on the card, at the full horizon
     single = {}
     for device in (None, "cpu"):
-        one, es_one = timed_run(device, 1, 1, warm=0)
+        one, es_one = timed_run(device, 1, 1, warm=0, population_size=HOST_ONE_WORKER_POP)
         if device is None:
             policy, agent = es_one.engine._workers[0]
             state = es_one.state
@@ -1016,7 +1077,8 @@ def run_host_path(torch, tt, nk, card: str) -> dict:
             per_step = count_launches(torch, four_members) / (4 * HOST_HORIZON)
         es_one.engine.close()
         single[device or "cuda"] = one
-        report(f"one worker, policies on {device or 'cuda'}, 1 generation", one)
+        report(f"one worker, policies on {device or 'cuda'}, 1 generation at population "
+               f"{HOST_ONE_WORKER_POP} (cut from {HOST_POPULATION})", one)
     small = host_es(tt, population_size=16)
     small.train(1, n_proc=HOST_WORKERS, verbose=False)
     wall = small.history[-1]["wall_time_s"]
@@ -1039,8 +1101,190 @@ def run_host_path(torch, tt, nk, card: str) -> dict:
             "busy_share_pop16": busy / wall, "device_busy_s_pop16": busy,
             "population": HOST_POPULATION, "horizon": HOST_HORIZON,
             "workers": HOST_WORKERS, "worker_mode": "process", "param_dim": HOST_DIM,
-            "cpu": cpu, "one_worker": single,
+            "cpu": cpu, "one_worker": {"population": HOST_ONE_WORKER_POP, **single},
             "threads_side_reading": {"horizon": HOST_SIDE_HORIZON, **side}}
+
+
+def time_recurrent_reduction(torch, nk, table, bw: float, f32: float, flush) -> dict:
+    """Phase 2: the reduction at the recurrent paths' update shape (n), (r):
+    2048 pair rows of dim 25,153 (RecurrentPolicy's defaults on Pendulum)
+    from the cell's 2^25-float table, checked against the plain version and
+    timed warm, cold and plain; the bound counts this run's distinct
+    bytes."""
+    from estorch_tpu_torch import Pendulum, RecurrentPolicy
+    from estorch_tpu_torch.ops.noise import sample_pair_offsets
+    from estorch_tpu_torch.ops.params import make_param_spec
+
+    dev = table.device
+    gen = torch.Generator().manual_seed(11)
+    dim = make_param_spec(RecurrentPolicy(**REC_POLICY).init_params(Pendulum().obs_dim, gen))[1].dim
+    offs = sample_pair_offsets(gen, REC_PAIRS, TABLE_SIZE, dim)
+    w = (torch.rand(REC_PAIRS, generator=gen) * 2 - 1).to(dev)
+    offs_dev = offs.to(dev)
+    got = nk.weighted_noise_sum(table, offs_dev, w, dim)
+    torch.cuda.synchronize()
+    want = nk.weighted_noise_sum_plain(table, offs_dev, w, dim)
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=1e-4, atol=1e-3):
+        fail(f"weighted_noise_sum recurrent n={REC_PAIRS} dim={dim}: max |err| {err:g}")
+    nbytes = 4 * (union_floats(offs, dim) + 2 * REC_PAIRS + dim)
+    flops = 2 * REC_PAIRS * dim
+    bound = max(nbytes / bw, flops / f32) * 1e3
+
+    def kernel():
+        return nk.weighted_noise_sum(table, offs_dev, w, dim)
+
+    ms, cold = time_ms(torch, kernel), time_cold_ms(torch, kernel, flush)
+    plain_ms = time_ms(torch, lambda: nk.weighted_noise_sum_plain(table, offs_dev, w, dim))
+    print(f"weighted_noise_sum recurrent (n), (r) n={REC_PAIRS} dim={dim}: max |err| {err:.3g} "
+          f"(tol atol 1e-3, rtol 1e-4); warm {ms:.4f} ms ({bound / ms:.0%} of bound), cold "
+          f"{cold:.4f} ms ({bound / cold:.0%}), plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+          f"({nbytes / 1e6:.1f} MB distinct)")
+    return {"shape": f"recurrent (n), (r): n={REC_PAIRS}, dim={dim}, table 2^25", "ms": ms,
+            "cold_ms": cold, "plain_ms": plain_ms, "bound_ms": bound, "max_abs_err": err,
+            "bound_by": "bytes" if nbytes / bw >= flops / f32 else "operations",
+            "library_ms": None}
+
+
+def compare_recurrent_card_cpu(torch, tt) -> list[dict]:
+    """Phase 4, the recurrent paths at a small size, card against CPU: (n)
+    GRU 64 with the kernel update, (p) stacked LSTM 64 with a learned carry
+    in bf16, (q) MLP 64x64 with VBN from 128 reference steps, each on
+    Pendulum at population 64, horizon 50, two generations; (r) GRU 64 on
+    pooled Pendulum at population 32, horizon 60.  float32: reward means
+    within 1e-4 relative, params within 1e-4 (Adam); bf16 and pooled: SGD,
+    reward means within 1e-3 (bf16) or 1e-4 relative, the param changes'
+    cosine >= 0.99 (bf16) or 0.999."""
+    cases = [
+        ("n gru64+nk", tt.RecurrentPolicy, REC_POLICY, {"noise_kernel": True}, "device"),
+        ("p lstm64x2+learned/bf16+nk", tt.RecurrentPolicy,
+         dict(REC_POLICY, cell="lstm", n_layers=2, learned_carry=True),
+         {"noise_kernel": True, "compute_dtype": "bfloat16"}, "device"),
+        ("q mlp64x64+vbn+nk", tt.MLPPolicy, dict(POLICY, use_vbn=True), {"noise_kernel": True},
+         "device"),
+        ("r pooled gru64+nk", tt.RecurrentPolicy, REC_POLICY, {"noise_kernel": True}, "pooled"),
+    ]
+    out = []
+    for label, policy, pk, opts, backend in cases:
+        bf16 = opts.get("compute_dtype") == "bfloat16"
+        pooled = backend == "pooled"
+        kw = dict(population_size=32 if pooled else 64, sigma=0.05, table_size=1 << 22,
+                  policy_kwargs=pk, optimizer_kwargs={"learning_rate": 1e-2}, **opts)
+        optimizer = tt.sgd if bf16 or pooled else tt.adam
+        if pooled:
+            agent = tt.PooledAgent("pendulum", horizon=60)
+        else:
+            agent = tt.DeviceAgent(tt.Pendulum(), horizon=50)
+        es_gpu = tt.ES(policy, agent, optimizer, **kw)
+        es_cpu = tt.ES(policy, agent, optimizer, device="cpu", **kw)
+        if es_gpu.device.type != "cuda":
+            fail(f"card vs CPU, {label}: ran on {es_gpu.device}")
+        p0 = es_cpu.state.params_flat.clone()
+        es_gpu.train(2, verbose=False)
+        es_cpu.train(2, verbose=False)
+        fit_err = max(abs(a["reward_mean"] - b["reward_mean"]) / abs(b["reward_mean"])
+                      for a, b in zip(es_gpu.history, es_cpu.history))
+        dg, dc = es_gpu.state.params_flat.cpu() - p0, es_cpu.state.params_flat - p0
+        cos = float(dg @ dc / (dg.norm() * dc.norm()))
+        p_err = float((dg - dc).abs().max())
+        rec = {"check": f"recurrent {label}", "reward_mean_rel_err": fit_err, "cosine": cos,
+               "params_max_abs_err": p_err}
+        print(f"card vs CPU, {label}: reward_mean rel err {fit_err:.3g}, update cosine "
+              f"{cos:.7f}, params max |err| {p_err:.3g}")
+        if bf16:
+            ok = fit_err <= 1e-3 and cos >= 0.99
+        elif pooled:
+            ok = fit_err <= 1e-4 and cos >= 0.999
+        else:
+            ok = fit_err <= 1e-4 and p_err <= 1e-4
+        if not ok:
+            fail(f"card vs CPU, {label}: {rec}")
+        if pooled:
+            es_gpu.engine.close()
+            es_cpu.engine.close()
+        out.append(rec)
+    return out
+
+
+def run_recurrent_paths(torch, tt, nk, card: str) -> tuple[list[dict], dict]:
+    """Phase 10: each of REC_PATHS through ``ES(...).train``: the launch
+    counts set to 0 just before its 1 + REC_TIMED generations, read just
+    after and held exact (the reduction's launches a generation; no
+    matvec); then one profiled generation (busy share, kernel launches an
+    env step).  Then the memory check: the JAX package's RecallEnv recipe
+    (GRU 8, pop 256, 80 generations, horizon 16) at seeds 0, 1 and 2,
+    ``evaluate_policy(64, seed=9)`` each; it holds when the mean is above
+    8.0 at two of the three (ES on this task can settle on one sign of the
+    signal, a mean near 6: tests/test_torch_recurrent.py's slow memory
+    test shows it on the CPU)."""
+    from estorch_tpu_torch import configs
+
+    paths = []
+    for label, build, wns_per_gen, cuts in REC_PATHS:
+        torch.cuda.empty_cache()
+        es = build(tt, configs)
+        if es.device.type != "cuda":
+            fail(f"path {label} ran on {es.device}")
+        horizon = es.config.horizon
+        p0 = es.state.params_flat.clone()
+        torch.cuda.synchronize()
+        nk.reset_launch_counts()
+        es.train(1, verbose=False)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        es.train(REC_TIMED, verbose=False)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = dict(nk.launch_counts)
+        gens = 1 + REC_TIMED
+        want = {"weighted_noise_sum": wns_per_gen * gens, "population_noise_matvec": 0}
+        if counts != want:
+            fail(f"path {label}: launch counts {counts}, expected {want}")
+        if len(es.history) != gens:
+            fail(f"path {label}: expected {gens} generations, got {len(es.history)}")
+        for r in es.history:
+            if r["n_failed"] or not all(math.isfinite(r[k])
+                                        for k in ("reward_mean", "reward_max", "grad_norm")):
+                fail(f"path {label}, generation {r['generation']}: non-finite result {r}")
+        if torch.equal(p0, es.state.params_flat):
+            fail(f"path {label}: params did not change")
+        steps = sum(r["env_steps"] for r in es.history[1:])
+        gen_s = dt / REC_TIMED
+        chunks = 1 if es.backend == "pooled" else es.population_size // es.engine.eval_chunk
+        print(f"path {label} (dim {es.spec.dim}, pop {es.population_size}, horizon {horizon}; "
+              f"cut: {cuts}): {steps / dt:.0f} env-steps/s (alive) ({gen_s:.4f} s a "
+              f"generation) on {card}; launches {counts}; reward mean "
+              f"{es.history[0]['reward_mean']:.2f} -> {es.history[-1]['reward_mean']:.2f}")
+        busy, launched = profile_generation(torch, es, top=8)  # not part of the counts
+        per_step = launched / (horizon * chunks)
+        print(f"  {launched} kernel launches in the profiled generation = {per_step:.1f} an env "
+              f"step; busy share {busy / gen_s:.3f}")
+        paths.append({"path": label, "launches": counts, "env_steps_per_s": steps / dt,
+                      "s_per_generation": gen_s, "device_busy_s": busy,
+                      "busy_share": busy / gen_s, "kernel_launches_per_env_step": per_step,
+                      "population": es.population_size, "horizon": horizon,
+                      "param_dim": es.spec.dim, "cuts": cuts})
+        if es.backend == "pooled":
+            es.engine.close()
+        del es
+
+    means = []
+    for seed in MEMORY_SEEDS:
+        t0 = time.perf_counter()
+        es = tt.ES(tt.RecurrentPolicy, tt.DeviceAgent(tt.RecallEnv(), horizon=MEMORY_HORIZON),
+                   tt.adam, seed=seed, **MEMORY_RECIPE)
+        es.train(MEMORY_GENERATIONS, verbose=False)
+        ev = es.evaluate_policy(64, seed=9)
+        means.append(ev["mean"])
+        print(f"memory check, RecallEnv GRU 8 pop 256, {MEMORY_GENERATIONS} generations, seed "
+              f"{seed}: evaluate_policy(64, seed=9) mean {ev['mean']:.3f} (min {ev['min']:.3f}, "
+              f"max {ev['max']:.3f}) in {time.perf_counter() - t0:.1f} s")
+    passed = sum(m > 8.0 for m in means)
+    if passed < 2:
+        fail(f"memory check: means {means}, above 8.0 at {passed} of {len(means)} seeds")
+    memory = {"check": "RecallEnv memory, GRU 8, pop 256, 80 generations",
+              "seeds": list(MEMORY_SEEDS), "means": means, "above_8": passed}
+    return paths, memory
 
 
 def main() -> None:
@@ -1256,6 +1500,9 @@ def main() -> None:
     host_wns = time_host_reduction(torch, nk, bw, f32)
     wns["other_shapes"].append(host_wns)
     wns["max_abs_err"] = max(wns["max_abs_err"], host_wns["max_abs_err"])
+    rec_wns = time_recurrent_reduction(torch, nk, table, bw, f32, flush)
+    wns["other_shapes"].append(rec_wns)
+    wns["max_abs_err"] = max(wns["max_abs_err"], rec_wns["max_abs_err"])
     del flush
     del table
 
@@ -1307,6 +1554,7 @@ def main() -> None:
     env_cmp = compare_envs_card_cpu(torch, estorch_tpu_torch)
     env_cmp += compare_pooled_card_cpu(torch, estorch_tpu_torch)
     env_cmp += compare_host_card_cpu(torch, estorch_tpu_torch)
+    env_cmp += compare_recurrent_card_cpu(torch, estorch_tpu_torch)
 
     # ---- 5. the slice's other paths at full width ----------------------------
     phase("5. the other paths")
@@ -1333,6 +1581,12 @@ def main() -> None:
     host = run_host_path(torch, estorch_tpu_torch, nk, card)
     paths.append(host)
 
+    # ---- 10. recurrent policies and device-path VBN ----------------------------------
+    phase("10. recurrent")
+    recurrent, memory = run_recurrent_paths(torch, estorch_tpu_torch, nk, card)
+    paths += recurrent
+    env_cmp.append(memory)
+
     # ---- report --------------------------------------------------------------
     phase("report")
     kernels = [
@@ -1344,7 +1598,9 @@ def main() -> None:
          "bound_by": wns["bound_by"], "library_ms": None,
          "shape": f"n={n_pairs} rows, dim={dim}", "other_shapes": wns["other_shapes"],
          "launches_pooled": {p["path"]: p["launches"]["weighted_noise_sum"] for p in pooled},
-         "launches_host": {host["path"]: host["launches"]["weighted_noise_sum"]}},
+         "launches_host": {host["path"]: host["launches"]["weighted_noise_sum"]},
+         "launches_recurrent": {p["path"]: p["launches"]["weighted_noise_sum"]
+                                for p in recurrent}},
         {"name": "population_noise_matvec", "route": "cuda",
          "source": "estorch_tpu_torch/ops/csrc/noise_kernels.cu",
          "replaces": "estorch_tpu/ops/pallas_noise.py:201",

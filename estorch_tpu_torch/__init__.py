@@ -8,9 +8,14 @@ normalization and bf16 as options, on every device env of the JAX package
 (classic control, synthetic, planar locomotion), and on the pooled backend
 (``PooledAgent``: the C++ envpool's CartPole, Pendulum and pixel Pong84,
 or gymnasium envs, with Atari preprocessing; ``NatureCNN`` with
-VirtualBatchNorm); ``configs`` holds the device and pooled recipes.  The streamed forward and the ``noise_kernel`` update run
-two hand-written Hopper kernels (``ops/csrc``), whose plain PyTorch
-versions sit beside them in ``ops/noise_kernels.py``.
+VirtualBatchNorm); ``configs`` holds the device and pooled recipes.
+Recurrent policies (``RecurrentPolicy``: GRU or LSTM cores, stacked, with
+a learned episode-start carry; ``RecurrentNatureCNN``) train on the device
+and pooled backends, and VBN on the device path takes its frozen
+statistics from ``collect_reference_batch``.  The streamed forward and the
+``noise_kernel`` update run two hand-written Hopper kernels
+(``ops/csrc``), whose plain PyTorch versions sit beside them in
+``ops/noise_kernels.py``.
 """
 
 from .algo import ES
@@ -31,8 +36,9 @@ from .envs import (
     Swimmer2D,
     SyntheticEnv,
     Walker2D,
+    collect_reference_batch,
 )
-from .models import MLPPolicy, NatureCNN, VirtualBatchNorm
+from .models import MLPPolicy, NatureCNN, RecurrentNatureCNN, RecurrentPolicy, VirtualBatchNorm
 from .ops import NoiseTable, make_noise_table
 from .optim import adam, sgd
 from .parallel import EngineConfig, ESEngine, ESState, PooledEngine
@@ -42,6 +48,7 @@ __all__ = [
     "Acrobot", "CartPole", "Cheetah2D", "DeceptiveValley", "DeviceAgent", "ES", "ESEngine",
     "ESState", "EngineConfig", "Hopper2D", "Humanoid2D", "MLPPolicy", "MountainCar",
     "MountainCarContinuous", "NatureCNN", "NoiseTable", "Pendulum", "PooledAgent",
-    "PooledEngine", "PositionOnly", "RecallEnv", "Swimmer2D", "SyntheticEnv",
-    "VirtualBatchNorm", "Walker2D", "adam", "make_noise_table", "resolve_device", "sgd",
+    "PooledEngine", "PositionOnly", "RecallEnv", "RecurrentNatureCNN", "RecurrentPolicy",
+    "Swimmer2D", "SyntheticEnv", "VirtualBatchNorm", "Walker2D", "adam",
+    "collect_reference_batch", "make_noise_table", "resolve_device", "sgd",
 ]

@@ -31,13 +31,17 @@ gym ``env`` runs on the host backend.  ``es.backend`` says which.
 ``decomposed``, ``low_rank``, ``streamed``, ``noise_kernel``, ``obs_norm``,
 ``compute_dtype="bfloat16"``, ``episodes_per_member``, ``eval_chunk`` and
 ``grad_chunk`` combine as in the JAX package, which rejects the same
-combinations with the same ``ValueError``s.  The options not ported yet
+combinations with the same ``ValueError``s.  A recurrent policy
+(``RecurrentPolicy``, ``RecurrentNatureCNN``) runs the standard forward
+with its carry threaded through the rollouts, or with ``low_rank`` the
+low-rank tree form, on the device and pooled backends; ``MLPPolicy`` with
+VBN on the device path freezes its statistics from
+``collect_reference_batch`` of the agent's env.  The options not ported yet
 (``mesh``/``shard_params`` and the sharding options, ``telemetry``,
-``scenarios``, recurrent policies, VBN on the device path) raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item.  ``device`` is
-``"cuda"`` unless the caller passes ``"cpu"``.  ``best_policy`` keeps the
-best member seen, and ``evaluate_policy`` rolls out fresh episodes of the
-center or of it.
+``scenarios``, ``meta_index``) raise ``NotImplementedError`` naming their
+``ROADMAP.md`` item.  ``device`` is ``"cuda"`` unless the caller passes
+``"cpu"``.  ``best_policy`` keeps the best member seen, and
+``evaluate_policy`` rolls out fresh episodes of the center or of it.
 """
 
 from __future__ import annotations
@@ -50,19 +54,19 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from ..envs.agent import collect_reference_batch
 from ..host.engine import HostEngine, load_flat
 from ..models.decomposed import supports_decomposed
 from ..models.vbn import capture_reference_stats
-from ..ops.lowrank import make_lowrank_spec
+from ..ops.lowrank import make_lowrank_spec, make_lowrank_tree_spec
 from ..ops.noise import DEFAULT_TABLE_SIZE, make_noise_table
 from ..ops.noise_kernels import flat_layer_offsets, mlp_streamed_apply
 from ..ops.params import make_param_spec
-from ..parallel.engine import EngineConfig, ESEngine
+from ..parallel.engine import _VBN_STREAM, EngineConfig, ESEngine, _seed_of
 from ..parallel.pooled import PooledEngine
 from ..utils.backend import resolve_device
 
 _ROADMAP = "ROADMAP.md, port queue"
-_RECURRENT = "3, recurrent policies and device-path VBN"
 _NOVELTY = "4, the novelty family"
 _OBSERVABILITY = "6, checkpoint, resilience and observability"
 _MULTI_GPU = "7, multi-GPU"
@@ -221,23 +225,19 @@ class ES:
         self.device = resolve_device(device)
         self.backend = "pooled" if pooled else "device"
         self.module = _instantiate(policy, policy_kwargs, "policy")
-        if getattr(self.module, "is_recurrent", False):
-            _unsupported("recurrent policies", _RECURRENT)
+        self._recurrent = bool(getattr(self.module, "is_recurrent", False))
         use_vbn = bool(getattr(self.module, "use_vbn", False))
         if pooled:
             spec_info = self._pool_spec()
             self.env = None
             obs_shape, horizon = tuple(spec_info["obs_shape"]), int(self.agent.horizon)
         else:
-            if use_vbn:
-                _unsupported("VBN on the device path (collect_reference_batch)", _RECURRENT)
-            if hasattr(self.module, "population_layout"):
-                _unsupported(f"{type(self.module).__name__} on the device path", _RECURRENT)
             self.env = self.agent.env
             obs_shape, horizon = self.env.obs_dim, self.agent.rollout_horizon
             for option, on, where in (("decomposed", decomposed, "models/decomposed.py"),
                                       ("streamed", streamed, "ops/noise_kernels.py"),
-                                      ("low_rank", low_rank, "ops/lowrank.py")):
+                                      ("low_rank", low_rank and not self._recurrent,
+                                       "ops/lowrank.py")):
                 if on and not supports_decomposed(self.module):
                     raise ValueError(
                         f"{option} supports MLPPolicy without VBN ({where}); "
@@ -255,9 +255,15 @@ class ES:
                     "is captured in RAW observation space at init, so its frozen stats "
                     "would mis-calibrate against normalized rollout inputs — pick one "
                     "input-normalization scheme")
+            if pooled:
+                reference = self._pooled_reference_batch(vbn_batch)
+            else:
+                # random-action observations of the agent's env, from a
+                # stream of the seed of their own
+                gen = torch.Generator().manual_seed(_seed_of(self.seed, 0, _VBN_STREAM))
+                reference = collect_reference_batch(self.env, vbn_batch, gen).to(self.device)
             self.module.vbn_stats = capture_reference_stats(
-                self.module, self.spec.unravel(flat.to(self.device)),
-                self._pooled_reference_batch(vbn_batch))
+                self.module, self.spec.unravel(flat.to(self.device)), reference)
         self.table = make_noise_table(table_size, seed=self.seed, device=self.device)
         self.optimizer = _instantiate_optimizer(optimizer, optimizer_kwargs)
         self.config = EngineConfig(
@@ -281,18 +287,20 @@ class ES:
             obs_probe_episodes=int(obs_probe_episodes),
             obs_warmup_episodes=int(obs_warmup_episodes),
         )
+        carry_init = self.module.carry_init if self._recurrent else None
         if pooled:
             a = self.agent
             self.engine = PooledEngine(
                 a.env_name, self.module, self.spec, self.table, self.optimizer, self.config,
                 self.device, n_threads=a.n_threads, seed=self.seed,
                 double_buffer=a.double_buffer, prep=a.prep, env_kwargs=a.env_kwargs,
-                bc_indices=a.bc_indices)
+                bc_indices=a.bc_indices, carry_init=carry_init)
         else:
-            self.engine = self._device_engine(params, streamed, low_rank)
+            self.engine = self._device_engine(params, streamed, low_rank, carry_init)
         self.state = self.engine.init_state(flat, self.seed)
 
-    def _device_engine(self, params: dict, streamed: bool, low_rank: int) -> ESEngine:
+    def _device_engine(self, params: dict, streamed: bool, low_rank: int,
+                       carry_init) -> ESEngine:
         module = self.module
         streamed_apply = None
         if streamed:
@@ -301,9 +309,16 @@ class ES:
             def streamed_apply(shared, table_data, offs, c, obs):
                 return mlp_streamed_apply(module, shared, table_data, offs, c, obs, layer_offs)
 
-        lr_spec = make_lowrank_spec(params, int(low_rank)) if low_rank else None
+        lr_spec = None
+        if low_rank:
+            # a recurrent policy: the tree form over its whole param dict
+            # (trunk, cell gates, head), each member's perturbation formed
+            # once a chunk and the standard rollout
+            make = make_lowrank_tree_spec if self._recurrent else make_lowrank_spec
+            lr_spec = make(params, int(low_rank))
         return ESEngine(self.env, module, self.spec, self.table, self.optimizer, self.config,
-                        self.device, streamed_apply=streamed_apply, lowrank_spec=lr_spec)
+                        self.device, streamed_apply=streamed_apply, lowrank_spec=lr_spec,
+                        carry_init=carry_init)
 
     # ----------------------------------------------------------- host backend
 

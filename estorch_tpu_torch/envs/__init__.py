@@ -1,5 +1,5 @@
 from .acrobot import Acrobot
-from .agent import DeviceAgent, PooledAgent
+from .agent import DeviceAgent, PooledAgent, collect_reference_batch
 from .base import DeviceEnv
 from .cartpole import CartPole
 from .locomotion import (
@@ -18,7 +18,9 @@ from .pendulum import Pendulum
 from .rollout import (
     ObsMoments,
     RolloutResult,
+    carry_init_takes_params,
     make_batched_rollout,
+    map_carry,
     member_params_apply,
     population_forward,
     select_action,
@@ -29,6 +31,7 @@ __all__ = [
     "Acrobot", "CartPole", "Cheetah2D", "DeceptiveValley", "DeviceAgent", "DeviceEnv",
     "Hopper2D", "Humanoid2D", "MountainCar", "MountainCarContinuous", "ObsMoments",
     "Pendulum", "PlanarLayout", "PooledAgent", "PositionOnly", "RecallEnv", "RolloutResult", "Swimmer2D",
-    "SyntheticEnv", "Walker2D", "make_batched_rollout", "member_params_apply",
-    "population_forward", "select_action",
+    "SyntheticEnv", "Walker2D", "carry_init_takes_params", "collect_reference_batch",
+    "make_batched_rollout", "map_carry", "member_params_apply", "population_forward",
+    "select_action",
 ]

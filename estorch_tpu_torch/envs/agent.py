@@ -1,16 +1,19 @@
 """Agents: name what the engine steps; the agent steps nothing itself.
 
-Counterparts of ``JaxAgent`` and ``PooledAgent`` in
-``estorch_tpu/envs/agent.py``: a ``DeviceAgent`` names a batched device
-env and a horizon, a ``PooledAgent`` a pool env (``envs/native_pool.py``,
-or ``gym:<EnvId>``) whose envs step on the host while the card runs the
-population's forward (``parallel/pooled.py``).
+Counterparts of ``JaxAgent``, ``PooledAgent`` and
+``collect_reference_batch`` in ``estorch_tpu/envs/agent.py``: a
+``DeviceAgent`` names a batched device env and a horizon, a ``PooledAgent``
+a pool env (``envs/native_pool.py``, or ``gym:<EnvId>``) whose envs step on
+the host while the card runs the population's forward
+(``parallel/pooled.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Any
+
+import torch
 
 
 @dataclasses.dataclass
@@ -57,3 +60,39 @@ class PooledAgent:
             "sticky_prob": self.sticky_prob,
             "max_pool2": self.max_pool2,
         }
+
+
+def collect_reference_batch(env: Any, n_steps: int = 128,
+                            generator: torch.Generator | None = None,
+                            actions: torch.Tensor | None = None,
+                            state0: torch.Tensor | None = None) -> torch.Tensor:
+    """Observations of one random-action episode, for VirtualBatchNorm's
+    frozen statistics: (n_steps, obs_dim), row t the observation before
+    step t (row 0 the reset frame).  Where a step ends the episode, the old
+    state and obs are kept, not reset, so the shapes stay fixed.
+
+    ``state0`` (1, state_dim) and ``actions`` (n_steps,) integers or
+    (n_steps, action_dim) in [-1, 1] are drawn from ``generator`` unless
+    given (tests hand in the JAX package's draws).
+    """
+    if generator is None:
+        generator = torch.Generator()
+    if state0 is None:
+        state0, _ = env.reset(generator, 1)
+    if actions is None:
+        if env.discrete:
+            actions = torch.randint(0, env.action_dim, (n_steps,), generator=generator,
+                                    device=generator.device)
+        else:
+            u = torch.rand((n_steps, env.action_dim), generator=generator,
+                           device=generator.device)
+            actions = u * 2.0 - 1.0
+    state, obs = state0, env.observe(state0)
+    rows = []
+    for t in range(n_steps):
+        rows.append(obs[0])
+        nstate, nobs, _, done = env.step(state, actions[t:t + 1])
+        keep = done[:, None]
+        state = torch.where(keep, state, nstate)
+        obs = torch.where(keep, obs, nobs)
+    return torch.stack(rows)

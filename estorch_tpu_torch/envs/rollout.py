@@ -15,13 +15,43 @@ probe's data, as ``make_rollout(with_obs_moments=True)`` and
 (``env.step_metrics``) over the states each alive step reached, as
 ``make_rollout(with_env_metrics=True)`` does — the evaluation channel of
 ``ES.evaluate_policy``.
+
+A recurrent policy's hidden carry is threaded through the loop when the
+rollout is given the episode-start carry: ``batched_apply(obs, carry) ->
+(out, carry')``, and the carry freezes after termination with the state and
+obs, as ``make_rollout(carry_init=...)`` threads it in the JAX package.
 """
 
 from __future__ import annotations
 
+import inspect
 from typing import Any, Callable, NamedTuple
 
 import torch
+
+
+def carry_init_takes_params(carry_init: Callable[..., Any]) -> bool:
+    """Whether ``carry_init`` is the params-aware form (``carry_init(params)``,
+    the learned episode-start carry) or the zero-argument form
+    (``carry_init()``).  Where ``inspect.signature`` cannot tell, the
+    zero-argument call is tried."""
+    try:
+        return bool(inspect.signature(carry_init).parameters)
+    except (TypeError, ValueError):
+        pass
+    try:
+        carry_init()
+        return False
+    except TypeError:
+        return True
+
+
+def map_carry(fn: Callable[..., torch.Tensor], *carries):
+    """``fn`` over the tensors of one or more carries of the same structure
+    (a tensor, or nested tuples: the LSTM's ``(c, h)``, per-layer stacks)."""
+    if isinstance(carries[0], tuple):
+        return tuple(map_carry(fn, *parts) for parts in zip(*carries))
+    return fn(*carries)
 
 
 class RolloutResult(NamedTuple):
@@ -45,27 +75,43 @@ def select_action(policy_out: torch.Tensor, discrete: bool) -> torch.Tensor:
     return policy_out
 
 
-def member_params_apply(module, member_params: dict, obs: torch.Tensor) -> torch.Tensor:
+def member_params_apply(module, member_params: dict, obs: torch.Tensor, carry=None):
     """The standard forward with each member's own materialized params.
 
     ``member_params`` leaves carry a leading member axis (kernels (n, m, h),
     biases and VBN scales (n, h): θ_i unraveled from an (n, dim) stack);
     ``obs`` is (n, e, obs_dim), e episodes a member.  Each layer is one
     batched product over the members, x_i @ W_i + b_i, through the module's
-    own forward.
+    own forward.  A recurrent module also takes the carry (leaves (n, e,
+    size)) and returns ``(out, carry')``; it lays its weights out here, so
+    a caller that steps many times lays them out once itself
+    (``module.population_layout``).
     """
+    if carry is not None:
+        return module.population_apply(module.population_layout(member_params), obs, carry)
     tree = {layer: {name: v if name == "kernel" else v.unsqueeze(-2)
                     for name, v in leaves.items()}
             for layer, leaves in member_params.items()}
     return module.apply_params(tree, obs)
 
 
-def population_forward(module, member_params: dict) -> Callable[[torch.Tensor], torch.Tensor]:
+def population_forward(module, member_params: dict) -> Callable[..., Any]:
     """``forward(obs (n, obs_dim)) -> (n, out)`` for n members, one
     observation each, with their materialized params (leaves with a leading
     member axis).  A policy with a population layout of its own
-    (``NatureCNN``: a ``bmm`` a layer) lays the weights out here, once; the
-    MLP runs :func:`member_params_apply`."""
+    (``NatureCNN``: a ``bmm`` a layer; the recurrent policies: a cell's
+    gates in one product a side) lays the weights out here, once; the MLP
+    runs :func:`member_params_apply`.  A recurrent policy's forward is
+    ``forward(obs, carry (leaves (n, size))) -> (out, carry')``."""
+    if getattr(module, "is_recurrent", False):
+        layout = module.population_layout(member_params)
+
+        def recurrent_forward(obs, carry):
+            out, carry = module.population_apply(
+                layout, obs[:, None], map_carry(lambda t: t[:, None], carry))
+            return out[:, 0], map_carry(lambda t: t[:, 0], carry)
+
+        return recurrent_forward
     if hasattr(module, "population_layout"):
         layout = module.population_layout(member_params)
         return lambda obs: module.population_apply(layout, obs)[:, 0]
@@ -74,11 +120,13 @@ def population_forward(module, member_params: dict) -> Callable[[torch.Tensor], 
 
 def make_batched_rollout(env: Any, horizon: int, with_obs_moments: bool = False,
                          with_env_metrics: bool = False) -> Callable[..., Any]:
-    """``rollout(batched_apply, states0, obs0)``.
+    """``rollout(batched_apply, states0, obs0, carry0=None)``.
 
     ``batched_apply(obs (n, obs_dim)) -> (n, act)`` closes over the members'
-    parameterization.  The JAX form takes reset keys; this one takes the
-    initial ``(states, obs)``, so a caller can hand in any start states.
+    parameterization; with ``carry0`` (the episode-start carry, leaves (n,
+    size)) it is ``batched_apply(obs, carry) -> (out, carry')``.  The JAX
+    form takes reset keys; this one takes the initial ``(states, obs)``, so
+    a caller can hand in any start states.
     Returns a :class:`RolloutResult`, or ``(RolloutResult, ObsMoments)``
     with ``with_obs_moments=True``, or ``(RolloutResult, metric_sums (n,
     k))`` with ``with_env_metrics=True`` (k = ``len(env.metric_names)``).
@@ -88,10 +136,10 @@ def make_batched_rollout(env: Any, horizon: int, with_obs_moments: bool = False,
                          "training probe, env metrics the evaluation one")
     discrete = bool(env.discrete)
 
-    def rollout(batched_apply, states0: torch.Tensor, obs0: torch.Tensor):
+    def rollout(batched_apply, states0: torch.Tensor, obs0: torch.Tensor, carry0=None):
         n = obs0.shape[0]
         dev = obs0.device
-        states, obs = states0, obs0
+        states, obs, carry = states0, obs0, carry0
         done = torch.zeros((n,), dtype=torch.bool, device=dev)
         total = torch.zeros((n,), dtype=torch.float32, device=dev)
         steps = torch.zeros((n,), dtype=torch.int32, device=dev)
@@ -112,7 +160,11 @@ def make_batched_rollout(env: Any, horizon: int, with_obs_moments: bool = False,
                 count += alive_f
                 osum += masked
                 osumsq += masked * of
-            action = select_action(batched_apply(obs), discrete)
+            if carry is None:
+                out = batched_apply(obs)
+            else:
+                out, new_carry = batched_apply(obs, carry)
+            action = select_action(out, discrete)
             nstates, nobs, reward, ndone = env.step(states, action)
             if with_env_metrics:
                 # metrics of the state this alive step reached; frozen
@@ -125,6 +177,8 @@ def make_batched_rollout(env: Any, horizon: int, with_obs_moments: bool = False,
             keep = alive[:, None]
             states = torch.where(keep, nstates, states)
             obs = torch.where(keep, nobs, obs)
+            if carry is not None:
+                carry = map_carry(lambda new, old: torch.where(keep, new, old), new_carry, carry)
             done = done | ndone
         bc = env.behavior(states, obs).to(torch.float32)
         res = RolloutResult(total_reward=total, bc=bc, steps=steps)

@@ -67,6 +67,11 @@ class ParamSpec:
         return torch.cat(leaves)
 
 
+def map_tree(fn, tree: dict) -> dict:
+    """``fn`` on every leaf of a nested param dict."""
+    return {k: map_tree(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
 def make_param_spec(params: Any) -> tuple[torch.Tensor, ParamSpec]:
     """Flatten ``params`` once; return the flat vector and its spec."""
     leaves = _leaves(params)

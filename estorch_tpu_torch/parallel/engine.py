@@ -17,6 +17,12 @@ generation
    - ``streamed``: the noise term read from the table by the
      ``population_noise_matvec`` kernel (``ops/noise_kernels.py``);
 
+   a recurrent policy (``carry_init`` given) runs the standard forward,
+   or with ``low_rank`` each member's tree perturbed by the tree form's
+   dense noise (``ops/lowrank.py``), both formed once a chunk; its carry
+   starts each episode at ``carry_init`` of the member's params (a learned
+   carry) and freezes after termination;
+
 3. ranks the fitness (``centered_rank_safe``);
 4. reduces the rank weights against the noise: the ``weighted_noise_sum``
    kernel (``noise_kernel=True``), the chunked plain reduction
@@ -38,13 +44,26 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
-from ..envs.rollout import make_batched_rollout, member_params_apply
+from ..envs.rollout import (
+    carry_init_takes_params,
+    make_batched_rollout,
+    map_carry,
+    member_params_apply,
+)
 from ..models.decomposed import mlp_decomposed_population_apply, mlp_lowrank_population_apply
 from ..ops.gradient import es_gradient, fold_mirrored_weights, rank_weighted_noise_sum
-from ..ops.lowrank import LowRankSpec, lowrank_noise_tree, lowrank_weighted_sum
+from ..ops.lowrank import (
+    LowRankSpec,
+    LowRankTreeSpec,
+    lowrank_noise_tree,
+    lowrank_tree_noise,
+    lowrank_tree_perturb,
+    lowrank_tree_weighted_sum,
+    lowrank_weighted_sum,
+)
 from ..ops.noise import NoiseTable, gather_rows, member_offsets, pair_signs, sample_pair_offsets
 from ..ops.noise_kernels import weighted_noise_sum
-from ..ops.params import ParamSpec
+from ..ops.params import ParamSpec, map_tree
 from ..ops.ranks import centered_rank_safe
 
 
@@ -174,6 +193,7 @@ def _seed_of(*words: int) -> int:
 # streams besides the per-generation sample, each with a seed of its own
 _CENTER_STREAM = 1  # evaluate_center's initial state
 _WARMUP_STREAM = 2  # init_state's obs-norm warm-up episodes
+_VBN_STREAM = 3  # ES's device-path VBN reference batch
 
 
 class ESEngine:
@@ -181,7 +201,11 @@ class ESEngine:
 
     ``module`` is the policy (its ``apply_params`` is the standard and the
     probe forward); ``streamed_apply(shared, table_data, member_offsets, c,
-    obs)`` is needed for ``streamed``, ``lowrank_spec`` for ``low_rank``.
+    obs)`` is needed for ``streamed``, ``lowrank_spec`` for ``low_rank``
+    (a ``LowRankTreeSpec`` for a recurrent policy).  ``carry_init`` marks a
+    recurrent policy (``module.population_layout`` /
+    ``population_apply(layout, obs, carry)``): ``carry_init(params)`` or
+    the zero-argument ``carry_init()`` gives the episode-start carry.
 
     With ``env=None`` the engine builds no rollouts (update-only mode): the
     evaluation happens elsewhere (the pooled path, ``parallel/pooled.py``),
@@ -192,7 +216,14 @@ class ESEngine:
     def __init__(self, env: Any, module: Any, spec: ParamSpec, table: NoiseTable,
                  optimizer: Any, config: EngineConfig, device: torch.device,
                  streamed_apply: Callable[..., torch.Tensor] | None = None,
-                 lowrank_spec: LowRankSpec | None = None):
+                 lowrank_spec: LowRankSpec | LowRankTreeSpec | None = None,
+                 carry_init: Callable[..., Any] | None = None):
+        if carry_init is not None and (config.decomposed or config.streamed):
+            # these restructure the forward around the MLP's layers; low_rank
+            # composes through the tree form and the standard rollout
+            raise ValueError(
+                "recurrent policies run the standard forward; they are "
+                "mutually exclusive with decomposed/streamed")
         if config.obs_norm and env is None:
             raise ValueError(
                 "obs_norm needs device-native rollouts to carry the running stats "
@@ -234,6 +265,9 @@ class ESEngine:
         self.config = config
         self.device = torch.device(device)
         self._streamed_apply = streamed_apply
+        self._carry_init = carry_init
+        self.recurrent = carry_init is not None
+        self._ci_takes_params = self.recurrent and carry_init_takes_params(carry_init)
         self.lr_spec = lowrank_spec if config.low_rank else None
         # the per-row noise vector the table serves: (dim,) full-rank, the
         # packed factors for low rank; everything that samples offsets or
@@ -379,26 +413,60 @@ class ESEngine:
         fits, bcs, steps = [], [], []
         for lo in range(0, cfg.population_size, self.eval_chunk):
             hi = lo + self.eval_chunk
-            apply = self._chunk_apply(state, shared, offs[lo:hi], signs[lo:hi])
+            apply, carry0 = self._chunk_apply(state, shared, offs[lo:hi], signs[lo:hi])
             states0 = states[lo:hi].reshape((hi - lo) * e, -1)
-            res = self._rollout(apply, states0, self.env.observe(states0))
+            res = self._rollout(apply, states0, self.env.observe(states0), carry0)
             # fitness = mean return; BC = the first episode's; steps summed
             fits.append(res.total_reward.view(hi - lo, e).mean(dim=1))
             bcs.append(res.bc.view(hi - lo, e, -1)[:, 0])
             steps.append(res.steps.sum())
         return torch.cat(fits), torch.cat(bcs), torch.stack(steps).sum()
 
-    def _chunk_apply(self, state: ESState, shared, offs: torch.Tensor,
-                     signs: torch.Tensor) -> Callable[[torch.Tensor], torch.Tensor]:
-        """``batched_apply(raw obs (k·e, obs_dim)) -> (k·e, act)`` for the k
-        members of one chunk, their noise read once here."""
+    def _episode_carry(self, params: dict, k: int, e: int, dtype: torch.dtype):
+        """The episode-start carry of k policies' e episodes each, leaves
+        (k·e, size) in ``dtype`` on the device, cast once: ``carry_init`` of
+        ``params`` (a member-batched tree gives each member its own learned
+        carry; a single policy's tree, or the zero-argument form, one carry
+        for all)."""
+        h0 = self._carry_init(params) if self._ci_takes_params else self._carry_init()
+
+        def rows(x: torch.Tensor) -> torch.Tensor:
+            x = x.to(self.device, dtype)
+            if x.ndim == 1:
+                x = x.expand(k, x.shape[0])
+            return x.repeat_interleave(e, dim=0)
+
+        return map_carry(rows, h0)
+
+    def _chunk_apply(self, state: ESState, shared, offs: torch.Tensor, signs: torch.Tensor):
+        """``(batched_apply, carry0)`` for the k members of one chunk, their
+        noise read once here: ``batched_apply(raw obs (k·e, obs_dim)) -> (k·e,
+        act)``, and for a recurrent policy ``batched_apply(obs, carry) ->
+        (out, carry')`` from the episode-start ``carry0`` (else None)."""
         cfg = self.config
         data = self.table.data
         k = offs.shape[0]
         c = state.sigma * signs
+        carry0 = None
         if cfg.streamed:  # float32 and one episode a member: x is (k, 1, d)
             def fwd(x):
                 return self._streamed_apply(shared, data, offs, c, x[:, 0])
+        elif self.recurrent:
+            if cfg.low_rank:
+                # the tree form: each member's dense perturbation formed once,
+                # in float32, then cast
+                noise = gather_rows(data, offs, self.noise_dim)
+                tree = lowrank_tree_perturb(self.lr_spec, self.spec.unravel(state.params_flat),
+                                            noise, c)
+                members = map_tree(self._cast, tree)
+            else:
+                theta = state.params_flat + c[:, None] * gather_rows(data, offs, self.spec.dim)
+                members = self.spec.unravel(self._cast(theta))
+            layout = self.module.population_layout(members)
+            carry0 = self._episode_carry(members, k, cfg.episodes_per_member, self._dtype)
+
+            def fwd(x, carry):
+                return self.module.population_apply(layout, x, carry)
         elif cfg.low_rank:
             lrn = self.lr_spec.unpack(self._cast(gather_rows(data, offs, self.noise_dim)))
             cc = self._cast(c)
@@ -418,32 +486,47 @@ class ESEngine:
             def fwd(x):
                 return member_params_apply(self.module, members, x)
 
-        def batched_apply(obs: torch.Tensor) -> torch.Tensor:
+        def batched_apply(obs: torch.Tensor, *carry):
             if cfg.obs_norm:
                 # normalized in float32 against this generation's stats,
                 # then cast: every member sees the same snapshot
                 obs = normalize_obs(obs, state.obs_stats, cfg.obs_clip)
-            out = fwd(self._cast(obs).reshape(k, -1, obs.shape[-1]))
-            return out.reshape(obs.shape[0], -1).to(torch.float32)
+            n = obs.shape[0]
+            x = self._cast(obs).reshape(k, -1, obs.shape[-1])
+            if not carry:
+                return fwd(x).reshape(n, -1).to(torch.float32)
+            out, h = fwd(x, map_carry(lambda t: t.reshape(k, -1, t.shape[-1]), carry[0]))
+            return out.reshape(n, -1).to(torch.float32), map_carry(lambda t: t.reshape(n, -1), h)
 
-        return batched_apply
+        return batched_apply, carry0
 
-    def _center_apply(self, params_flat: torch.Tensor, obs_stats,
-                      dtype: torch.dtype | None = None
-                      ) -> Callable[[torch.Tensor], torch.Tensor]:
-        """The standard forward of one policy for the probe and
-        :meth:`evaluate_center` (in the compute dtype), and for
-        :meth:`evaluate_episodes` (``dtype=torch.float32``)."""
+    def _center_apply(self, params_flat: torch.Tensor, obs_stats, rows: int,
+                      dtype: torch.dtype | None = None):
+        """``(apply, carry0)``: the standard forward of one policy for
+        ``rows`` episodes, for the probe and :meth:`evaluate_center` (in the
+        compute dtype) and for :meth:`evaluate_episodes`
+        (``dtype=torch.float32``); ``carry0`` as in :meth:`_chunk_apply`."""
         cfg = self.config
         dtype = self._dtype if dtype is None else dtype
         params = self.spec.unravel(params_flat.to(dtype))
 
-        def apply(obs: torch.Tensor) -> torch.Tensor:
+        def norm(obs: torch.Tensor) -> torch.Tensor:
             if cfg.obs_norm:
                 obs = normalize_obs(obs, obs_stats, cfg.obs_clip)
-            return self.module.apply_params(params, obs.to(dtype)).to(torch.float32)
+            return obs.to(dtype)
 
-        return apply
+        if not self.recurrent:
+            def apply(obs: torch.Tensor) -> torch.Tensor:
+                return self.module.apply_params(params, norm(obs)).to(torch.float32)
+
+            return apply, None
+        layout = self.module.population_layout(params)
+
+        def recurrent_apply(obs: torch.Tensor, carry):
+            out, carry = self.module.population_apply(layout, norm(obs), carry)
+            return out.to(torch.float32), carry
+
+        return recurrent_apply, self._episode_carry(params, rows, 1, dtype)
 
     # -------------------------------------------------------------- update
 
@@ -457,7 +540,9 @@ class ESEngine:
             # one einsum per layer over the stacked factors: no member's
             # dense E is formed
             noise = gather_rows(self.table.data, red_offs, self.noise_dim)
-            return self.spec.flatten(lowrank_weighted_sum(self.lr_spec, noise, row_w)) / scale
+            wsum = (lowrank_tree_weighted_sum if isinstance(self.lr_spec, LowRankTreeSpec)
+                    else lowrank_weighted_sum)
+            return self.spec.flatten(wsum(self.lr_spec, noise, row_w)) / scale
         if cfg.noise_kernel:
             return weighted_noise_sum(self.table.data, red_offs, row_w.contiguous(),
                                       self.spec.dim) / scale
@@ -509,8 +594,8 @@ class ESEngine:
     def _probe_moments(self, params_flat: torch.Tensor, obs_stats, states0: torch.Tensor):
         """Summed (count, obs_sum, obs_sumsq) of one probe episode of the
         policy at ``params_flat`` from each row of ``states0``."""
-        apply = self._center_apply(params_flat, obs_stats)
-        _, m = self._probe_rollout(apply, states0, self.env.observe(states0))
+        apply, carry0 = self._center_apply(params_flat, obs_stats, states0.shape[0])
+        _, m = self._probe_rollout(apply, states0, self.env.observe(states0), carry0)
         return m.count.sum(), m.obs_sum.sum(dim=0), m.obs_sumsq.sum(dim=0)
 
     # --------------------------------------------------------- inspection
@@ -524,8 +609,8 @@ class ESEngine:
                 _seed_of(state.seed, state.generation, _CENTER_STREAM))
             states0, _ = self.env.reset(gen, 1)
         states0 = states0.to(self.device)
-        apply = self._center_apply(state.params_flat, state.obs_stats)
-        return self._rollout(apply, states0, self.env.observe(states0))
+        apply, carry0 = self._center_apply(state.params_flat, state.obs_stats, 1)
+        return self._rollout(apply, states0, self.env.observe(states0), carry0)
 
     def evaluate_episodes(self, state: ESState, states0: torch.Tensor,
                           params_flat: torch.Tensor | None = None,
@@ -541,10 +626,10 @@ class ESEngine:
             self._eval_rollouts[key] = make_batched_rollout(
                 self.env, self.config.horizon, with_env_metrics=key)
         flat = state.params_flat if params_flat is None else params_flat
-        apply = self._center_apply(flat.to(self.device, torch.float32), state.obs_stats,
-                                   torch.float32)
         states0 = states0.to(self.device)
-        return self._eval_rollouts[key](apply, states0, self.env.observe(states0))
+        apply, carry0 = self._center_apply(flat.to(self.device, torch.float32), state.obs_stats,
+                                           states0.shape[0], torch.float32)
+        return self._eval_rollouts[key](apply, states0, self.env.observe(states0), carry0)
 
     def member_params(self, state: ESState, member_index: int,
                       sample: Sample | None = None) -> torch.Tensor:
@@ -559,8 +644,9 @@ class ESEngine:
             off = int(offsets[member_index])
             sign = 1.0
         if self.config.low_rank:
-            noise = self.spec.flatten(
-                lowrank_noise_tree(self.lr_spec, self.table.slice(off, self.noise_dim)))
+            dense = (lowrank_tree_noise if isinstance(self.lr_spec, LowRankTreeSpec)
+                     else lowrank_noise_tree)
+            noise = self.spec.flatten(dense(self.lr_spec, self.table.slice(off, self.noise_dim)))
         else:
             noise = self.table.slice(off, self.spec.dim)
         return state.params_flat + state.sigma * sign * noise

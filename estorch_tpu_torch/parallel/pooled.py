@@ -20,6 +20,12 @@ host, and every alive observation a member acts on feeds float64 raw
 moments that :meth:`apply_weights` folds into the state's Welford triple
 (only for the evaluation of that same generation and center).
 
+A recurrent policy (``carry_init`` given) keeps a stacked (population, …)
+carry across the generation's step loop, returned by the same batched
+forward that computes the actions; it starts at ``carry_init()`` (the
+pooled path has no learned carry), once for each half with
+``double_buffer``, and the center's evaluations keep carries of their own.
+
 ``double_buffer`` splits the population into two halves with pools of
 their own: while one half's envs step on the host, the other half's
 forward runs on the card.  On CUDA each half's actions come back through a
@@ -39,9 +45,9 @@ import numpy as np
 import torch
 
 from ..envs.gym_vec_pool import make_pool
-from ..envs.rollout import RolloutResult, population_forward
+from ..envs.rollout import RolloutResult, map_carry, population_forward
 from ..ops.noise import gather_rows, member_offsets, pair_signs
-from ..ops.params import ParamSpec
+from ..ops.params import ParamSpec, map_tree
 from ..utils.fault import rank_weights_with_failures
 from .engine import EngineConfig, ESEngine, ESState, merge_obs_moments_np
 
@@ -59,7 +65,7 @@ class PooledEngine:
     def __init__(self, env_name: str, module: Any, spec: ParamSpec, table, optimizer,
                  config: EngineConfig, device: torch.device, n_threads: int = 0,
                  seed: int = 0, double_buffer: bool = False, prep: dict | None = None,
-                 env_kwargs: dict | None = None, bc_indices=None):
+                 env_kwargs: dict | None = None, bc_indices=None, carry_init=None):
         if config.episodes_per_member != 1:
             raise ValueError("episodes_per_member is a device-path option; the pooled path "
                              "rolls one episode per member env")
@@ -85,6 +91,8 @@ class PooledEngine:
         self.device = torch.device(device)
         self._dtype = torch.bfloat16 if config.compute_dtype == "bfloat16" else torch.float32
         self._obs_clip = float(config.obs_clip)
+        self._carry_init = carry_init
+        self.recurrent = carry_init is not None
         self._pending_moments: list | None = None
         self._pending_moments_key: tuple | None = None
         # the update-only engine: the device path's offsets and update; the
@@ -178,23 +186,33 @@ class PooledEngine:
     def _center_members(self, params_flat: torch.Tensor, n: int) -> dict:
         """The center's params, in the compute dtype, as n identical members."""
         tree = self.spec.unravel(params_flat.to(self._dtype))
-        return {k: {name: v.expand((n,) + v.shape) for name, v in leaves.items()}
-                for k, leaves in tree.items()}
+        return map_tree(lambda v: v.expand((n,) + v.shape), tree)
 
-    def _actions(self, fwd: Callable, obs: np.ndarray, norm) -> torch.Tensor:
-        """One env step's actions on the device: the host obs (normalized
-        with ``norm``), copied to the card without a sync, through ``fwd``,
-        then argmax (discrete) or the flat outputs, float32."""
+    def _carries(self, n: int):
+        """The stacked episode-start carry of n episodes, leaves (n, size),
+        in the compute dtype on the device (cast once)."""
+        return map_carry(lambda x: x.to(self.device, self._dtype).expand((n,) + x.shape)
+                         .contiguous(), self._carry_init())
+
+    def _actions(self, fwd: Callable, obs: np.ndarray, norm, carry=None):
+        """``(actions, carry')`` of one env step on the device: the host obs
+        (normalized with ``norm``), copied to the card without a sync,
+        through ``fwd`` (with a recurrent policy's ``carry``; None
+        otherwise), then argmax (discrete) or the flat outputs, float32."""
         if norm is not None:
             obs = np.clip((obs - norm[0]) * norm[1], -self._obs_clip,
                           self._obs_clip).astype(np.float32)
         x = torch.from_numpy(obs).to(self.device, non_blocking=True)
         if torch.is_floating_point(x):
             x = x.to(self._dtype)
-        out = fwd(x).to(torch.float32)
+        if carry is not None:
+            out, carry = fwd(x, carry)
+        else:
+            out = fwd(x)
+        out = out.to(torch.float32)
         if self.pool.discrete:
-            return torch.argmax(out, dim=-1).to(torch.float32)
-        return out.reshape(out.shape[0], -1)
+            return torch.argmax(out, dim=-1).to(torch.float32), carry
+        return out.reshape(out.shape[0], -1), carry
 
     def _norm_params(self, state: ESState):
         """(mean, 1/std) float32 numpy from the state's Welford triple."""
@@ -244,10 +262,12 @@ class PooledEngine:
         alive = np.ones(n, bool)
         final_obs = obs.copy()
         steps = 0
+        carry = self._carries(n) if self.recurrent else None
         for _ in range(self.config.horizon):
             if accumulate:
                 self._accumulate_moments(obs, alive)
-            actions = self._actions(fwd, obs, norm).cpu().numpy()
+            acts, carry = self._actions(fwd, obs, norm, carry)
+            actions = acts.cpu().numpy()
             next_obs, rew, done = pool.step(actions)
             total += rew * alive
             steps += int(alive.sum())
@@ -269,8 +289,7 @@ class PooledEngine:
         cuda = self.device.type == "cuda"
         halves = []
         for i, (pool, lo) in enumerate(((self.pool_a, 0), (self.pool_b, h))):
-            half_members = {k: {name: v[lo:lo + h] for name, v in leaves.items()}
-                            for k, leaves in members.items()}
+            half_members = map_tree(lambda v, lo=lo: v[lo:lo + h], members)
             halves.append({"pool": pool, "lo": lo, "i": i,
                            "fwd": population_forward(self.module, half_members),
                            "event": torch.cuda.Event() if cuda else None})
@@ -281,7 +300,7 @@ class PooledEngine:
         def dispatch(half):
             # moments are taken where a half steps, not here: the last
             # dispatch computes actions that are never stepped
-            acts = self._actions(half["fwd"], half["obs"], norm)
+            acts, half["carry"] = self._actions(half["fwd"], half["obs"], norm, half["carry"])
             if cuda:
                 self._pinned[half["i"]].copy_(acts, non_blocking=True)
                 half["event"].record()
@@ -296,6 +315,7 @@ class PooledEngine:
 
         for half in halves:
             half["obs"] = half["pool"].reset()
+            half["carry"] = self._carries(h) if self.recurrent else None
             dispatch(half)
         final_obs = np.concatenate([halves[0]["obs"], halves[1]["obs"]], axis=0)
         for _ in range(self.config.horizon):
@@ -342,8 +362,10 @@ class PooledEngine:
         norm = self._norm_params(state) if self.obs_norm else None
         obs = self.center_pool.reset()
         total, steps = 0.0, 0
+        carry = self._carries(1) if self.recurrent else None
         for _ in range(self.config.horizon):
-            a = self._actions(fwd, obs, norm).cpu().numpy()
+            acts, carry = self._actions(fwd, obs, norm, carry)
+            a = acts.cpu().numpy()
             nobs, rew, done = self.center_pool.step(a)
             total += float(rew[0])
             steps += 1

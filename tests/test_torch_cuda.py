@@ -492,3 +492,120 @@ def test_gym_adapter_on_card_matches_cpu(cuda, name):
         np.testing.assert_allclose(go, wo, rtol=1e-5, atol=1e-5, err_msg=f"{name} step {t}")
         assert gr == pytest.approx(wr, rel=1e-5, abs=1e-5)
         assert (gd, gt) == (wd, wt) and gt == (t + 1 >= 25)
+
+
+# ------------------------------------------- recurrent policies and device VBN
+
+# chip_smoke.py phase 10's device paths at a small size: policy, policy
+# kwargs, ES options (each runs the update kernel but (o), the tree form)
+RECURRENT_PATHS = {
+    "n_gru_kernel_update": ("RecurrentPolicy", {}, {"noise_kernel": True}),
+    "o_gru_low_rank_tree": ("RecurrentPolicy", {}, {"low_rank": 1}),
+    "p_lstm_stacked_learned_bf16": ("RecurrentPolicy",
+                                    {"cell": "lstm", "n_layers": 2, "learned_carry": True},
+                                    {"noise_kernel": True, "compute_dtype": "bfloat16"}),
+    "q_mlp_vbn_kernel_update": ("MLPPolicy", {"hidden": (64, 64), "use_vbn": True},
+                                {"noise_kernel": True}),
+}
+
+
+@pytest.mark.parametrize("path", list(RECURRENT_PATHS))
+def test_recurrent_path_on_card_matches_cpu(cuda, path):
+    """Two generations on Pendulum, population 64, horizon 50, on the card
+    and on the CPU, with the update kernel's launches exact.  float32:
+    reward means within 1e-4 relative, params within 1e-4 (as the MLP
+    paths); bf16: SGD, reward means within 1e-3 relative, the param
+    changes' cosine >= 0.99.  The VBN statistics come from the same
+    reference batch (a CPU generator) on both."""
+    import estorch_tpu_torch as tt
+
+    name, pk, opts = RECURRENT_PATHS[path]
+    bf16 = opts.get("compute_dtype") == "bfloat16"
+    kw = dict(population_size=64, sigma=0.05, table_size=1 << 22,
+              policy_kwargs={"action_dim": 1, "discrete": False, "action_scale": 2.0, **pk},
+              optimizer_kwargs={"learning_rate": 1e-2}, **opts)
+    opt = tt.sgd if bf16 else tt.adam
+    card = tt.ES(getattr(tt, name), tt.DeviceAgent(tt.Pendulum(), horizon=50), opt, device=cuda,
+                 **kw)
+    cpu = tt.ES(getattr(tt, name), tt.DeviceAgent(tt.Pendulum(), horizon=50), opt, device="cpu",
+                **kw)
+    p0 = cpu.state.params_flat.clone()
+    nk.reset_launch_counts()
+    card.train(2, verbose=False)
+    assert nk.launch_counts == {"weighted_noise_sum": 2 if opts.get("noise_kernel") else 0,
+                                "population_noise_matvec": 0}
+    cpu.train(2, verbose=False)
+    np.testing.assert_allclose([r["reward_mean"] for r in card.history],
+                               [r["reward_mean"] for r in cpu.history],
+                               rtol=1e-3 if bf16 else 1e-4)
+    p_card = card.state.params_flat.cpu()
+    if bf16:
+        dg, dc = p_card - p0, cpu.state.params_flat - p0
+        assert float(dg @ dc / (dg.norm() * dc.norm())) >= 0.99
+    else:
+        torch.testing.assert_close(p_card, cpu.state.params_flat, rtol=0, atol=1e-4)
+
+
+def test_pooled_recurrent_on_card_matches_cpu(cuda):
+    """(r) at a small size: RecurrentPolicy (GRU 64) on pooled Pendulum,
+    population 32, horizon 60, two generations with the kernel update, the
+    stacked carry on the card: reward means within 1e-4 relative, the
+    update's cosine >= 0.999 (SGD)."""
+    from estorch_tpu_torch import ES, PooledAgent, RecurrentPolicy, sgd
+
+    kw = dict(population_size=32, sigma=0.05, table_size=1 << 20, noise_kernel=True,
+              policy_kwargs={"action_dim": 1, "discrete": False, "action_scale": 2.0},
+              optimizer_kwargs={"learning_rate": 1e-2})
+    agent = PooledAgent("pendulum", horizon=60)
+    card = ES(RecurrentPolicy, agent, sgd, device=cuda, **kw)
+    cpu = ES(RecurrentPolicy, agent, sgd, device="cpu", **kw)
+    p0 = cpu.state.params_flat.clone()
+    nk.reset_launch_counts()
+    card.train(2, verbose=False)
+    assert nk.launch_counts == {"weighted_noise_sum": 2, "population_noise_matvec": 0}
+    cpu.train(2, verbose=False)
+    np.testing.assert_allclose([r["reward_mean"] for r in card.history],
+                               [r["reward_mean"] for r in cpu.history], rtol=1e-4)
+    dg, dc = card.state.params_flat.cpu() - p0, cpu.state.params_flat - p0
+    assert float(dg @ dc / (dg.norm() * dc.norm())) >= 0.999
+    card.engine.close()
+    cpu.engine.close()
+
+
+def test_recurrent_nature_cnn_forward_on_card_matches_cpu(cuda):
+    """RecurrentNatureCNN (GRU 256) population forward, population 4, two
+    steps with the carry, card (TF32 off) against CPU: logits within 1e-4
+    of their scale, carries within 1e-4."""
+    from estorch_tpu_torch import RecurrentNatureCNN, resolve_device
+    from estorch_tpu_torch.envs.rollout import population_forward
+    from estorch_tpu_torch.ops.params import make_param_spec
+
+    resolve_device(cuda)
+    g = torch.Generator().manual_seed(0)
+    module = RecurrentNatureCNN(3)
+    flat, spec = make_param_spec(module.init_params((84, 84, 4), g))
+    thetas = flat + 0.02 * torch.randn((4, spec.dim), generator=g)
+    obs = [(torch.rand((4, 84 * 84 * 4), generator=g) < 0.05).float() for _ in range(2)]
+    fwd_cpu = population_forward(module, spec.unravel(thetas))
+    fwd_card = population_forward(module, spec.unravel(thetas.to(cuda)))
+    h_cpu, h_card = torch.zeros(4, 256), torch.zeros(4, 256, device=cuda)
+    for x in obs:
+        want, h_cpu = fwd_cpu(x, h_cpu)
+        got, h_card = fwd_card(x.to(cuda), h_card)
+        assert float((got.cpu() - want).abs().max() / want.abs().max()) <= 1e-4
+        torch.testing.assert_close(h_card.cpu(), h_cpu, rtol=0, atol=1e-4)
+
+
+def test_weighted_noise_sum_at_the_recurrent_shape(cuda):
+    """The recurrent paths' update: 2048 pair rows of dim 25,153
+    (RecurrentPolicy's defaults on Pendulum), a 2^25-float table."""
+    g = torch.Generator().manual_seed(7)
+    big = torch.randn(1 << 25, generator=g)
+    n, dim = 2048, 25_153
+    offs = torch.randint(0, big.numel() - dim + 1, (n,), generator=g, dtype=torch.int32)
+    w = torch.rand(n, generator=g) * 2 - 1
+    want = nk.weighted_noise_sum_plain(big, offs, w, dim)
+    before = nk.launch_counts["weighted_noise_sum"]
+    got = nk.weighted_noise_sum(big.to(cuda), offs.to(cuda), w.to(cuda), dim)
+    assert nk.launch_counts["weighted_noise_sum"] == before + 1
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-4)

@@ -270,16 +270,14 @@ class _HostAgent:
         return 0.0
 
 
-# the first seven cases named options that are ported now, and so did the
-# host agent of case 4 until the host backend came; each points at an
-# option that still waits for its ROADMAP.md item
+# each case names an option that still waits for its ROADMAP.md item
 @pytest.mark.parametrize("option", [
     {"mesh": object()},
-    {"policy": _RecurrentPolicy},
-    {"policy_kwargs": dict(PENDULUM_POLICY, use_vbn=True)},
-    {"agent": _PooledAgent(), "policy": _RecurrentPolicy},  # recurrent on the pooled path
+    {"telemetry": True},  # observability, item 6
+    {"model_shards": 2},  # the param-sharded engine, item 7
+    {"agent": _PooledAgent(), "telemetry": True},  # telemetry on the pooled path
     {"agent": _HostAgent(), "mesh": object()},  # a mesh on the host path
-    {"policy": _RecurrentPolicy, "low_rank": 1},  # the tree form of low rank
+    {"policy": _RecurrentPolicy, "partition_rules": ()},  # the sharded engine's rules
     {"shard_params": True, "mesh": object()},
     {"shard_params": True},
     {"scenarios": object()},
@@ -323,10 +321,13 @@ def test_host_agent_and_vbn_raise():
     with pytest.raises(ValueError, match="streamed is a device-path option"):
         ES(MLPPolicy, _HostAgent(), adam, device="cpu", policy_kwargs=PENDULUM_POLICY,
            optimizer_kwargs={"learning_rate": 1e-2}, streamed=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):  # VBN on the device path
-        ES(MLPPolicy, DeviceAgent(Pendulum(), horizon=20), adam, device="cpu",
-           policy_kwargs=dict(PENDULUM_POLICY, use_vbn=True),
-           optimizer_kwargs={"learning_rate": 1e-2})
+    # VBN on the device path trains; the per-center evaluation waits for item 4
+    es = ES(MLPPolicy, DeviceAgent(Pendulum(), horizon=20), adam, device="cpu",
+            policy_kwargs=dict(PENDULUM_POLICY, use_vbn=True),
+            optimizer_kwargs={"learning_rate": 1e-2})
+    assert set(es.module.vbn_stats) == {"vbn_0", "vbn_1"}
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        es.evaluate_policy(2, meta_index=0)
 
 
 def test_import_loads_no_jax_and_no_reference_package():
