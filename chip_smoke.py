@@ -44,7 +44,14 @@ Phases, in order; any failure exits non-zero before the last line:
    context) against the CPU's threads (fitness within 1e-5 relative); then
    the recurrent paths of phase 10 at a small size: (n) GRU 64, (p) stacked
    LSTM 64 with a learned carry in bf16, (q) MLP 64x64 with VBN on the
-   device path, (r) GRU 64 on pooled Pendulum;
+   device path, (r) GRU 64 on pooled Pendulum; then the novelty family
+   and IW-ES: (t) NSR-ES streamed + kernel update at population 64,
+   horizon 20, 3 generations (meta indices equal, archive sum and params
+   within 1e-5 relative), (v) IW-ES at population 64 with reuse forced by
+   Adam 1e-5 (``reused_prev`` equal, params within 1e-5), and a host
+   NS-ES on phase 9's ``rollout(policy)`` Pendulum agent at population 32,
+   2 generations (meta indices equal, reward means within 1e-4, update
+   cosine 0.999);
 5. the other paths at the width of phase 3, each through ``ES(...).train``
    with 1 warm-up and 3 timed generations, its launch counts read around
    that run and checked exactly, then one profiled generation: (a) the
@@ -98,11 +105,28 @@ Phases, in order; any failure exits non-zero before the last line:
    (GRU 256, dim 2,275,747) on the pong84_conv recipe's pooled pong, pop
    256, horizon 100 (cut from 500); then the memory check, the JAX
    package's RecallEnv recipe (GRU 8, pop 256, 80 generations) at seeds 0,
-   1 and 2: ``evaluate_policy(64, seed=9)`` above 8.0 at two of them.
+   1 and 2: ``evaluate_policy(64, seed=9)`` above 8.0 at two of them;
+11. the novelty family and IW-ES, each through ``Cls(...).train`` with 1
+   warm-up and its timed generations, launch counts exact (3 matvec
+   launches an env step of the population's evaluation with the streamed
+   forward, 1 reduction a generation with the kernel update, none in the
+   center episode), the four split parts (evaluate, k-NN + ranks, update,
+   center episode) on the host clock, then one profiled generation: (t)
+   NSR-ES (k 10, M 3) at the main path's settings, then 3 more generations
+   in turns with the main path's fused generation; (u) NSRA-ES (weight
+   1.0) with the ``cheetah2d_device`` recipe's policy and env, streamed +
+   kernel update, pop 1024, horizon 200, 1 timed generation (cut from 3); (v)
+   IW-ES (``reuse_window=2``, ``ess_min=0.5``) on the standard forward at
+   Adam 2.5e-4, each generation's ESS, at least one timed generation
+   reusing, the two reuse reductions' device time from a profile and from
+   CUDA events (``apply_weights_reuse`` with one old generation, its Adam
+   step included); (w)
+   NS-ES on ``PooledAgent("pendulum", horizon=200)``, the kernel update,
+   2 timed generations.
 
 Then one JSON line of per-path numbers, one of per-kernel numbers (launches
-from phase 3, and of the reduction in (j), (k), (m) and phase 10), the card
-line, and the last line
+from phase 3, and of the reduction in (j), (k), (m), phase 10 and phase 11),
+the card line, and the last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
@@ -220,6 +244,40 @@ MEMORY_RECIPE = dict(population_size=256, sigma=0.1, optimizer_kwargs={"learning
                      policy_kwargs={"action_dim": 1, "hidden": (8,), "gru_size": 8,
                                     "discrete": False})
 MEMORY_SEEDS, MEMORY_GENERATIONS, MEMORY_HORIZON = (0, 1, 2), 80, 16
+# phase 11, the novelty family and IW-ES (t)-(w), each through Cls(...).train:
+# label, how to build it, the timed generations after 1 warm-up, the matvec
+# launches an env step of the population's evaluation and the reduction's
+# launches a generation, and the cuts.  The center episode runs the standard
+# forward: no kernel.  (v) runs the standard forward (the JAX package rejects
+# streamed/noise_kernel for IW-ES) at Adam 2.5e-4, under σ/√dim ≈ 7.5e-4,
+# where the ESS guard admits the earlier generations at population 4096
+NOVELTY = dict(k=10, meta_population_size=3)
+FUSED_TURNS = 3  # (t) against the fused generation, in turns
+IW_LR = 2.5e-4
+REUSE_REPS = 10  # calls of each reuse reduction in its profile
+CHEETAH_RECIPE = dict(population_size=1024, sigma=0.08, optimizer_kwargs={"learning_rate": 2e-2},
+                      policy_kwargs={"action_dim": 6, "hidden": (64, 64), "discrete": False,
+                                     "action_scale": 1.0})  # configs.cheetah2d_device
+NOVELTY_PATHS = [
+    ("t novelty/pendulum/nsr_es/streamed+nk", lambda tt: tt.NSR_ES(
+        tt.MLPPolicy, tt.DeviceAgent(tt.Pendulum(), horizon=HORIZON), tt.adam,
+        population_size=POPULATION, sigma=0.05, policy_kwargs=POLICY,
+        optimizer_kwargs={"learning_rate": 1e-2}, **STREAMED, **NOVELTY), 3, 3, 1, "none"),
+    ("u novelty/cheetah2d/nsra_es/streamed+nk", lambda tt: tt.NSRA_ES(
+        tt.MLPPolicy, tt.DeviceAgent(tt.Cheetah2D(), horizon=LOCO_HORIZON), tt.adam,
+        weight=1.0, **CHEETAH_RECIPE, **STREAMED, **NOVELTY), 1, 3, 1,
+     f"1 timed generation, cut from 3; horizon {LOCO_HORIZON} as (g)"),
+    ("v iw/pendulum/standard", lambda tt: tt.IW_ES(
+        tt.MLPPolicy, tt.DeviceAgent(tt.Pendulum(), horizon=HORIZON), tt.adam,
+        population_size=POPULATION, sigma=0.05, policy_kwargs=POLICY,
+        optimizer_kwargs={"learning_rate": IW_LR}, reuse_window=2, ess_min=0.5), 3, 0, 0,
+     "none"),
+    ("w novelty/pooled_pendulum/ns_es+nk", lambda tt: tt.NS_ES(
+        tt.MLPPolicy, tt.PooledAgent("pendulum", horizon=HORIZON), tt.adam,
+        population_size=POPULATION, sigma=0.05, policy_kwargs=POLICY,
+        optimizer_kwargs={"learning_rate": 1e-2}, noise_kernel=True, **NOVELTY), 2, 0, 1,
+     "2 timed generations"),
+]
 L2_FLUSH_BYTES = 256 << 20  # written and read before each cold launch: five times the L2
 # one env step's three launches before the pair-sharing redesign, as measured
 # then on an H100 80GB HBM3 at 700 W: printed beside this run's time, never
@@ -323,33 +381,52 @@ def union_floats(starts, length: int) -> int:
     return total + (cur_hi - cur_lo if cur_hi is not None else 0)
 
 
-def profile_generation(torch, es, top: int = 15, **train_kw) -> tuple[float, int]:
-    """One more generation under torch.profiler: the device's busy share of
-    the wall time and the kernels that take it.  Returns the busy seconds
-    and the number of kernel launches (copies and fills not counted).
-
-    Only the device's activity is recorded, and its events are summed raw:
-    ``key_averages()`` builds a Python object an event (about 0.3 ms each),
-    minutes for a locomotion generation's million launches."""
+def device_events(torch, fn) -> list[tuple[str, int]]:
+    """``(name, duration ns)`` of each device event torch.profiler records
+    around one call of ``fn``: kernels, copies and fills, not the host-side
+    events (the runtime's launch calls).  Only the device's activity is
+    recorded and its events are read raw: ``key_averages()`` builds a Python
+    object an event (about 0.3 ms each), minutes for a locomotion
+    generation's million launches."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.name(), e.duration_ns()) for e in prof.profiler.kineto_results.events()
+            if str(e.device_type()).endswith("CUDA")]
+
+
+def kernel_launches(events) -> int:
+    """The kernel launches among :func:`device_events`' events (copies and
+    fills not counted)."""
+    return sum(1 for name, _ in events if not name.startswith(("Memcpy", "Memset")))
+
+
+def profile_generation(torch, es, top: int = 15, **train_kw) -> tuple[float, int]:
+    """One more generation under torch.profiler: the device's busy share of
+    the wall time and the kernels that take it.  Returns the busy seconds
+    and the number of kernel launches."""
+    wall = 0.0
+
+    def one_generation():
+        nonlocal wall
         t0 = time.perf_counter()
         es.train(1, verbose=False, **train_kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+
+    events = device_events(torch, one_generation)
     by_name: dict[str, list] = {}
-    for e in prof.profiler.kineto_results.events():
-        if not str(e.device_type()).endswith("CUDA"):
-            continue  # host-side events: the runtime's launch calls
-        row = by_name.setdefault(e.name(), [0, 0])
-        row[0] += e.duration_ns()
+    for name, ns in events:
+        row = by_name.setdefault(name, [0, 0])
+        row[0] += ns
         row[1] += 1
     rows = sorted(((ns / 1e3, count, name) for name, (ns, count) in by_name.items()),
                   reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e6
-    kernels = sum(r[1] for r in rows if not r[2].startswith(("Memcpy", "Memset")))
+    kernels = kernel_launches(events)
     print(f"profile: one generation {wall:.4f} s wall under the profiler, device busy "
           f"{busy_s:.4f} s ({busy_s / wall:.3f} of wall), {kernels} kernel launches")
     mv = [r for r in rows if "noise_matvec" in r[2]]
@@ -733,7 +810,7 @@ def time_conv_forms(torch, tt, gen, dev) -> dict:
         fail(f"NatureCNN convolutions, patch copy + bmm against grouped conv2d: {err:g}")
     ms_bmm = time_ms(torch, port_forward, reps=10)
     ms_grouped = time_ms(torch, grouped, reps=3)
-    n_bmm, n_grouped = count_launches(torch, port_forward), count_launches(torch, grouped)
+    n_bmm, n_grouped = (kernel_launches(device_events(torch, f)) for f in (port_forward, grouped))
     print(f"NatureCNN, 256 members, one observation each: the port's forward (patch copy + "
           f"bmm convolutions, fc and head) {ms_bmm:.3f} ms in {n_bmm} kernel launches; the "
           f"convolutions alone as one grouped F.conv2d {ms_grouped:.3f} ms in {n_grouped} "
@@ -741,19 +818,6 @@ def time_conv_forms(torch, tt, gen, dev) -> dict:
     return {"check": "conv forms, 256 members", "forward_bmm_ms": ms_bmm,
             "forward_bmm_launches": n_bmm, "convs_grouped_conv2d_ms": ms_grouped,
             "convs_grouped_conv2d_launches": n_grouped, "rel_err": err}
-
-
-def count_launches(torch, fn) -> int:
-    """Kernel launches (copies and fills not counted) of one call of ``fn``."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(1 for e in prof.profiler.kineto_results.events()
-               if str(e.device_type()).endswith("CUDA")
-               and not e.name().startswith(("Memcpy", "Memset")))
 
 
 class TimedPool:
@@ -897,6 +961,7 @@ class PendulumRolloutAgent:
                 action = 2.0 * policy(torch.from_numpy(obs).to(device))
                 obs, reward, _ = self.pool.step(action.cpu().numpy())
                 total += float(reward[0])
+        self.last_obs = obs
         self.last_episode_steps = self.horizon
         return total
 
@@ -1074,7 +1139,7 @@ def run_host_path(torch, tt, nk, card: str) -> dict:
                     load_flat(policy, es_one.engine.member_params(state, i))
                     call_rollout(agent, policy)
 
-            per_step = count_launches(torch, four_members) / (4 * HOST_HORIZON)
+            per_step = kernel_launches(device_events(torch, four_members)) / (4 * HOST_HORIZON)
         es_one.engine.close()
         single[device or "cuda"] = one
         report(f"one worker, policies on {device or 'cuda'}, 1 generation at population "
@@ -1285,6 +1350,246 @@ def run_recurrent_paths(torch, tt, nk, card: str) -> tuple[list[dict], dict]:
     memory = {"check": "RecallEnv memory, GRU 8, pop 256, 80 generations",
               "seeds": list(MEMORY_SEEDS), "means": means, "above_8": passed}
     return paths, memory
+
+
+class PendulumBCAgent(PendulumRolloutAgent):
+    """:class:`PendulumRolloutAgent` returning ``(reward, bc)``, as the
+    reference's novelty agents do: the BC is the last observation's (cos θ,
+    sin θ)."""
+
+    def rollout(self, policy):
+        total = super().rollout(policy)
+        return total, self.last_obs[0, :2].copy()
+
+
+def _rel(a, b) -> float:
+    """max |a - b| over max |b|."""
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def compare_novelty_card_cpu(torch, tt) -> list[dict]:
+    """Phase 4, the novelty family and IW-ES at a small size, card against
+    CPU: (t) NSR-ES streamed with the kernel update at population 64,
+    horizon 20, 3 generations (the meta indices equal; the archive sum and
+    every center's params within 1e-5 relative); (v) IW-ES at population 64
+    with reuse forced by Adam 1e-5, 4 generations (the ``reused_prev`` flags
+    equal, each generation's gradient norm within 1e-5 relative, params
+    within 2e-7, a fiftieth of one Adam step); a host NS-ES on phase 9's
+    ``rollout(policy)`` Pendulum agent returning (reward, last (cos θ,
+    sin θ)) at population 32, horizon 60, 2 generations, Adam (meta indices
+    equal, reward means within 1e-4 relative, each center's update cosine
+    >= 0.999)."""
+    out = []
+    small = dict(population_size=64, sigma=0.05, policy_kwargs=POLICY, table_size=1 << 22)
+    sides = []
+    for device in ("cuda", "cpu"):
+        es = tt.NSR_ES(tt.MLPPolicy, tt.DeviceAgent(tt.Pendulum(), horizon=20), tt.adam,
+                       device=device, optimizer_kwargs={"learning_rate": 1e-2}, **small,
+                       **STREAMED, **NOVELTY)
+        es.train(3, verbose=False)
+        sides.append(es)
+    gpu, cpu = sides
+    same_meta = [r["meta_index"] for r in gpu.history] == [r["meta_index"] for r in cpu.history]
+    p_err = max(_rel(a.params_flat.cpu(), b.params_flat)
+                for a, b in zip(gpu.meta_states, cpu.meta_states))
+    a_gpu, a_cpu = float(gpu.archive.bcs.sum()), float(cpu.archive.bcs.sum())
+    a_err = abs(a_gpu - a_cpu) / max(abs(a_cpu), 1e-30)
+    rec = {"check": "t NSR-ES streamed+nk, pop 64, horizon 20, 3 generations",
+           "meta_indices": [r["meta_index"] for r in gpu.history], "meta_indices_equal": same_meta,
+           "params_rel_err": p_err, "archive_sum_rel_err": a_err}
+    print(f"card vs CPU, (t) NSR-ES: meta indices {rec['meta_indices']} equal {same_meta}, "
+          f"params rel err {p_err:.3g} (tol 1e-5), archive sum rel err {a_err:.3g} (tol 1e-5)")
+    if not (same_meta and p_err <= 1e-5 and a_err <= 1e-5):
+        fail(f"card vs CPU, (t) NSR-ES: {rec}")
+    out.append(rec)
+
+    sides = []
+    for device in ("cuda", "cpu"):
+        es = tt.IW_ES(tt.MLPPolicy, tt.DeviceAgent(tt.Pendulum(), horizon=20), tt.adam,
+                      device=device, optimizer_kwargs={"learning_rate": 1e-5}, reuse_window=2,
+                      **small)
+        es.train(4, verbose=False)
+        sides.append(es)
+    gpu, cpu = sides
+    flags = [r["reused_prev"] for r in gpu.history]
+    same = flags == [r["reused_prev"] for r in cpu.history]
+    # Adam moves each coordinate about lr a step whatever the gradient's
+    # size, so the params alone would hide a reuse term of the wrong scale:
+    # the ascent direction's norm, reuse terms included, is held generation
+    # by generation, and the params to one float32 ulp at |θ| < 2 (the
+    # init's largest is 1.28), a fiftieth of one step
+    g_err = max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+                for a, b in zip(gpu.history, cpu.history))
+    p_err = float((gpu.state.params_flat.cpu() - cpu.state.params_flat).abs().max())
+    rec = {"check": "v IW-ES, pop 64, Adam 1e-5, 4 generations", "reused_prev": flags,
+           "reused_prev_equal": same, "grad_norm_rel_err": g_err, "params_max_abs_err": p_err,
+           "ess": [r["ess"] for r in gpu.history]}
+    print(f"card vs CPU, (v) IW-ES: reused_prev {flags} equal {same}, ESS {rec['ess']}, "
+          f"grad norm rel err {g_err:.3g} (tol 1e-5), params max |err| {p_err:.3g} (tol 2e-7)")
+    if not (same and any(flags) and g_err <= 1e-5 and p_err <= 2e-7):
+        fail(f"card vs CPU, (v) IW-ES: {rec}")
+    out.append(rec)
+
+    from estorch_tpu_torch import configs
+
+    sides = []
+    for device in ("cuda", "cpu"):
+        es = tt.NS_ES(configs._torch_mlp(3, 1, hidden=(64, 64)), PendulumBCAgent,
+                      torch.optim.Adam, device=device, agent_kwargs={"horizon": 60},
+                      population_size=32, sigma=0.02, optimizer_kwargs={"lr": 1e-2},
+                      table_size=1 << 22, **NOVELTY)
+        p0 = [s.params_flat.cpu().clone() for s in es.meta_states]
+        es.train(2, n_proc=4, verbose=False)
+        es.engine.close()
+        sides.append((es, p0))
+    (gpu, p0), (cpu, _) = sides
+    same_meta = [r["meta_index"] for r in gpu.history] == [r["meta_index"] for r in cpu.history]
+    fit_err = max(abs(a["reward_mean"] - b["reward_mean"]) / abs(b["reward_mean"])
+                  for a, b in zip(gpu.history, cpu.history))
+    cos = 1.0
+    for a, b, p in zip(gpu.meta_states, cpu.meta_states, p0):
+        dg, dc = a.params_flat.cpu() - p, b.params_flat - p
+        if float(dc.norm()) > 0:
+            cos = min(cos, float(dg @ dc / (dg.norm() * dc.norm())))
+    rec = {"check": "host NS-ES, rollout(policy) Pendulum, pop 32, horizon 60, 2 generations",
+           "meta_indices_equal": same_meta, "reward_mean_rel_err": fit_err, "cosine": cos}
+    print(f"card vs CPU, host NS-ES: meta indices equal {same_meta}, reward_mean rel err "
+          f"{fit_err:.3g} (tol 1e-4), update cosine {cos:.7f} (tol 0.999)")
+    if not (same_meta and fit_err <= 1e-4 and cos >= 0.999):
+        fail(f"card vs CPU, host NS-ES: {rec}")
+    out.append(rec)
+    return out
+
+
+def split_against_fused(torch, tt, ns) -> dict:
+    """(t)'s split generation against the fused generation of the main
+    path's ES (the same policy, env, population and options), in turns, a
+    generation each, FUSED_TURNS rounds: the host's speed drifts up to 2x
+    between phases, so only generations timed in turns compare."""
+    fused = tt.ES(tt.MLPPolicy, tt.DeviceAgent(tt.Pendulum(), horizon=HORIZON), tt.adam,
+                  population_size=POPULATION, sigma=0.05, policy_kwargs=POLICY,
+                  optimizer_kwargs={"learning_rate": 1e-2}, **STREAMED)
+    fused.train(1, verbose=False)  # warm-up
+    times = {"fused": [], "split": []}
+    for _ in range(FUSED_TURNS):
+        for key, es in (("fused", fused), ("split", ns)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            es.train(1, verbose=False)
+            torch.cuda.synchronize()
+            times[key].append(time.perf_counter() - t0)
+    centers = [r["split_s"]["center"] for r in ns.history[-FUSED_TURNS:]]
+    ratios = [s / f for s, f in zip(times["split"], times["fused"])]
+    print(f"  in turns with the fused generation ({FUSED_TURNS} rounds): fused "
+          f"{', '.join(f'{t:.4f}' for t in times['fused'])} s, split "
+          f"{', '.join(f'{t:.4f}' for t in times['split'])} s (ratios "
+          f"{', '.join(f'{r:.2f}' for r in ratios)}); the split's center episode "
+          f"{', '.join(f'{c:.4f}' for c in centers)} s")
+    return {**times, "ratios": ratios, "center_s": centers}
+
+
+def run_novelty_paths(torch, tt, nk, card: str) -> list[dict]:
+    """Phase 11: each of NOVELTY_PATHS through ``Cls(...).train``: the launch
+    counts set to 0 just before its 1 + timed generations, read just after
+    and held exact (the matvec 3 an env step of the population's evaluation
+    with the streamed forward, the reduction 1 a generation with the kernel
+    update; the center episode none); the split parts of each timed
+    generation on the host clock (evaluate, k-NN + ranks, update, center
+    episode); then one profiled generation.  (v) must reuse an earlier
+    generation in a timed one; its two reuse reductions are timed from a
+    profile at the path's shape."""
+    paths = []
+    for label, build, timed, mv_per_step, wns_per_gen, cuts in NOVELTY_PATHS:
+        torch.cuda.empty_cache()
+        t_build = time.perf_counter()
+        es = build(tt)
+        if es.device.type != "cuda":
+            fail(f"path {label} ran on {es.device}")
+        novelty = hasattr(es, "meta_states")
+        horizon = es.config.horizon
+        build_s = time.perf_counter() - t_build
+        p0 = [s.params_flat.clone() for s in (es.meta_states if novelty else [es.state])]
+        torch.cuda.synchronize()
+        nk.reset_launch_counts()
+        es.train(1, verbose=False)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        es.train(timed, verbose=False)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = dict(nk.launch_counts)
+        gens = 1 + timed
+        want = {"weighted_noise_sum": wns_per_gen * gens,
+                "population_noise_matvec": mv_per_step * horizon * gens}
+        if counts != want:
+            fail(f"path {label}: launch counts {counts}, expected {want}")
+        if len(es.history) != gens:
+            fail(f"path {label}: expected {gens} generations, got {len(es.history)}")
+        for r in es.history:
+            if r["n_failed"] or not all(math.isfinite(r[k])
+                                        for k in ("reward_mean", "reward_max", "grad_norm")):
+                fail(f"path {label}, generation {r['generation']}: non-finite result {r}")
+        after = [s.params_flat for s in (es.meta_states if novelty else [es.state])]
+        if all(torch.equal(a, b) for a, b in zip(p0, after)):
+            fail(f"path {label}: params did not change")
+        steps = sum(r["env_steps"] for r in es.history[1:])
+        gen_s = dt / timed
+        chunks = 1 if es.backend == "pooled" else es.population_size // es.engine.eval_chunk
+        rec = {"path": label, "algorithm": type(es).__name__, "launches": counts,
+               "env_steps_per_s": steps / dt, "s_per_generation": gen_s,
+               "population": es.population_size, "horizon": horizon,
+               "param_dim": es.spec.dim, "cuts": cuts, "construction_s": build_s}
+        extra = ""
+        if novelty:
+            parts = {k: statistics.fmean(r["split_s"][k] for r in es.history[1:])
+                     for k in ("evaluate", "knn", "update", "center")}
+            rec.update(split_s=parts, meta_indices=[r["meta_index"] for r in es.history],
+                       archive_size=len(es.archive))
+            extra = "; split " + ", ".join(f"{k} {v:.4f} s" for k, v in parts.items())
+        else:
+            rec.update(ess=[r["ess"] for r in es.history],
+                       reused_gens=[r["reused_gens"] for r in es.history],
+                       learning_rate=IW_LR)
+            if not any(r["reused_gens"] >= 1 for r in es.history[1:]):
+                fail(f"path {label}: no timed generation reused an earlier one: "
+                     f"ESS {rec['ess']}, ess_min*n {0.5 * es.population_size}")
+            extra = f"; Adam {IW_LR}, ESS {rec['ess']}, reused_gens {rec['reused_gens']}"
+        print(f"path {label} (dim {es.spec.dim}, pop {es.population_size}, horizon {horizon}; "
+              f"cut: {cuts}): {steps / dt:.0f} env-steps/s (alive members) ({gen_s:.4f} s a "
+              f"generation) on {card}; launches {counts}; reward mean "
+              f"{es.history[0]['reward_mean']:.2f} -> {es.history[-1]['reward_mean']:.2f}{extra}")
+        busy, launched = profile_generation(torch, es, top=8)  # not part of the counts
+        per_step = launched / (horizon * chunks)
+        center = "; the center episode included" if novelty else ""
+        print(f"  {launched} kernel launches in the profiled generation = {per_step:.1f} an env "
+              f"step of the population ({horizon} steps x {chunks} chunks{center}); busy share "
+              f"{busy / gen_s:.3f}")
+        rec.update(device_busy_s=busy, busy_share=busy / gen_s,
+                   kernel_launches_per_env_step=per_step)
+        if label.startswith("t"):
+            rec["in_turns_with_fused"] = split_against_fused(torch, tt, es)
+        if not novelty:
+            st, entry = es.state, es._prev[-1]
+            d_vec = (entry[0] - st.params_flat) / float(st.sigma)
+            rows = entry[2].shape[0]
+            old_w = torch.full((rows,), 1e-4, device=es.device)
+            w = torch.zeros(es.population_size, device=es.device)
+            rec["reuse_device_ms"] = {}
+            for name, fn in (("noise_stats", lambda: es.engine.noise_stats(entry[2], d_vec)),
+                             ("apply_weights_reuse", lambda: es.engine.apply_weights_reuse(
+                                 st, w, entry[2], old_w, d_vec[None], torch.tensor([1e-4])))):
+                fn()  # warm
+                events = device_events(torch, lambda: [fn() for _ in range(REUSE_REPS)])
+                ms = sum(ns for _, ns in events) / 1e6 / REUSE_REPS if events else None
+                rec["reuse_device_ms"][name] = ms
+                shown = "not measured (no device events)" if ms is None else f"{ms:.4f} ms"
+                print(f"  reuse reduction {name} ({rows} rows of dim {es.spec.dim}): device time "
+                      f"{shown} a call, from a profile of {REUSE_REPS} calls")
+        if es.backend == "pooled":
+            es.engine.close()
+        paths.append(rec)
+        del es
+    return paths
 
 
 def main() -> None:
@@ -1555,6 +1860,7 @@ def main() -> None:
     env_cmp += compare_pooled_card_cpu(torch, estorch_tpu_torch)
     env_cmp += compare_host_card_cpu(torch, estorch_tpu_torch)
     env_cmp += compare_recurrent_card_cpu(torch, estorch_tpu_torch)
+    env_cmp += compare_novelty_card_cpu(torch, estorch_tpu_torch)
 
     # ---- 5. the slice's other paths at full width ----------------------------
     phase("5. the other paths")
@@ -1587,6 +1893,11 @@ def main() -> None:
     paths += recurrent
     env_cmp.append(memory)
 
+    # ---- 11. the novelty family and IW-ES ---------------------------------------------
+    phase("11. novelty")
+    novelty = run_novelty_paths(torch, estorch_tpu_torch, nk, card)
+    paths += novelty
+
     # ---- report --------------------------------------------------------------
     phase("report")
     kernels = [
@@ -1600,7 +1911,9 @@ def main() -> None:
          "launches_pooled": {p["path"]: p["launches"]["weighted_noise_sum"] for p in pooled},
          "launches_host": {host["path"]: host["launches"]["weighted_noise_sum"]},
          "launches_recurrent": {p["path"]: p["launches"]["weighted_noise_sum"]
-                                for p in recurrent}},
+                                for p in recurrent},
+         "launches_novelty": {p["path"]: p["launches"]["weighted_noise_sum"]
+                              for p in novelty}},
         {"name": "population_noise_matvec", "route": "cuda",
          "source": "estorch_tpu_torch/ops/csrc/noise_kernels.cu",
          "replaces": "estorch_tpu/ops/pallas_noise.py:201",
@@ -1610,7 +1923,9 @@ def main() -> None:
          "shape": f"one env step: n={POPULATION} at (3,64)+(64,64)+(64,1)",
          "layers": [{k: layer[k] for k in ("layer", "n", "d", "h", "ms", "cold_ms",
                                            "plain_ms", "bound_ms")}
-                    for layer in layers + extra]},
+                    for layer in layers + extra],
+         "launches_novelty": {p["path"]: p["launches"]["population_noise_matvec"]
+                              for p in novelty}},
     ]
     print(json.dumps({"paths": paths, "eval_chunk": chunking, "card_vs_cpu_envs": env_cmp}))
     print(json.dumps({"kernels": kernels}))

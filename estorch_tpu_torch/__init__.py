@@ -12,13 +12,18 @@ VirtualBatchNorm); ``configs`` holds the device and pooled recipes.
 Recurrent policies (``RecurrentPolicy``: GRU or LSTM cores, stacked, with
 a learned episode-start carry; ``RecurrentNatureCNN``) train on the device
 and pooled backends, and VBN on the device path takes its frozen
-statistics from ``collect_reference_batch``.  The streamed forward and the
+statistics from ``collect_reference_batch``.  The novelty family
+(``NS_ES``, ``NSR_ES``, ``NSRA_ES``: a meta-population of centers, a
+host ``NoveltyArchive`` of behavior characterizations) trains on the
+device, pooled and host backends through the engines' split path, and
+``IW_ES`` reuses earlier generations' rollouts through importance weights
+on the device backend.  The streamed forward and the
 ``noise_kernel`` update run two hand-written Hopper kernels
 (``ops/csrc``), whose plain PyTorch versions sit beside them in
 ``ops/noise_kernels.py``.
 """
 
-from .algo import ES
+from .algo import ES, IW_ES, NS_ES, NSR_ES, NSRA_ES, NoveltyArchive
 from .envs import (
     Acrobot,
     CartPole,
@@ -46,8 +51,9 @@ from .utils import resolve_device
 
 __all__ = [
     "Acrobot", "CartPole", "Cheetah2D", "DeceptiveValley", "DeviceAgent", "ES", "ESEngine",
-    "ESState", "EngineConfig", "Hopper2D", "Humanoid2D", "MLPPolicy", "MountainCar",
-    "MountainCarContinuous", "NatureCNN", "NoiseTable", "Pendulum", "PooledAgent",
+    "ESState", "EngineConfig", "Hopper2D", "Humanoid2D", "IW_ES", "MLPPolicy", "MountainCar",
+    "MountainCarContinuous", "NSRA_ES", "NSR_ES", "NS_ES", "NatureCNN", "NoiseTable",
+    "NoveltyArchive", "Pendulum", "PooledAgent",
     "PooledEngine", "PositionOnly", "RecallEnv", "RecurrentNatureCNN", "RecurrentPolicy",
     "Swimmer2D", "SyntheticEnv", "VirtualBatchNorm", "Walker2D", "adam",
     "collect_reference_batch", "make_noise_table", "resolve_device", "sgd",

@@ -38,9 +38,11 @@ low-rank tree form, on the device and pooled backends; ``MLPPolicy`` with
 VBN on the device path freezes its statistics from
 ``collect_reference_batch`` of the agent's env.  The options not ported yet
 (``mesh``/``shard_params`` and the sharding options, ``telemetry``,
-``scenarios``, ``meta_index``) raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item.  ``device`` is ``"cuda"`` unless the caller passes
-``"cpu"``.  ``best_policy`` keeps the best member seen, and
+``scenarios``) raise ``NotImplementedError`` naming their ``ROADMAP.md``
+item.  The novelty family (``algo/nses.py``) and IW-ES (``algo/iwes.py``)
+subclass ``ES`` and share its record plumbing (``_base_record``,
+``_emit_record``, ``_format_record``).  ``device`` is ``"cuda"`` unless
+the caller passes ``"cpu"``.  ``best_policy`` keeps the best member seen, and
 ``evaluate_policy`` rolls out fresh episodes of the center or of it.
 """
 
@@ -67,7 +69,6 @@ from ..parallel.pooled import PooledEngine
 from ..utils.backend import resolve_device
 
 _ROADMAP = "ROADMAP.md, port queue"
-_NOVELTY = "4, the novelty family"
 _OBSERVABILITY = "6, checkpoint, resilience and observability"
 _MULTI_GPU = "7, multi-GPU"
 
@@ -245,6 +246,7 @@ class ES:
 
         # params are drawn on the CPU and moved, so a seed gives the same
         # initial center on every device
+        self._obs_shape = obs_shape
         init_gen = torch.Generator().manual_seed(self.seed)
         params = self.module.init_params(obs_shape, init_gen)
         flat, self.spec = make_param_spec(params)
@@ -448,17 +450,9 @@ class ES:
                         "rejected — check env/rollout health")
                 continue
             rejected_streak = 0
-            record = self._record(prev_state, fitness, int(metrics["steps"]),
-                                  float(metrics["grad_norm"]), dt)
-            self.history.append(record)
-            self.generation += 1
-            if log_fn is not None:
-                log_fn(record)
-            elif verbose:
-                print(
-                    f"gen {record['generation']:4d}  max {record['reward_max']:9.2f}  "
-                    f"mean {record['reward_mean']:9.2f}  best {record['best_reward']:9.2f}  "
-                    f"steps/s {record['env_steps_per_sec']:,.0f}")
+            record = self._base_record(prev_state, fitness, int(metrics["steps"]),
+                                       float(metrics["grad_norm"]), dt)
+            self._emit_record(record, log_fn, verbose)
             done += 1
         return self
 
@@ -483,8 +477,10 @@ class ES:
             self._best_flat = self.engine.member_params(prev_state, int(np.nanargmax(fitness)))
         return gen_best, improved
 
-    def _record(self, prev_state, fitness: np.ndarray, steps: int,
-                grad_norm: float, dt: float) -> dict:
+    def _base_record(self, prev_state, fitness: np.ndarray, steps: int,
+                     grad_norm: float, dt: float) -> dict:
+        """A generation's record, shared by every train loop (ES, the
+        novelty family and IW-ES add their fields to it)."""
         finite_any = bool(np.isfinite(fitness).any())
         gen_best, improved = self._track_best(prev_state, fitness)
         return {
@@ -501,6 +497,20 @@ class ES:
             "sigma": float(prev_state.sigma),
             "wall_time_s": dt,
         }
+
+    def _emit_record(self, record: dict, log_fn: Callable[[dict], None] | None,
+                     verbose: bool) -> None:
+        self.history.append(record)
+        self.generation += 1
+        if log_fn is not None:
+            log_fn(record)
+        elif verbose:
+            print(self._format_record(record))
+
+    def _format_record(self, r: dict) -> str:
+        return (f"gen {r['generation']:4d}  max {r['reward_max']:9.2f}  "
+                f"mean {r['reward_mean']:9.2f}  best {r['best_reward']:9.2f}  "
+                f"steps/s {r['env_steps_per_sec']:,.0f}")
 
     # ------------------------------------------------------------- inspection
 
@@ -559,12 +569,24 @@ class ES:
         backend they are serial ``rollout`` calls of worker 0's agent (the
         agent owns its episodes' randomness, so ``seed`` is not used); the
         details are ``rewards``, with ``bc`` None.
+
+        ``meta_index`` evaluates that center of the novelty family's
+        meta-population (``NS_ES`` and its variants) in place of
+        ``self.state``, meta-population center 0.
         """
         if meta_index is not None:
-            _unsupported("meta_index (per-center evaluation)", _NOVELTY)
+            if not hasattr(self, "meta_states"):
+                raise ValueError("meta_index applies to the novelty family (NS/NSR/NSRA)")
+            if use_best:
+                raise ValueError(
+                    "use_best evaluates the GLOBAL best member snapshot — "
+                    "it cannot be combined with meta_index (per-center eval)")
+            base_state = self.meta_states[meta_index]
+        else:
+            base_state = self.state
         flat = self._best_flat if use_best and self._best_flat is not None else None
         if self.backend == "host":
-            state = self.state if flat is None else self.state._replace(params_flat=flat)
+            state = base_state if flat is None else base_state._replace(params_flat=flat)
             rewards = np.asarray([self.engine.evaluate_center(state).total_reward
                                   for _ in range(int(n_episodes))], np.float32)
             summary = _summary(rewards, n_episodes)
@@ -574,7 +596,7 @@ class ES:
         if self.backend == "pooled":
             # one pooled pass of fresh episodes from a pool seeded by ``seed``,
             # in the compute dtype, as the JAX package's pooled path evaluates
-            state = self.state if flat is None else self.state._replace(params_flat=flat)
+            state = base_state if flat is None else base_state._replace(params_flat=flat)
             res = self.engine.evaluate_center_batch(state, int(n_episodes), seed=seed)
             rewards = np.asarray(res.fitness, np.float32)
             summary = _summary(rewards, n_episodes)
@@ -583,7 +605,7 @@ class ES:
             return summary
         states0, _ = self.env.reset(torch.Generator().manual_seed(int(seed)), int(n_episodes))
         want_gait = return_details and hasattr(self.env, "step_metrics")
-        out = self.engine.evaluate_episodes(self.state, states0, flat, with_env_metrics=want_gait)
+        out = self.engine.evaluate_episodes(base_state, states0, flat, with_env_metrics=want_gait)
         res, gait_sums = out if want_gait else (out, None)
         rewards = res.total_reward.cpu().numpy()
         summary = _summary(rewards, n_episodes)

@@ -16,6 +16,8 @@ on the card):
   (84×84, 4 stacked frames, action repeat 2, sticky actions 0.25), pop 256;
 - ``halfcheetah_pooled``, ``humanoid_pooled`` — gymnasium MuJoCo in
   ``gym.vector`` workers (wherever gymnasium and MuJoCo are installed);
+- ``halfcheetah_nsres``  — NSR-ES on pooled HalfCheetah-v5, BC the final
+  x-position (``bc_indices=(0,)``), pop 256, horizon 1000;
 - ``atari_frostbite``    — gated on ``ale_py``, as in the JAX package.
 
 The host recipes (``rollout(policy)`` agents on gymnasium MuJoCo, torch
@@ -25,11 +27,12 @@ MLPs, ``torch.optim.Adam``; wherever gymnasium and MuJoCo are installed):
   ``TorchVirtualBatchNorm`` frozen from 128 random-action observations,
   pop 1000;
 - ``humanoid_mirrored``  — Humanoid-v5, MLP 256x256, mirrored sampling,
-  pop 10000.
+  pop 10000;
+- ``humanoid_nsres``     — NSR-ES on Humanoid-v5, MLP 256x256, BC the
+  final torso (x, y), pop 1000.
 
-Every recipe takes ``**over`` to override any ``ES`` argument, ``device``
-included.  The novelty recipes of the JAX package raise
-``NotImplementedError`` naming their ``ROADMAP.md`` port item.
+Every recipe takes ``**over`` to override any argument of its class
+(``ES`` or ``NSR_ES``), ``device`` included.
 
 Use:  python -m estorch_tpu_torch.configs <name> [--generations N]
       [--population P] [--device cuda|cpu] [--n-proc K]
@@ -43,7 +46,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .algo import ES
+from .algo import ES, NSR_ES
 from .envs import (CartPole, Cheetah2D, DeviceAgent, Hopper2D, Humanoid2D, PooledAgent,
                    Swimmer2D, Walker2D)
 from .models import MLPPolicy, NatureCNN, TorchVirtualBatchNorm
@@ -73,9 +76,11 @@ def _torch_mlp(n_in: int, n_out: int, hidden=(64, 64), vbn: bool = False) -> typ
     return MLP
 
 
-def _mujoco_agent(env_id: str) -> type:
+def _mujoco_agent(env_id: str, bc_xy: bool = False) -> type:
     """A ``rollout(policy)`` agent over a gymnasium env: each observation
-    goes to the policy's device, each action comes back with ``.cpu()``."""
+    goes to the policy's device, each action comes back with ``.cpu()``.
+    With ``bc_xy`` it returns ``(reward, bc)``, the BC the final torso
+    (x, y) (Conti et al.'s Humanoid BC)."""
     import gymnasium as gym
 
     class MujocoAgent:
@@ -94,6 +99,8 @@ def _mujoco_agent(env_id: str) -> type:
                     steps += 1
                     done = term or trunc
             self.last_episode_steps = steps
+            if bc_xy:
+                return total, np.asarray(self.env.unwrapped.data.qpos[:2], np.float32)
             return total
 
     return MujocoAgent
@@ -216,6 +223,23 @@ def humanoid_mirrored(**over) -> ES:
     return ES(**kw)
 
 
+def humanoid_nsres(**over) -> NSR_ES:
+    """NSR-ES on Humanoid-v5, torch MLP 256x256, BC = the final torso (x,
+    y), population 1000 (host path)."""
+    kw = dict(
+        policy=_torch_mlp(348, 17, hidden=(256, 256)),
+        agent=_mujoco_agent("Humanoid-v5", bc_xy=True),
+        optimizer=torch.optim.Adam,
+        population_size=1000,
+        sigma=0.02,
+        k=10,
+        meta_population_size=3,
+        optimizer_kwargs={"lr": 1e-2},
+    )
+    kw.update(over)
+    return NSR_ES(**kw)
+
+
 def halfcheetah_pooled(**over) -> ES:
     """HalfCheetah physics in ``gym.vector`` workers, the population's MLP
     forwards on the card; pass ``obs_norm=True`` for the OpenAI-ES MuJoCo
@@ -257,6 +281,29 @@ def humanoid_pooled(**over) -> ES:
     return ES(**kw)
 
 
+def halfcheetah_nsres(**over) -> NSR_ES:
+    """NSR-ES on pooled HalfCheetah-v5 with the x-position put into the
+    observation and taken as the 1-dim BC (``bc_indices=(0,)``): the
+    novelty family searches over where the gait ends."""
+    kw = dict(
+        policy=MLPPolicy,
+        agent=PooledAgent,
+        optimizer=adam,
+        population_size=256,
+        sigma=0.02,
+        k=10,
+        meta_population_size=3,
+        policy_kwargs={"action_dim": 6, "hidden": (64, 64), "discrete": False},
+        agent_kwargs={"env_name": "gym:HalfCheetah-v5", "horizon": 1000,
+                      "env_kwargs": {"exclude_current_positions_from_observation": False},
+                      "bc_indices": (0,)},
+        optimizer_kwargs={"learning_rate": 1e-2},
+        weight_decay=0.005,
+    )
+    kw.update(over)
+    return NSR_ES(**kw)
+
+
 def pong84_conv(**over) -> ES:
     """NatureCNN with VBN on the bundled C++ pixel pong (84×84), with the
     Atari preprocessing (4 stacked frames → the CNN's 84×84×4 input, action
@@ -289,17 +336,6 @@ def atari_frostbite(**over) -> ES:
     raise NotImplementedError("wire up ALE via PooledAgent once available")
 
 
-def _not_ported(name: str, item: str) -> Callable[..., ES]:
-    def recipe(**over) -> ES:
-        raise NotImplementedError(
-            f"the {name} recipe is not ported yet (ROADMAP.md, port queue item: {item})")
-
-    recipe.__name__ = name
-    return recipe
-
-
-_NOVELTY = "4, the novelty family"
-
 CONFIGS: dict[str, Callable[..., ES]] = {
     "cartpole_smoke": cartpole_smoke,
     "swimmer2d_device": swimmer2d_device,
@@ -311,9 +347,9 @@ CONFIGS: dict[str, Callable[..., ES]] = {
     # host agents on gymnasium MuJoCo
     "halfcheetah_vbn": halfcheetah_vbn,
     "humanoid_mirrored": humanoid_mirrored,
-    "humanoid_nsres": _not_ported("humanoid_nsres", _NOVELTY),
+    "humanoid_nsres": humanoid_nsres,
     "halfcheetah_pooled": halfcheetah_pooled,
-    "halfcheetah_nsres": _not_ported("halfcheetah_nsres", _NOVELTY),
+    "halfcheetah_nsres": halfcheetah_nsres,
     "humanoid_pooled": humanoid_pooled,
     "pong84_conv": pong84_conv,
     "atari_frostbite": atari_frostbite,

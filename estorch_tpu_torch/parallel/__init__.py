@@ -2,6 +2,7 @@ from .engine import (
     EngineConfig,
     ESEngine,
     ESState,
+    EvalResult,
     Sample,
     generation_seed,
     merge_obs_moments,
@@ -11,7 +12,7 @@ from .engine import (
 from .pooled import PooledEngine, PooledEvalResult
 
 __all__ = [
-    "ESEngine", "ESState", "EngineConfig", "Sample", "generation_seed",
+    "ESEngine", "ESState", "EngineConfig", "EvalResult", "Sample", "generation_seed",
     "merge_obs_moments", "merge_obs_moments_np", "normalize_obs", "PooledEngine",
     "PooledEvalResult",
 ]

@@ -31,6 +31,11 @@ generation
    ``obs_norm``, refreshes the running observation moments from episodes
    of the center policy.
 
+The novelty family takes the same generation apart (``evaluate``, weights
+from the host's k-NN, ``apply_weights``); IW-ES adds ``noise_stats`` and
+``apply_weights_reuse``, plain torch as in the JAX package (no Pallas
+there).
+
 The JAX package runs this as one program over a device mesh with a psum;
 with one device the psum is the identity.  The mesh waits for ROADMAP.md
 port queue item 7.
@@ -91,6 +96,14 @@ class EngineConfig:
     obs_clip: float = 5.0  # normalized-obs clip range
     obs_probe_episodes: int = 1  # center episodes a generation feeding the stats
     obs_warmup_episodes: int = 0  # init-policy probe episodes folded in at init
+
+
+class EvalResult(NamedTuple):
+    """A population's evaluation without its update (the split path)."""
+
+    fitness: torch.Tensor  # (n,) float32
+    bc: torch.Tensor  # (n, bc_dim) float32
+    steps: torch.Tensor  # () summed alive env steps
 
 
 class ESState(NamedTuple):
@@ -211,6 +224,12 @@ class ESEngine:
     evaluation happens elsewhere (the pooled path, ``parallel/pooled.py``),
     which draws this generation's offsets with :meth:`all_pair_offsets` and
     hands the rank weights back to :meth:`apply_weights`.
+
+    Besides the fused :meth:`generation_step`, a generation splits into
+    :meth:`evaluate` and :meth:`apply_weights` with weights formed on the
+    host in between (the novelty family, ``algo/nses.py``), and
+    :meth:`noise_stats` with :meth:`apply_weights_reuse` give IW-ES its
+    importance ratios and its update with reused samples (``algo/iwes.py``).
     """
 
     def __init__(self, env: Any, module: Any, spec: ParamSpec, table: NoiseTable,
@@ -273,6 +292,7 @@ class ESEngine:
         # packed factors for low rank; everything that samples offsets or
         # slices noise uses this, not spec.dim
         self.noise_dim = self.lr_spec.noise_dim if config.low_rank else spec.dim
+        self.bc_dim = int(env.bc_dim) if env is not None else 0
         self._dtype = torch.bfloat16 if config.compute_dtype == "bfloat16" else torch.float32
         self._rollout = make_batched_rollout(env, config.horizon) if env is not None else None
         self._probe_rollout = (make_batched_rollout(env, config.horizon, with_obs_moments=True)
@@ -330,24 +350,37 @@ class ESEngine:
         initial states (all e of them), as the JAX package's shared pair
         keys give them.
         """
+        offsets, states, probe = self._host_draws(state)
+        e = self.config.episodes_per_member
+        if e > 1:
+            states = states.view(self.rows, e, -1)
+        return Sample(offsets.to(self.device), states.to(self.device),
+                      None if probe is None else probe.to(self.device))
+
+    def _host_draws(self, state: ESState):
+        """:meth:`sample`'s draws in their order, left on the CPU:
+        ``(offsets, member states (rows·e, state_dim), probe states or
+        None)``."""
         cfg = self.config
         gen = self._generation_generator(state)
         offsets = sample_pair_offsets(gen, self.rows, self.table.size, self.noise_dim)
-        e = cfg.episodes_per_member
-        states, _ = self.env.reset(gen, self.rows * e)
-        if e > 1:
-            states = states.view(self.rows, e, -1)
+        states, _ = self.env.reset(gen, self.rows * cfg.episodes_per_member)
         probe = None
         if cfg.obs_norm:
             probe, _ = self.env.reset(gen, cfg.obs_probe_episodes)
-            probe = probe.to(self.device)
-        return Sample(offsets.to(self.device), states.to(self.device), probe)
+        return offsets, states, probe
 
     @staticmethod
     def _generation_generator(state: ESState) -> torch.Generator:
         """The generator of ``state``'s generation; the offsets are its
         first draw."""
         return torch.Generator().manual_seed(generation_seed(state.seed, state.generation))
+
+    def probe_states(self, state: ESState) -> torch.Tensor:
+        """This generation's obs-norm probe states, on the device: the last
+        of :meth:`sample`'s draws, replayed on the host, where the offsets
+        and member states drawn before them stay."""
+        return self._host_draws(state)[2].to(self.device)
 
     def all_pair_offsets(self, state: ESState) -> torch.Tensor:
         """This generation's offsets, per pair (mirrored) or per member, on
@@ -382,6 +415,11 @@ class ESEngine:
                 torch.isfinite(gnorm), torch.isfinite(new_state.params_flat).all()),
         }
         return new_state, metrics
+
+    def evaluate(self, state: ESState, sample: Sample | None = None) -> EvalResult:
+        """The population's evaluation alone, from the draws
+        :meth:`generation_step` would take (``sample`` replaces them)."""
+        return EvalResult(*self._evaluate(state, self.sample(state) if sample is None else sample))
 
     def _cast(self, t: torch.Tensor) -> torch.Tensor:
         """bf16 path: a member's params are cast once, where they are built."""
@@ -555,13 +593,68 @@ class ESEngine:
 
     def apply_weights(self, state: ESState, weights: torch.Tensor,
                       pair_offsets: torch.Tensor | None = None):
-        """The update from per-member rank weights of an evaluation made
+        """The update from per-member weights of an evaluation made
         elsewhere: ``(new_state, grad_norm)``.  ``pair_offsets`` are the
         generation's offsets (tests hand in the JAX package's), by default
-        :meth:`all_pair_offsets`."""
+        :meth:`all_pair_offsets`; with ``obs_norm`` the stats refresh from
+        :meth:`probe_states`."""
         offs = self.all_pair_offsets(state) if pair_offsets is None else pair_offsets
         grad = self._grad(state, weights.to(self.device, torch.float32), offs.to(self.device))
-        return self._finish_update(state, grad)
+        probe = self.probe_states(state) if self.config.obs_norm else None
+        return self._finish_update(state, grad, probe)
+
+    # ------------------------------------------- importance-weighted reuse
+
+    def _require_dense_noise(self, what: str) -> None:
+        if self.config.low_rank:
+            raise ValueError(
+                f"{what} needs the dense (dim,) noise representation. "
+                "low_rank packs rank-r factors instead (ops/lowrank.py), "
+                "and IW reuse is not merely unimplemented there — it is "
+                "ill-posed: the reused perturbation seen from the drifted "
+                "center, dense(v) + (c_old - c_new)/sigma, generally lies "
+                "outside the rank-r image, so no factor-space importance "
+                "ratio exists (the induced distribution on dense "
+                "perturbations is singular; ROADMAP item 7)")
+
+    def noise_stats(self, offsets: torch.Tensor, d_vec: torch.Tensor):
+        """``(ε·d, |ε|²)`` for the table row at each of ``offsets``: the
+        per-sample statistics of IW-ES's importance ratio, ``grad_chunk``
+        rows gathered at a time."""
+        self._require_dense_noise("noise_stats")
+        offsets = offsets.to(self.device)
+        d_vec = d_vec.to(self.device, torch.float32)
+        chunk = self.config.grad_chunk
+        dots, norms = [], []
+        for lo in range(0, offsets.shape[0], chunk):
+            eps = gather_rows(self.table.data, offsets[lo:lo + chunk], self.spec.dim)
+            dots.append(eps @ d_vec)
+            norms.append((eps * eps).sum(dim=-1))
+        return torch.cat(dots), torch.cat(norms)
+
+    def apply_weights_reuse(self, state: ESState, weights: torch.Tensor,
+                            old_offsets: torch.Tensor, old_w: torch.Tensor,
+                            d_stack: torch.Tensor, coeff_d):
+        """The update from fresh per-member weights plus reused samples:
+        ``(new_state, grad_norm)``.
+
+        ``old_offsets`` / ``old_w`` are the concatenation over the reused
+        generations (per old pair when mirrored, per old member otherwise),
+        ``d_stack`` (n_gens, dim) their drift vectors and ``coeff_d``
+        (n_gens,) the drifts' coefficients.  ``weights`` come scaled so that
+        the fresh term's 1/(population·σ) gives 1/(n_total·σ); ``old_w`` and
+        ``coeff_d`` come fully scaled, so the reuse terms add as they are:
+        ∇̂ += Σ old_w·ε_old + coeff_d @ d_stack.
+        """
+        self._require_dense_noise("apply_weights_reuse")
+        dev = self.device
+        d_stack = torch.atleast_2d(d_stack.to(dev, torch.float32))
+        coeff_d = torch.atleast_1d(torch.as_tensor(coeff_d, dtype=torch.float32, device=dev))
+        grad = self._grad(state, weights.to(dev, torch.float32), self.all_pair_offsets(state))
+        grad = grad + rank_weighted_noise_sum(self.table, old_offsets.to(dev),
+                                              old_w.to(dev, torch.float32), dim=self.spec.dim,
+                                              chunk=self.config.grad_chunk)
+        return self._finish_update(state, grad + coeff_d @ d_stack)
 
     def _finish_update(self, state: ESState, grad_ascent: torch.Tensor,
                        probe_states: torch.Tensor | None = None):
@@ -600,15 +693,16 @@ class ESEngine:
 
     # --------------------------------------------------------- inspection
 
-    def evaluate_center(self, state: ESState, states0: torch.Tensor | None = None):
-        """One episode of the unperturbed center → a RolloutResult of one
-        row.  ``states0`` (1, state_dim), or drawn from a stream of
-        ``(seed, generation)`` of its own."""
-        if states0 is None:
-            gen = torch.Generator().manual_seed(
-                _seed_of(state.seed, state.generation, _CENTER_STREAM))
-            states0, _ = self.env.reset(gen, 1)
-        states0 = states0.to(self.device)
+    def center_states(self, state: ESState) -> torch.Tensor:
+        """The center episode's initial state (1, state_dim), drawn on the
+        CPU from a stream of ``(seed, generation)`` of its own."""
+        gen = torch.Generator().manual_seed(_seed_of(state.seed, state.generation, _CENTER_STREAM))
+        return self.env.reset(gen, 1)[0]
+
+    def evaluate_center(self, state: ESState):
+        """One episode of the unperturbed center from :meth:`center_states`
+        → a RolloutResult of one row."""
+        states0 = self.center_states(state).to(self.device)
         apply, carry0 = self._center_apply(state.params_flat, state.obs_stats, 1)
         return self._rollout(apply, states0, self.env.observe(states0), carry0)
 

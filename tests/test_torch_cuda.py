@@ -609,3 +609,86 @@ def test_weighted_noise_sum_at_the_recurrent_shape(cuda):
     got = nk.weighted_noise_sum(big.to(cuda), offs.to(cuda), w.to(cuda), dim)
     assert nk.launch_counts["weighted_noise_sum"] == before + 1
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-4)
+
+
+# ------------------------------------------------- novelty family and IW-ES
+
+
+def _pendulum_es(cls, device, **over):
+    from estorch_tpu_torch import DeviceAgent, MLPPolicy, Pendulum, adam
+
+    kw = dict(population_size=64, sigma=0.05, table_size=1 << 22,
+              policy_kwargs={"action_dim": 1, "hidden": (64, 64), "discrete": False,
+                             "action_scale": 2.0},
+              optimizer_kwargs={"learning_rate": 1e-2})
+    kw.update(over)
+    return cls(MLPPolicy, DeviceAgent(Pendulum(), horizon=50), adam, device=device, **kw)
+
+
+def test_split_path_on_card_matches_cpu(cuda):
+    """``evaluate`` then ``apply_weights`` with host-made weights, streamed
+    forward and kernel update (both kernels: 3 matvec launches an env step,
+    1 reduction), Pendulum MLP64x64, population 64, horizon 50: fitness and
+    BC within 1e-4 relative, params within 1e-5, on the card against the
+    CPU's plain versions."""
+    from estorch_tpu_torch import ES
+
+    card = _pendulum_es(ES, cuda, streamed=True, noise_kernel=True)
+    cpu = _pendulum_es(ES, "cpu", streamed=True, noise_kernel=True)
+    nk.reset_launch_counts()
+    ev_card = card.engine.evaluate(card.state)
+    ev_cpu = cpu.engine.evaluate(cpu.state)
+    torch.testing.assert_close(ev_card.fitness.cpu(), ev_cpu.fitness, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(ev_card.bc.cpu(), ev_cpu.bc, rtol=1e-4, atol=1e-4)
+    assert int(ev_card.steps) == int(ev_cpu.steps)
+    w = torch.from_numpy(np.random.default_rng(0).uniform(-0.5, 0.5, 64).astype(np.float32))
+    new_card, g_card = card.engine.apply_weights(card.state, w.to(cuda))
+    new_cpu, g_cpu = cpu.engine.apply_weights(cpu.state, w)
+    assert nk.launch_counts == {"weighted_noise_sum": 1, "population_noise_matvec": 150}
+    torch.testing.assert_close(new_card.params_flat.cpu(), new_cpu.params_flat, rtol=0,
+                               atol=1e-5)
+    assert abs(float(g_card) - float(g_cpu)) <= 1e-4 * float(g_cpu)
+
+
+def test_apply_weights_reuse_on_card_matches_cpu(cuda):
+    """IW-ES's reductions on the card: ``noise_stats`` (within 1e-5
+    relative) and ``apply_weights_reuse`` over two old generations (params
+    within 1e-6 after one Adam step, the update norm within 1e-5)."""
+    from estorch_tpu_torch import ES
+
+    card, cpu = _pendulum_es(ES, cuda), _pendulum_es(ES, "cpu")
+    rng = np.random.default_rng(1)
+    dim = cpu.spec.dim
+    offs = torch.from_numpy(rng.integers(0, (1 << 22) - dim, 64).astype(np.int32))
+    d = torch.from_numpy((rng.normal(size=(2, dim)) * 0.1).astype(np.float32))
+    for got, want in zip(card.engine.noise_stats(offs.to(cuda), d[0].to(cuda)),
+                         cpu.engine.noise_stats(offs, d[0])):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    w = torch.from_numpy(rng.uniform(-0.5, 0.5, 64).astype(np.float32))
+    old_w = torch.from_numpy((rng.random(64) * 0.01).astype(np.float32))
+    coeff = torch.tensor([0.003, 0.001])
+    new_card, g_card = card.engine.apply_weights_reuse(
+        card.state, w.to(cuda), offs.to(cuda), old_w.to(cuda), d.to(cuda), coeff.to(cuda))
+    new_cpu, g_cpu = cpu.engine.apply_weights_reuse(cpu.state, w, offs, old_w, d, coeff)
+    torch.testing.assert_close(new_card.params_flat.cpu(), new_cpu.params_flat, rtol=0,
+                               atol=1e-6)
+    assert abs(float(g_card) - float(g_cpu)) <= 1e-5 * float(g_cpu)
+
+
+def test_nsr_es_on_card_matches_cpu(cuda):
+    """NSR-ES (M 3, k 10) streamed with the kernel update, population 64,
+    horizon 50, 3 generations on the card and on the CPU: the meta indices
+    equal, reward means within 1e-4 relative, every center's params within
+    1e-4, the archive within 1e-3."""
+    from estorch_tpu_torch import NSR_ES
+
+    card = _pendulum_es(NSR_ES, cuda, streamed=True, noise_kernel=True, meta_population_size=3)
+    cpu = _pendulum_es(NSR_ES, "cpu", streamed=True, noise_kernel=True, meta_population_size=3)
+    card.train(3, verbose=False)
+    cpu.train(3, verbose=False)
+    assert [r["meta_index"] for r in card.history] == [r["meta_index"] for r in cpu.history]
+    np.testing.assert_allclose([r["reward_mean"] for r in card.history],
+                               [r["reward_mean"] for r in cpu.history], rtol=1e-4)
+    for a, b in zip(card.meta_states, cpu.meta_states):
+        torch.testing.assert_close(a.params_flat.cpu(), b.params_flat, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(card.archive.bcs, cpu.archive.bcs, rtol=1e-3, atol=1e-3)

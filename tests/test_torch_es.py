@@ -321,12 +321,13 @@ def test_host_agent_and_vbn_raise():
     with pytest.raises(ValueError, match="streamed is a device-path option"):
         ES(MLPPolicy, _HostAgent(), adam, device="cpu", policy_kwargs=PENDULUM_POLICY,
            optimizer_kwargs={"learning_rate": 1e-2}, streamed=True)
-    # VBN on the device path trains; the per-center evaluation waits for item 4
+    # VBN on the device path trains; a per-center evaluation is the novelty
+    # family's, which a plain ES rejects with the JAX package's ValueError
     es = ES(MLPPolicy, DeviceAgent(Pendulum(), horizon=20), adam, device="cpu",
             policy_kwargs=dict(PENDULUM_POLICY, use_vbn=True),
             optimizer_kwargs={"learning_rate": 1e-2})
     assert set(es.module.vbn_stats) == {"vbn_0", "vbn_1"}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="meta_index applies to the novelty family"):
         es.evaluate_policy(2, meta_index=0)
 
 

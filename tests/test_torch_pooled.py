@@ -459,10 +459,11 @@ def test_unported_pooled_options_raise():
         ES(_Recurrent, agent, adam, **dict(kw, policy_kwargs={"learned_carry": True}))
     with pytest.raises(NotImplementedError, match="item: 7"):
         ES(MLPPolicy, agent, adam, mesh=object(), **kw)
-    with pytest.raises(NotImplementedError, match="item: 4"):
+    # a per-center evaluation is the novelty family's: a plain ES rejects it
+    # with the JAX package's ValueError, pooled or (with VBN) on the device
+    with pytest.raises(ValueError, match="meta_index applies to the novelty family"):
         ES(MLPPolicy, agent, adam, **kw).evaluate_policy(2, meta_index=0)
-    # VBN on the device path trains; the per-center evaluation waits for item 4
-    with pytest.raises(NotImplementedError, match="item: 4"):
+    with pytest.raises(ValueError, match="meta_index applies to the novelty family"):
         ES(MLPPolicy, DeviceAgent(Pendulum(), horizon=10), adam, device="cpu",
            policy_kwargs=dict(PENDULUM_POLICY, use_vbn=True), table_size=1 << 14,
            optimizer_kwargs={"learning_rate": 1e-2}).evaluate_policy(2, meta_index=0)
