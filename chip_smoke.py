@@ -23,7 +23,8 @@ Phases, in order; any failure exits non-zero before the last line:
    warm and cold, at the host path's (m) shape (500 pair rows, dim
    4737, the host path's NumPy-built 2^25-float table), warm, and at the
    recurrent paths' shape (2048 pair rows, dim 25,153: RecurrentPolicy's
-   defaults on Pendulum), warm and cold;
+   defaults on Pendulum), warm and cold, and at the async fold's shape
+   (1000 member rows of dim 4737 from 2 dispatches), warm;
 3. the main path: ES on Pendulum, MLP 64x64, population 4096, horizon 200,
    streamed forward + kernel update, 1 warm-up and 3 timed generations,
    with the kernels' launch counts read around that run, then one more
@@ -51,7 +52,10 @@ Phases, in order; any failure exits non-zero before the last line:
    Adam 1e-5 (``reused_prev`` equal, params within 1e-5), and a host
    NS-ES on phase 9's ``rollout(policy)`` Pendulum agent at population 32,
    2 generations (meta indices equal, reward means within 1e-4, update
-   cosine 0.999);
+   cosine 0.999); then the fold: a CPU live ``train_async`` run's event
+   log (pop 32, horizon 60, a straggler folded late) replayed on the card
+   and on the CPU (params within 1e-6 of their largest entry, one
+   reduction launch an update);
 5. the other paths at the width of phase 3, each through ``ES(...).train``
    with 1 warm-up and 3 timed generations, its launch counts read around
    that run and checked exactly, then one profiled generation: (a) the
@@ -88,11 +92,11 @@ Phases, in order; any failure exits non-zero before the last line:
    on the CPU with the update on the card, 1 warm-up and 2 timed
    generations with the reduction's launches exact (1 a generation), and
    the same run with ``device="cpu"``; then the policies on the card: one
-   generation with one worker on each device at population 250 (cut from
+   generation with one worker on each device at population 128 (cut from
    1000: it steps one member at a time), the launches an env step
    over 4 members' rollouts, the device's busy share of one profiled
-   generation at population 16 with 8 threads; and, at horizon 10, 8
-   thread workers against one on each device;
+   generation at population 16 with 8 threads; and, at horizon 10 and
+   population 250, 8 thread workers against one on each device;
 10. the recurrent paths, each through ``ES(...).train`` with 1 warm-up and
    2 timed generations, the reduction's launches exact (1 a generation
    with ``noise_kernel``), then one profiled generation: (n)
@@ -122,10 +126,23 @@ Phases, in order; any failure exits non-zero before the last line:
    CUDA events (``apply_weights_reuse`` with one old generation, its Adam
    step included); (w)
    NS-ES on ``PooledAgent("pendulum", horizon=200)``, the kernel update,
-   2 timed generations.
+   2 timed generations;
+12. barrier-free generations, each path through ``ES(...).train_async``
+   against ``train`` in turns from the same state: (x) the overlap
+   scheduler on the main path's cell and (y) on (j), 1 warm-up then 3
+   generations a call A B B A, params and reward means bit-identical to
+   ``train``'s and launch counts exact; (z) the fold on (m) with 8 forked
+   workers under a ``ChaosPlan.generate`` straggler plan, 1 warm-up and 3
+   updates against ``train`` under the same plan, with env-steps/s,
+   updates/s, ``overlap_efficiency``, ``stale_reuse_ratio``, the
+   accounting and 1 reduction launch an update, then its event logs
+   replayed on the card bit-identical to the live run and a second replay
+   profiled for the fold's device time; (z') the JAX bench's async A/B at
+   its selfcheck shape (sync and async twice each, generations/s); the
+   hub's cost (``ESTORCH_OBS=0`` against on) on the cell and on (j).
 
 Then one JSON line of per-path numbers, one of per-kernel numbers (launches
-from phase 3, and of the reduction in (j), (k), (m), phase 10 and phase 11),
+from phase 3, and of the reduction in (j), (k), (m), phases 10, 11 and 12),
 the card line, and the last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -200,8 +217,9 @@ PONG_PAIRS, PONG_TABLE = 128, 1 << 23  # the pong84_conv recipe's update shape
 # a generation at 200 steps, so they are a side reading at horizon 10
 HOST_POPULATION, HOST_HORIZON, HOST_WORKERS = 1000, 200, 8
 HOST_SIDE_HORIZON = 10  # the thread workers' side readings
+HOST_SIDE_POP = 250  # their population, cut from 1000 (PR 9) to make room for phase 12
 HOST_TIMED = 2  # generations after 1 warm-up
-HOST_ONE_WORKER_POP = 250  # the one-worker generations step members one by one
+HOST_ONE_WORKER_POP = 128  # the one-worker generations step members one by one (250 to PR 8)
 HOST_RECIPE = dict(population_size=HOST_POPULATION, sigma=0.02, optimizer_kwargs={"lr": 1e-2},
                    weight_decay=0.005, table_size=TABLE_SIZE)
 HOST_PAIRS, HOST_DIM = HOST_POPULATION // 2, 4737  # the update's shape: 3 -> 64x64 VBN -> 1
@@ -278,6 +296,16 @@ NOVELTY_PATHS = [
         optimizer_kwargs={"learning_rate": 1e-2}, noise_kernel=True, **NOVELTY), 2, 0, 1,
      "2 timed generations"),
 ]
+# phase 12, ES(...).train_async against train, in turns from the same state:
+# (x) overlap on the streamed cell, (y) overlap on pooled Pendulum (j), (z)
+# the fold on the host path (m) with its 8 forked workers under a straggler
+# plan, (z') the JAX bench's async A/B shape (bench.py:1021-1024, selfcheck)
+ASYNC_TIMED = 3  # generations (updates) a timed call, after 1 warm-up
+FOLD_STALE = 400  # phase 2's fold shape: members of the older dispatch
+Z_STRAGGLER = dict(straggler_every=2, straggler_sleep_s=2.0, straggler_jitter_s=1.0)
+BENCH_AB = dict(gens=14, population=16, n_proc=2, straggler_every=2, sleep_s=0.25,
+                jitter_s=0.15, work_s=0.002, max_stale=4096)
+BENCH_AB_REPEATS = 2
 L2_FLUSH_BYTES = 256 << 20  # written and read before each cold launch: five times the L2
 # one env step's three launches before the pair-sharing redesign, as measured
 # then on an H100 80GB HBM3 at 700 W: printed beside this run's time, never
@@ -986,7 +1014,15 @@ def host_es(tt, device=None, horizon: int = HOST_HORIZON, **over):
     return es
 
 
-def time_host_reduction(torch, nk, bw: float, f32: float) -> dict:
+def host_table(torch):
+    """The host path's noise table on the card: NumPy-built, 2^25 floats."""
+    import numpy as np
+
+    return torch.from_numpy(
+        np.random.default_rng(0).standard_normal(TABLE_SIZE, dtype=np.float32)).cuda()
+
+
+def time_host_reduction(torch, nk, table, bw: float, f32: float) -> dict:
     """Phase 2: the reduction at the host path's update shape (m): 500 pair
     rows of dim 4737 from the host path's NumPy-built 2^25-float table, at
     the SeedSequence offsets of generation 0, checked against the plain
@@ -994,8 +1030,6 @@ def time_host_reduction(torch, nk, bw: float, f32: float) -> dict:
     import numpy as np
 
     dev = torch.device("cuda")
-    table = torch.from_numpy(
-        np.random.default_rng(0).standard_normal(TABLE_SIZE, dtype=np.float32)).to(dev)
     rng = np.random.default_rng(np.random.SeedSequence(entropy=0, spawn_key=(0,)))
     offs = rng.integers(0, TABLE_SIZE - HOST_DIM + 1, size=HOST_PAIRS, dtype=np.int64)
     offs_dev = torch.from_numpy(offs.astype(np.int32)).to(dev)
@@ -1014,9 +1048,45 @@ def time_host_reduction(torch, nk, bw: float, f32: float) -> dict:
     print(f"weighted_noise_sum host (m) n={HOST_PAIRS} dim={HOST_DIM}: max |err| {err:.3g} (tol "
           f"atol 1e-3, rtol 1e-4); warm {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
           f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB distinct)")
-    del table
     return {"shape": f"host (m): n={HOST_PAIRS}, dim={HOST_DIM}, table 2^25 (NumPy)", "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "max_abs_err": err}
+
+
+def time_fold_reduction(torch, nk, table, bw: float, f32: float) -> dict:
+    """Phase 2: the reduction at the async fold's shape on the host path:
+    one row a member of a batch of HOST_POPULATION (m) members from 2
+    dispatches (the older one's last FOLD_STALE members, the newer one's
+    first HOST_POPULATION - FOLD_STALE; a mirrored pair's two rows share
+    their offset), dim 4737, the host table, weights w·λ·s·c in [-1, 1]:
+    checked against the plain version, timed warm and plain."""
+    import numpy as np
+
+    dev = torch.device("cuda")
+    pair_offs = [np.random.default_rng(np.random.SeedSequence(entropy=0, spawn_key=(d,))).integers(
+        0, TABLE_SIZE - HOST_DIM + 1, size=HOST_PAIRS, dtype=np.int64) for d in (0, 1)]
+    members = ([(0, i) for i in range(HOST_POPULATION - FOLD_STALE, HOST_POPULATION)]
+               + [(1, i) for i in range(HOST_POPULATION - FOLD_STALE)])
+    offs = np.array([pair_offs[d][i // 2] for d, i in members], np.int64)
+    n = offs.shape[0]
+    offs_dev = torch.from_numpy(offs.astype(np.int32)).to(dev)
+    w = torch.from_numpy(np.random.default_rng(2).uniform(-1, 1, n).astype(np.float32)).to(dev)
+    got = nk.weighted_noise_sum(table, offs_dev, w, HOST_DIM)
+    torch.cuda.synchronize()
+    want = nk.weighted_noise_sum_plain(table, offs_dev, w, HOST_DIM)
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=1e-4, atol=1e-3):
+        fail(f"weighted_noise_sum fold n={n} dim={HOST_DIM}: max |err| {err:g}")
+    nbytes = 4 * (union_floats(offs, HOST_DIM) + 2 * n + HOST_DIM)
+    flops = 2 * n * HOST_DIM
+    bound = max(nbytes / bw, flops / f32) * 1e3
+    ms = time_ms(torch, lambda: nk.weighted_noise_sum(table, offs_dev, w, HOST_DIM))
+    plain_ms = time_ms(torch, lambda: nk.weighted_noise_sum_plain(table, offs_dev, w, HOST_DIM))
+    print(f"weighted_noise_sum fold (z) n={n} member rows from 2 dispatches, dim={HOST_DIM}: max "
+          f"|err| {err:.3g} (tol atol 1e-3, rtol 1e-4); warm {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB distinct)")
+    return {"shape": f"fold (z): n={n} member rows from 2 dispatches ({FOLD_STALE} stale), "
+                     f"dim={HOST_DIM}, table 2^25 (NumPy)",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "max_abs_err": err}
 
 
 def compare_host_card_cpu(torch, tt) -> list[dict]:
@@ -1157,17 +1227,19 @@ def run_host_path(torch, tt, nk, card: str) -> dict:
     side = {}
     for device in (None, "cpu"):
         for n_proc in (HOST_WORKERS, 1):
-            got, es_side = timed_run(device, n_proc, 1, warm=0, horizon=HOST_SIDE_HORIZON)
+            got, es_side = timed_run(device, n_proc, 1, warm=0, horizon=HOST_SIDE_HORIZON,
+                                     population_size=HOST_SIDE_POP)
             es_side.engine.close()
             side[f"{device or 'cuda'}_{n_proc}"] = got
-            report(f"horizon {HOST_SIDE_HORIZON}, {n_proc} thread worker(s) on "
-                   f"{device or 'cuda'}, 1 generation", got)
+            report(f"horizon {HOST_SIDE_HORIZON}, population {HOST_SIDE_POP}, {n_proc} "
+                   f"thread worker(s) on {device or 'cuda'}, 1 generation", got)
     return {"path": label, "launches": counts, **rec, "kernel_launches_per_env_step": per_step,
             "busy_share_pop16": busy / wall, "device_busy_s_pop16": busy,
             "population": HOST_POPULATION, "horizon": HOST_HORIZON,
             "workers": HOST_WORKERS, "worker_mode": "process", "param_dim": HOST_DIM,
             "cpu": cpu, "one_worker": {"population": HOST_ONE_WORKER_POP, **single},
-            "threads_side_reading": {"horizon": HOST_SIDE_HORIZON, **side}}
+            "threads_side_reading": {"horizon": HOST_SIDE_HORIZON, "population": HOST_SIDE_POP,
+                                     **side}}
 
 
 def time_recurrent_reduction(torch, nk, table, bw: float, f32: float, flush) -> dict:
@@ -1478,7 +1550,7 @@ def split_against_fused(torch, tt, ns) -> dict:
             es.train(1, verbose=False)
             torch.cuda.synchronize()
             times[key].append(time.perf_counter() - t0)
-    centers = [r["split_s"]["center"] for r in ns.history[-FUSED_TURNS:]]
+    centers = [r["phases"]["archive"] for r in ns.history[-FUSED_TURNS:]]
     ratios = [s / f for s, f in zip(times["split"], times["fused"])]
     print(f"  in turns with the fused generation ({FUSED_TURNS} rounds): fused "
           f"{', '.join(f'{t:.4f}' for t in times['fused'])} s, split "
@@ -1494,8 +1566,9 @@ def run_novelty_paths(torch, tt, nk, card: str) -> list[dict]:
     and held exact (the matvec 3 an env step of the population's evaluation
     with the streamed forward, the reduction 1 a generation with the kernel
     update; the center episode none); the split parts of each timed
-    generation on the host clock (evaluate, k-NN + ranks, update, center
-    episode); then one profiled generation.  (v) must reuse an earlier
+    generation on the host clock (the record's spans ``eval``,
+    ``novelty_knn``, ``update``, ``archive``: evaluate, k-NN + ranks,
+    update, center episode); then one profiled generation.  (v) must reuse an earlier
     generation in a timed one; its two reuse reductions are timed from a
     profile at the path's shape."""
     paths = []
@@ -1541,8 +1614,9 @@ def run_novelty_paths(torch, tt, nk, card: str) -> list[dict]:
                "param_dim": es.spec.dim, "cuts": cuts, "construction_s": build_s}
         extra = ""
         if novelty:
-            parts = {k: statistics.fmean(r["split_s"][k] for r in es.history[1:])
-                     for k in ("evaluate", "knn", "update", "center")}
+            # the record's spans: evaluate, k-NN + ranks, update, center episode
+            parts = {k: statistics.fmean(r["phases"][k] for r in es.history[1:])
+                     for k in ("eval", "novelty_knn", "update", "archive")}
             rec.update(split_s=parts, meta_indices=[r["meta_index"] for r in es.history],
                        archive_size=len(es.archive))
             extra = "; split " + ", ".join(f"{k} {v:.4f} s" for k, v in parts.items())
@@ -1590,6 +1664,329 @@ def run_novelty_paths(torch, tt, nk, card: str) -> list[dict]:
         paths.append(rec)
         del es
     return paths
+
+
+def with_chaos(events_or_plan) -> None:
+    """Arm a chaos plan for this process and the workers it forks (a fresh
+    fire-once state); None disarms it."""
+    from estorch_tpu_torch.resilience import chaos
+
+    if events_or_plan is None:
+        os.environ.pop(chaos.CHAOS_ENV, None)
+    elif isinstance(events_or_plan, list):
+        os.environ[chaos.CHAOS_ENV] = json.dumps({"events": events_or_plan})
+    else:
+        os.environ[chaos.CHAOS_ENV] = events_or_plan.to_json()
+    chaos.reset_cache()
+
+
+def accounting(es) -> dict:
+    """The fold's zero-silent-drop check on its last event log."""
+    log = es.async_event_log
+    consumed = sum(len(u["consumed"]) for u in log.updates)
+    dispatched = len(log.dispatches) * es.population_size
+    return {"dispatched": dispatched, "consumed": consumed, "discarded": len(log.discarded),
+            "lost": len(log.lost), "folded": sum(r["async"]["folded"] for r in es.history
+                                                 if "async" in r),
+            "ok": dispatched == consumed + len(log.discarded) + len(log.lost)}
+
+
+def rel_max(a, b) -> float:
+    """Largest difference over the largest entry of ``b``."""
+    return float((a.cpu() - b.cpu()).abs().max() / b.cpu().abs().max())
+
+
+def compare_fold_card_cpu(torch, tt, nk) -> list[dict]:
+    """Phase 4, the fold: a live fold run of the (m) policy at population 32,
+    horizon 60, 4 thread workers on the CPU with a straggler folded late,
+    its event log replayed on the card and on the CPU: one reduction launch
+    an update on the card, params within 1e-6 of their largest entry (the
+    kernel and the plain gather + product sum in other orders; the Adam
+    steps in float32), the async blocks' counts equal."""
+    small = dict(population_size=32, table_size=1 << 22, horizon=60)
+    with_chaos([{"kind": "straggler", "gen": 1, "member": 5, "sleep_s": 0.5}])
+    try:
+        live = host_es(tt, device="cpu", **small)
+        live.train_async(4, n_proc=4, verbose=False)
+    finally:
+        with_chaos(None)
+    log = json.loads(json.dumps(live.async_event_log.to_dict()))
+    folded = sum(r["async"]["folded"] for r in live.history)
+    es_gpu, es_cpu = host_es(tt, **small), host_es(tt, device="cpu", **small)
+    torch.cuda.synchronize()
+    nk.reset_launch_counts()
+    es_gpu.train_async(4, replay=log, verbose=False)
+    torch.cuda.synchronize()
+    counts = dict(nk.launch_counts)
+    es_cpu.train_async(4, replay=log, verbose=False)
+    err = rel_max(es_gpu.state.params_flat, es_cpu.state.params_flat)
+    keys = ("consumed", "fresh", "folded", "max_staleness", "consumed_dispatches")
+    same = all(a["async"][k] == b["async"][k] for a, b in zip(es_gpu.history, es_cpu.history)
+               for k in keys)
+    print(f"card vs CPU, the fold (VBN 64x64, pop 32, horizon 60, a CPU live run's log of 4 "
+          f"updates, {folded} results folded late, replayed): params rel err {err:.3g} (tol "
+          f"1e-6), launches {counts}, async blocks equal {same}")
+    if err > 1e-6 or not same or folded == 0 or counts != {"weighted_noise_sum": 4,
+                                                           "population_noise_matvec": 0}:
+        fail(f"card vs CPU, the fold: rel err {err:g}, blocks equal {same}, folded {folded}, "
+             f"launches {counts}")
+    for es in (live, es_gpu, es_cpu):
+        es.engine.close()
+    return [{"check": "the fold, replayed", "params_rel_err": err, "folded": folded,
+             "launches": counts}]
+
+
+def overlap_in_turns(torch, nk, label: str, build, per_gen: dict) -> dict:
+    """``train`` (A) and the overlap scheduler (B) from the same seed, 1
+    warm-up generation each, then ASYNC_TIMED generations a call in turns
+    A B B A: the launch counts of each call exact, the params and reward
+    means of A and B equal bit for bit after each round."""
+    a, b = build(), build()
+    if a.device.type != "cuda":
+        fail(f"path {label} ran on {a.device}")
+    a.train(1, verbose=False)
+    b.train_async(1, verbose=False)
+    want = {k: v * ASYNC_TIMED for k, v in per_gen.items()}
+    times = {"train": [], "overlap": []}
+    for i, (key, es) in enumerate((("train", a), ("overlap", b), ("overlap", b), ("train", a))):
+        torch.cuda.synchronize()
+        nk.reset_launch_counts()
+        t0 = time.perf_counter()
+        if key == "train":
+            es.train(ASYNC_TIMED, verbose=False)
+        else:
+            es.train_async(ASYNC_TIMED, strategy="overlap", verbose=False)
+        torch.cuda.synchronize()
+        times[key].append((time.perf_counter() - t0) / ASYNC_TIMED)
+        if dict(nk.launch_counts) != want:
+            fail(f"path {label}, {key}: launch counts {dict(nk.launch_counts)}, expected {want}")
+        if i in (1, 3):
+            if not torch.equal(a.state.params_flat, b.state.params_flat):
+                fail(f"path {label}: overlap params differ from train's "
+                     f"(rel {rel_max(b.state.params_flat, a.state.params_flat):g})")
+            if [r["reward_mean"] for r in a.history] != [r["reward_mean"] for r in b.history]:
+                fail(f"path {label}: overlap reward means differ from train's")
+    steps = statistics.fmean(r["env_steps"] for r in a.history[1:])
+    ratio = statistics.fmean(times["train"]) / statistics.fmean(times["overlap"])
+    phases = sorted({k for r in b.history for k in r["phases"]})
+    print(f"path {label}: train {', '.join(f'{t:.4f}' for t in times['train'])} s a generation, "
+          f"overlap {', '.join(f'{t:.4f}' for t in times['overlap'])} s (A B B A); overlap "
+          f"{ratio:.3f}x train's speed; params bit-identical; launches {want} a call; overlap "
+          f"spans {phases}")
+    for es in (a, b):
+        if es.backend == "pooled":
+            es.engine.close()
+    return {"path": label, "strategy": "overlap", "s_per_generation": times,
+            "env_steps_per_s": {k: steps / statistics.fmean(v) for k, v in times.items()},
+            "overlap_speedup": ratio, "bit_identical": True, "launches_per_call": want}
+
+
+def run_fold_path(torch, tt, nk, card: str) -> dict:
+    """(z): the fold on the host path (m), 8 forked workers, under a
+    ``ChaosPlan.generate`` straggler plan, against ``train`` under the same
+    plan, in turns (train first): 1 warm-up and ASYNC_TIMED generations or
+    updates each.  Then the fold's two logs (warm-up, timed) replayed on
+    the card: params bit-identical to the live run; a second replay of the
+    timed log under the profiler gives the fold's device time an update."""
+    from estorch_tpu_torch.resilience.chaos import ChaosPlan
+
+    label = "z host/pendulum/vbn64x64 fold"
+    plan = ChaosPlan.generate(seed=0, n_generations=40, population_size=HOST_POPULATION,
+                              **Z_STRAGGLER)
+    out = {"path": label, "strategy": "fold", "workers": HOST_WORKERS,
+           "worker_mode": "process", "straggler_plan": Z_STRAGGLER}
+    for key in ("train", "fold"):
+        with_chaos(plan)
+        es = host_es(tt, worker_mode="process")
+        try:
+            run = es.train if key == "train" else es.train_async
+            run(1, n_proc=HOST_WORKERS, verbose=False)
+            warm_log = es.async_event_log.to_dict() if key == "fold" else None
+            torch.cuda.synchronize()
+            nk.reset_launch_counts()
+            t0 = time.perf_counter()
+            run(ASYNC_TIMED, n_proc=HOST_WORKERS, verbose=False)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        finally:
+            es.engine.close()
+            with_chaos(None)
+        counts = dict(nk.launch_counts)
+        if counts != {"weighted_noise_sum": ASYNC_TIMED, "population_noise_matvec": 0}:
+            fail(f"path {label}, {key}: launch counts {counts}, expected 1 reduction an update")
+        timed = es.history[1:]
+        for r in es.history:
+            if not all(math.isfinite(r[k]) for k in ("reward_mean", "grad_norm")):
+                fail(f"path {label}, {key}, update {r['generation']}: {r}")
+        steps = sum(r["env_steps"] for r in timed)
+        out[key] = {"env_steps_per_s": steps / dt, "updates_per_s": ASYNC_TIMED / dt,
+                    "s_per_update": dt / ASYNC_TIMED, "launches": counts,
+                    "reward_mean": [r["reward_mean"] for r in es.history]}
+        if key == "fold":
+            acc = accounting(es)
+            snap = es.obs.counters.snapshot()
+            out["fold"].update(accounting=acc,
+                               overlap_efficiency=snap.get("overlap_efficiency"),
+                               stale_reuse_ratio=snap.get("stale_reuse_ratio"),
+                               async_blocks=[r["async"] for r in timed])
+            if not acc["ok"]:
+                fail(f"path {label}: accounting broken {acc}")
+            live, timed_log = es, es.async_event_log.to_dict()
+        print(f"path {label}, {key}: {steps / dt:.0f} env-steps/s, {ASYNC_TIMED / dt:.4f} "
+              f"updates/s ({dt / ASYNC_TIMED:.3f} s an update) under the straggler plan "
+              f"{Z_STRAGGLER}; launches {counts}")
+    f = out["fold"]
+    print(f"  fold: overlap_efficiency {f['overlap_efficiency']}, stale_reuse_ratio "
+          f"{f['stale_reuse_ratio']}, accounting {f['accounting']}; "
+          f"{f['updates_per_s'] / out['train']['updates_per_s']:.3f}x train's updates/s")
+
+    replay = host_es(tt)
+    replay.train_async(1, replay=warm_log, verbose=False)
+    replay.train_async(ASYNC_TIMED, replay=timed_log, verbose=False)
+    if not torch.equal(replay.state.params_flat, live.state.params_flat):
+        fail(f"path {label}: the replay differs from the live run "
+             f"(rel {rel_max(replay.state.params_flat, live.state.params_flat):g})")
+    again = host_es(tt)
+    again.train_async(1, replay=warm_log, verbose=False)
+    events = device_events(torch, lambda: again.train_async(ASYNC_TIMED, replay=timed_log,
+                                                            verbose=False))
+    if not torch.equal(again.state.params_flat, live.state.params_flat):
+        fail(f"path {label}: the profiled replay differs from the live run")
+    fold_ms = sum(ns for _, ns in events) / 1e6 / ASYNC_TIMED if events else None
+    red_ms = (sum(ns for n, ns in events if "sum_partials" in n) / 1e6 / ASYNC_TIMED
+              if events else None)
+    shown = ("not measured (no device events)" if fold_ms is None else
+             f"{fold_ms:.4f} ms an update (the reduction {red_ms:.4f} ms)")
+    print(f"  replay of the live run's logs on {card}: params bit-identical; device time of "
+          f"the fold + Adam step {shown}, from a profile of a second replay")
+    for es in (replay, again):
+        es.engine.close()
+    out.update(replay_bit_identical=True, fold_device_ms=fold_ms,
+               reduction_device_ms=red_ms, launches=f["launches"],
+               launches_per_update=f["launches"]["weighted_noise_sum"] / ASYNC_TIMED)
+    return out
+
+
+class BenchQuadAgent:
+    """The JAX bench's async A/B agent (bench.py ``_tiny_host_es``): fitness
+    -‖θ‖², and ``work_s`` of sleep a rollout."""
+
+    def rollout(self, policy):
+        import torch
+
+        with torch.no_grad():
+            r = -float((torch.nn.utils.parameters_to_vector(policy.parameters()) ** 2).sum())
+        time.sleep(BENCH_AB["work_s"])
+        self.last_episode_steps = 1
+        return r
+
+
+def bench_tiny_policy():
+    import torch
+
+    return torch.nn.Sequential(torch.nn.Linear(4, 8), torch.nn.Tanh(), torch.nn.Linear(8, 2))
+
+
+def run_bench_ab(torch, tt) -> dict:
+    """(z'): the JAX bench's async A/B at its selfcheck shape: 14
+    generations, population 16, 2 thread workers, a straggler every 2
+    generations of 0.25 s + [0, 0.15) s, 0.002 s of work a rollout;
+    sync and async legs in turns, BENCH_AB_REPEATS each, a fresh ES and a
+    fresh plan a leg; generations/s of each and the ratio of medians."""
+    from estorch_tpu_torch.resilience.chaos import ChaosPlan
+
+    cfg = BENCH_AB
+    plan = ChaosPlan.generate(seed=0, n_generations=cfg["gens"],
+                              straggler_every=cfg["straggler_every"],
+                              straggler_sleep_s=cfg["sleep_s"],
+                              straggler_jitter_s=cfg["jitter_s"], population_size=cfg["population"])
+    rates = {"sync": [], "async": []}
+    accs = []
+    for _ in range(BENCH_AB_REPEATS):
+        for mode in ("sync", "async"):
+            with_chaos(plan)
+            es = tt.ES(bench_tiny_policy(), BenchQuadAgent, torch.optim.Adam,
+                       population_size=cfg["population"], sigma=0.05, seed=0,
+                       optimizer_kwargs={"lr": 0.01}, table_size=1 << 12)
+            try:
+                t0 = time.perf_counter()
+                if mode == "async":
+                    es.train_async(cfg["gens"], n_proc=cfg["n_proc"], verbose=False,
+                                   max_stale=cfg["max_stale"])
+                else:
+                    es.train(cfg["gens"], n_proc=cfg["n_proc"], verbose=False)
+                dt = time.perf_counter() - t0
+            finally:
+                with_chaos(None)
+                es.engine.close()
+            rates[mode].append(cfg["gens"] / dt)
+            if mode == "async":
+                accs.append(accounting(es))
+    if not all(a["ok"] for a in accs) or not sum(a["folded"] for a in accs):
+        fail(f"path z' bench async A/B: accounting {accs}")
+    ratio = statistics.median(rates["async"]) / statistics.median(rates["sync"])
+    print(f"path z' bench async A/B ({cfg}; the policies on the card): sync "
+          f"{', '.join(f'{r:.3f}' for r in rates['sync'])} generations/s, async "
+          f"{', '.join(f'{r:.3f}' for r in rates['async'])}; ratio of medians {ratio:.3f} (the "
+          f"JAX bench's gate 1.25); accounting {accs}")
+    return {"path": "z' bench async A/B", "cfg": cfg, "generations_per_s": rates,
+            "ratio": ratio, "accounting": accs}
+
+
+def hub_cost(torch, tt, nk) -> list[dict]:
+    """The hub's cost: the streamed cell and (j), each built with
+    ESTORCH_OBS=0 (off) and by default (on), 1 warm-up generation, then
+    ASYNC_TIMED generations a call in turns off, on, on, off."""
+    out = []
+    for label, build in (("streamed cell", lambda: tt.ES(
+            tt.MLPPolicy, tt.DeviceAgent(tt.Pendulum(), horizon=HORIZON), tt.adam,
+            population_size=POPULATION, sigma=0.05, policy_kwargs=POLICY,
+            optimizer_kwargs={"learning_rate": 1e-2}, **STREAMED)),
+            ("j pooled/pendulum/standard+nk", lambda: POOLED_PATHS[0][1](tt, None))):
+        os.environ["ESTORCH_OBS"] = "0"
+        try:
+            off = build()
+        finally:
+            os.environ.pop("ESTORCH_OBS")
+        on = build()
+        if off.obs.enabled or not on.obs.enabled:
+            fail(f"hub cost, {label}: ESTORCH_OBS=0 did not turn the hub off")
+        times = {"off": [], "on": []}
+        for es in (off, on):
+            es.train(1, verbose=False)
+        for key, es in (("off", off), ("on", on), ("on", on), ("off", off)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            es.train(ASYNC_TIMED, verbose=False)
+            torch.cuda.synchronize()
+            times[key].append((time.perf_counter() - t0) / ASYNC_TIMED)
+        if any(r["phases"] for r in off.history) or not all(r["phases"] for r in on.history):
+            fail(f"hub cost, {label}: phases present with the hub off or missing with it on")
+        ratio = statistics.fmean(times["on"]) / statistics.fmean(times["off"])
+        print(f"hub cost, {label}: off {', '.join(f'{t:.4f}' for t in times['off'])} s a "
+              f"generation, on {', '.join(f'{t:.4f}' for t in times['on'])} s; on / off "
+              f"{ratio:.4f}")
+        for es in (off, on):
+            if es.backend == "pooled":
+                es.engine.close()
+        out.append({"path": label, "s_per_generation": times, "on_over_off": ratio})
+    return out
+
+
+def run_async_paths(torch, tt, nk, card: str) -> dict:
+    """Phase 12: each path through ``ES(...).train_async`` against
+    ``train``: (x), (y), (z), (z') and the hub's cost."""
+    paths = [overlap_in_turns(torch, nk, "x overlap/streamed cell", lambda: tt.ES(
+        tt.MLPPolicy, tt.DeviceAgent(tt.Pendulum(), horizon=HORIZON), tt.adam,
+        population_size=POPULATION, sigma=0.05, policy_kwargs=POLICY,
+        optimizer_kwargs={"learning_rate": 1e-2}, **STREAMED),
+        {"weighted_noise_sum": 1, "population_noise_matvec": 3 * HORIZON})]
+    paths.append(overlap_in_turns(torch, nk, "y overlap/pooled pendulum (j)",
+                                  lambda: POOLED_PATHS[0][1](tt, None),
+                                  {"weighted_noise_sum": 1, "population_noise_matvec": 0}))
+    paths.append(run_fold_path(torch, tt, nk, card))
+    paths.append(run_bench_ab(torch, tt))
+    return {"paths": paths, "hub_cost": hub_cost(torch, tt, nk)}
 
 
 def main() -> None:
@@ -1802,9 +2199,12 @@ def main() -> None:
     pong_wns = time_pong_reduction(torch, nk, bw, f32, flush)
     wns["other_shapes"].append(pong_wns)
     wns["max_abs_err"] = max(wns["max_abs_err"], pong_wns["max_abs_err"])
-    host_wns = time_host_reduction(torch, nk, bw, f32)
-    wns["other_shapes"].append(host_wns)
-    wns["max_abs_err"] = max(wns["max_abs_err"], host_wns["max_abs_err"])
+    htable = host_table(torch)
+    for host_wns in (time_host_reduction(torch, nk, htable, bw, f32),
+                     time_fold_reduction(torch, nk, htable, bw, f32)):
+        wns["other_shapes"].append(host_wns)
+        wns["max_abs_err"] = max(wns["max_abs_err"], host_wns["max_abs_err"])
+    del htable
     rec_wns = time_recurrent_reduction(torch, nk, table, bw, f32, flush)
     wns["other_shapes"].append(rec_wns)
     wns["max_abs_err"] = max(wns["max_abs_err"], rec_wns["max_abs_err"])
@@ -1861,6 +2261,7 @@ def main() -> None:
     env_cmp += compare_host_card_cpu(torch, estorch_tpu_torch)
     env_cmp += compare_recurrent_card_cpu(torch, estorch_tpu_torch)
     env_cmp += compare_novelty_card_cpu(torch, estorch_tpu_torch)
+    env_cmp += compare_fold_card_cpu(torch, estorch_tpu_torch, nk)
 
     # ---- 5. the slice's other paths at full width ----------------------------
     phase("5. the other paths")
@@ -1898,6 +2299,11 @@ def main() -> None:
     novelty = run_novelty_paths(torch, estorch_tpu_torch, nk, card)
     paths += novelty
 
+    # ---- 12. barrier-free generations ------------------------------------------------
+    phase("12. train_async")
+    async_paths = run_async_paths(torch, estorch_tpu_torch, nk, card)
+    fold = next(p for p in async_paths["paths"] if p.get("strategy") == "fold")
+
     # ---- report --------------------------------------------------------------
     phase("report")
     kernels = [
@@ -1913,7 +2319,9 @@ def main() -> None:
          "launches_recurrent": {p["path"]: p["launches"]["weighted_noise_sum"]
                                 for p in recurrent},
          "launches_novelty": {p["path"]: p["launches"]["weighted_noise_sum"]
-                              for p in novelty}},
+                              for p in novelty},
+         "launches_async": {fold["path"]: fold["launches"]["weighted_noise_sum"]},
+         "launches_per_fold_update": fold["launches_per_update"]},
         {"name": "population_noise_matvec", "route": "cuda",
          "source": "estorch_tpu_torch/ops/csrc/noise_kernels.cu",
          "replaces": "estorch_tpu/ops/pallas_noise.py:201",
@@ -1927,7 +2335,8 @@ def main() -> None:
          "launches_novelty": {p["path"]: p["launches"]["population_noise_matvec"]
                               for p in novelty}},
     ]
-    print(json.dumps({"paths": paths, "eval_chunk": chunking, "card_vs_cpu_envs": env_cmp}))
+    print(json.dumps({"paths": paths, "eval_chunk": chunking, "card_vs_cpu_envs": env_cmp,
+                      "async": async_paths}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

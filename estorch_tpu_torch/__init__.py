@@ -20,9 +20,15 @@ device, pooled and host backends through the engines' split path, and
 on the device backend.  The streamed forward and the
 ``noise_kernel`` update run two hand-written Hopper kernels
 (``ops/csrc``), whose plain PyTorch versions sit beside them in
-``ops/noise_kernels.py``.
+``ops/noise_kernels.py``.  ``ES.train_async`` runs barrier-free
+generations (``algo/scheduler.py``: the fold of late host results with
+clipped importance weights, the overlap of generations on the card, and
+bit-exact replay of a fold's event log); ``obs`` is the span and counter
+hub every record's ``phases`` come from, and ``resilience`` the
+deterministic chaos plans (``ESTORCH_CHAOS``) that drive its faults.
 """
 
+from . import obs, resilience  # noqa: F401
 from .algo import ES, IW_ES, NS_ES, NSR_ES, NSRA_ES, NoveltyArchive
 from .envs import (
     Acrobot,
@@ -56,5 +62,6 @@ __all__ = [
     "NoveltyArchive", "Pendulum", "PooledAgent",
     "PooledEngine", "PositionOnly", "RecallEnv", "RecurrentNatureCNN", "RecurrentPolicy",
     "Swimmer2D", "SyntheticEnv", "VirtualBatchNorm", "Walker2D", "adam",
-    "collect_reference_batch", "make_noise_table", "resolve_device", "sgd",
+    "collect_reference_batch", "make_noise_table", "obs", "resilience", "resolve_device",
+    "sgd",
 ]

@@ -37,13 +37,22 @@ with its carry threaded through the rollouts, or with ``low_rank`` the
 low-rank tree form, on the device and pooled backends; ``MLPPolicy`` with
 VBN on the device path freezes its statistics from
 ``collect_reference_batch`` of the agent's env.  The options not ported yet
-(``mesh``/``shard_params`` and the sharding options, ``telemetry``,
-``scenarios``) raise ``NotImplementedError`` naming their ``ROADMAP.md``
-item.  The novelty family (``algo/nses.py``) and IW-ES (``algo/iwes.py``)
-subclass ``ES`` and share its record plumbing (``_base_record``,
-``_emit_record``, ``_format_record``).  ``device`` is ``"cuda"`` unless
+(``mesh``/``shard_params`` and the sharding options, ``scenarios``) raise
+``NotImplementedError`` naming their ``ROADMAP.md`` item.  The novelty
+family (``algo/nses.py``) and IW-ES (``algo/iwes.py``) subclass ``ES`` and
+share its record plumbing (``_base_record``, ``_emit_record``,
+``_format_record``).  ``device`` is ``"cuda"`` unless
 the caller passes ``"cpu"``.  ``best_policy`` keeps the best member seen, and
 ``evaluate_policy`` rolls out fresh episodes of the center or of it.
+
+``es.obs`` is the run's telemetry hub (``obs/spans.py``; ``telemetry=None``
+is on unless ``ESTORCH_OBS=0``, a bool forces it, or pass a
+``Telemetry``): every record carries ``phases``, the seconds of each span
+of its generation, and the hub counts ``env_steps``, ``rollout_failures``
+and ``generations_rejected``.  ``train_async`` runs barrier-free
+generations (``algo/scheduler.py``): the fold scheduler on the host
+backend, the overlap scheduler elsewhere, and the replay of a fold run's
+event log (``async_event_log``).
 """
 
 from __future__ import annotations
@@ -60,6 +69,7 @@ from ..envs.agent import collect_reference_batch
 from ..host.engine import HostEngine, load_flat
 from ..models.decomposed import supports_decomposed
 from ..models.vbn import capture_reference_stats
+from ..obs.spans import cuda_done_event, resolve_telemetry
 from ..ops.lowrank import make_lowrank_spec, make_lowrank_tree_spec
 from ..ops.noise import DEFAULT_TABLE_SIZE, make_noise_table
 from ..ops.noise_kernels import flat_layer_offsets, mlp_streamed_apply
@@ -69,7 +79,6 @@ from ..parallel.pooled import PooledEngine
 from ..utils.backend import resolve_device
 
 _ROADMAP = "ROADMAP.md, port queue"
-_OBSERVABILITY = "6, checkpoint, resilience and observability"
 _MULTI_GPU = "7, multi-GPU"
 
 # options that only the device and pooled backends have: (keyword, its
@@ -150,8 +159,9 @@ class ES:
         noise_mode: str = "auto",
         scenarios=None,
     ):
-        if telemetry not in (None, False):
-            _unsupported("telemetry", _OBSERVABILITY)
+        # the hub first, so every backend's init runs with it
+        self.obs = resolve_telemetry(telemetry)
+        self.obs.note("init")
         if model_shards is not None or partition_rules is not None or noise_mode != "auto":
             _unsupported("model_shards / partition_rules / noise_mode (the param-sharded "
                          "engine)", _MULTI_GPU)
@@ -170,6 +180,7 @@ class ES:
         self._best_module = None  # best_policy's module, built at first use
         self.history: list[dict] = []
         self.generation = 0
+        self._d2h_stream = None  # the metrics' side stream on CUDA, built at first use
         self.agent = _instantiate(agent, dict(agent_kwargs or {}), "agent")
         # a reference agent usually holds a gym ``env`` AND rollout(): the
         # rollout contract is the host marker, so it is checked first
@@ -299,6 +310,7 @@ class ES:
                 bc_indices=a.bc_indices, carry_init=carry_init)
         else:
             self.engine = self._device_engine(params, streamed, low_rank, carry_init)
+        self.engine.telemetry = self.obs
         self.state = self.engine.init_state(flat, self.seed)
 
     def _device_engine(self, params: dict, streamed: bool, low_rank: int,
@@ -362,6 +374,7 @@ class ES:
             prototype_agent=self.agent,  # the dispatch probe doubles as worker 0
             weight_decay=weight_decay, worker_mode=worker_mode, sigma_decay=sigma_decay,
             sigma_min=sigma_min, mirrored=mirrored)
+        self.engine.telemetry = self.obs
         self.state = self.engine.init_state()
 
     def _setup_n_proc(self, n_proc: int) -> None:
@@ -424,40 +437,102 @@ class ES:
         device and pooled backends batch the population and ignore it.
 
         A generation whose population collapsed (<2 valid members) or whose
-        update came out non-finite is rejected: the state is restored and
-        the same generation re-runs.  Its sample is keyed on
-        ``(seed, generation)``, so the re-run is bit-identical to a run that
-        never faulted.  More than ``max_consecutive_rejections`` in a row
-        raise.
+        update came out non-finite is rejected: the state is restored,
+        ``generations_rejected`` counted, and the same generation re-runs.
+        Its sample is keyed on ``(seed, generation)``, so the re-run is
+        bit-identical to a run that never faulted.  More than
+        ``max_consecutive_rejections`` in a row raise.
+
+        The device backend's generation is queued on the card as a whole,
+        so its spans are ``dispatch`` (the host's launches), ``device`` (the
+        wait on a CUDA event recorded after them) and ``host_sync`` (the
+        metrics' copy); the host and pooled engines span their own
+        ``sample``/``eval``/``update``.
         """
         self._setup_n_proc(n_proc)
+        obs = self.obs
+        obs.discard_phases()  # partial spans of a generation that raised
         done = 0
         rejected_streak = 0
         while done < n_steps:
             t0 = time.perf_counter()
             prev_state = self.state
-            self.state, metrics = self.engine.generation_step(prev_state)
-            fitness = np.asarray(_host(metrics["fitness"]))  # waits for the device
+            if self.backend == "device":
+                with obs.phase("dispatch"):
+                    self.state, metrics = self.engine.generation_step(prev_state)
+                    queued = cuda_done_event(self.device)
+                with obs.phase("device"):
+                    if queued is not None:
+                        queued.synchronize()
+                with obs.phase("host_sync"):
+                    metrics = self._metrics_on_host(metrics, queued, prev_state)
+            else:
+                self.state, metrics = self.engine.generation_step(prev_state)
+                metrics = self._metrics_on_host(metrics, cuda_done_event(self.device),
+                                                prev_state)
             dt = time.perf_counter() - t0
 
             reason = self._update_anomaly(metrics)
             if reason is not None:
                 self.state = prev_state
                 rejected_streak += 1
+                self._count_rejection(reason, metrics)
                 if rejected_streak > max_consecutive_rejections:
                     raise RuntimeError(
                         f"{reason}; {rejected_streak} consecutive generations "
                         "rejected — check env/rollout health")
                 continue
             rejected_streak = 0
-            record = self._base_record(prev_state, fitness, int(metrics["steps"]),
-                                       float(metrics["grad_norm"]), dt)
+            record = self._base_record(prev_state, metrics["fitness"], metrics["steps"],
+                                       metrics["grad_norm"], dt, sigma=metrics["sigma"])
             self._emit_record(record, log_fn, verbose)
             done += 1
         return self
 
+    def _metrics_on_host(self, metrics: dict, queued, prev_state) -> dict:
+        """A generation's metrics as host values, with the σ it sampled
+        under: ``fitness`` (NumPy), ``steps``, ``grad_norm``, ``n_valid``,
+        ``update_finite``, ``sigma``.
+
+        Tensors on the card are copied into pinned buffers on a side stream
+        that waits on ``queued`` (a CUDA event recorded after the
+        generation's work), then the copy's own event is waited on.  A
+        plain ``.cpu()`` would wait for the whole default stream, on which
+        the overlap scheduler's thread has already queued the next
+        generation.
+        """
+        keys = ("fitness", "steps", "grad_norm", "n_valid", "update_finite")
+        vals = {k: metrics[k] for k in keys}
+        vals["sigma"] = prev_state.sigma if prev_state.sigma is not None else self.sigma
+        on_card = [k for k, v in vals.items()
+                   if isinstance(v, torch.Tensor) and v.device.type == "cuda"]
+        if on_card:
+            if self._d2h_stream is None:
+                self._d2h_stream = torch.cuda.Stream(self.device)
+            side = self._d2h_stream
+            with torch.cuda.stream(side):
+                side.wait_event(queued)
+                for k in on_card:
+                    buf = torch.empty(vals[k].shape, dtype=vals[k].dtype, pin_memory=True)
+                    buf.copy_(vals[k], non_blocking=True)
+                    vals[k] = buf
+                copied = torch.cuda.Event()
+                copied.record(side)
+            copied.synchronize()
+        vals = {k: v.numpy() if isinstance(v, torch.Tensor) else v for k, v in vals.items()}
+        return {"fitness": np.asarray(vals["fitness"]), "steps": int(vals["steps"]),
+                "grad_norm": float(vals["grad_norm"]), "n_valid": int(vals["n_valid"]),
+                "update_finite": bool(vals["update_finite"]), "sigma": float(vals["sigma"])}
+
+    def _count_rejection(self, reason: str, metrics: dict) -> None:
+        obs = self.obs
+        obs.counters.inc("generations_rejected")
+        obs.event("generation_rejected", reason=reason, n_valid=int(metrics["n_valid"]))
+        obs.discard_phases()  # the rejected generation's spans
+
     def _update_anomaly(self, metrics: dict) -> str | None:
-        """The rejection reason for a generation, or None."""
+        """The rejection reason for a generation, or None: the one
+        definition ``train`` and the async schedulers share."""
         n_valid = int(metrics["n_valid"])
         if n_valid < 2:
             return (f"only {n_valid}/{self.population_size} population members "
@@ -465,6 +540,56 @@ class ES:
         if not bool(metrics["update_finite"]):
             return "non-finite parameters/update norm after the optimizer step"
         return None
+
+    # ------------------------------------------------------- async generations
+
+    def train_async(self, n_steps: int, n_proc: int = 1,
+                    log_fn: Callable[[dict], None] | None = None, verbose: bool = True,
+                    max_consecutive_rejections: int = 3, strategy: str = "auto",
+                    max_stale: int = 16, iw_clip: float = 2.0, replay=None) -> "ES":
+        """Barrier-free generations (``algo/scheduler.py``).
+
+        ``strategy="fold"`` (host backend) runs the event-driven scheduler:
+        member rollouts are tasks on the workers' queues, an update fires
+        whenever a population's worth of results has arrived, and late
+        results fold into it with clipped importance weights keyed on the
+        σ and θ they were sampled under.  ``"overlap"`` (every backend)
+        queues generation g+1 before g's metrics are read, bit-identical to
+        :meth:`train`.  ``"auto"`` picks fold on the host backend, overlap
+        elsewhere.
+
+        ``max_stale`` is the fold's horizon in center versions (older
+        results are discarded and counted in ``stale_discarded``);
+        ``iw_clip`` truncates the mean-normalized importance ratios.
+        ``replay`` (an ``AsyncEventLog`` or its dict, the JAX package's
+        schema) re-drives that recorded schedule instead of running live,
+        bit-identical to the live run; the live run's log is left on
+        :attr:`async_event_log`.
+        """
+        from .scheduler import GenerationScheduler, train_overlap
+
+        if strategy not in ("auto", "fold", "overlap"):
+            raise ValueError(f"strategy must be auto|fold|overlap, got {strategy!r}")
+        if strategy == "auto":
+            strategy = "fold" if self.backend == "host" else "overlap"
+        self._setup_n_proc(n_proc)
+        if strategy == "overlap":
+            if replay is not None:
+                raise ValueError(
+                    "replay re-drives a fold-mode event log; the overlap "
+                    "scheduler is bit-identical to train() already")
+            return train_overlap(self, n_steps, log_fn=log_fn, verbose=verbose,
+                                 max_consecutive_rejections=max_consecutive_rejections)
+        sched = GenerationScheduler(self, max_stale=max_stale, iw_clip=iw_clip,
+                                    max_consecutive_rejections=max_consecutive_rejections)
+        if replay is not None:
+            return sched.replay(replay, log_fn=log_fn, verbose=verbose, n_steps=n_steps)
+        return sched.run(n_steps, log_fn=log_fn, verbose=verbose)
+
+    @property
+    def async_event_log(self):
+        """The last fold-mode ``train_async`` run's event log (None before one)."""
+        return getattr(self, "_async_log", None)
 
     def _track_best(self, prev_state, fitness: np.ndarray) -> tuple[float, bool]:
         """Best-member snapshot: (generation max, whether it is a new best).
@@ -478,12 +603,16 @@ class ES:
         return gen_best, improved
 
     def _base_record(self, prev_state, fitness: np.ndarray, steps: int,
-                     grad_norm: float, dt: float) -> dict:
+                     grad_norm: float, dt: float, sigma: float | None = None) -> dict:
         """A generation's record, shared by every train loop (ES, the
-        novelty family and IW-ES add their fields to it)."""
+        novelty family, IW-ES and the overlap scheduler add their fields to
+        it).  ``sigma`` is the σ the generation sampled under, when the
+        caller has it on the host already."""
+        fitness = np.asarray(fitness)
         finite_any = bool(np.isfinite(fitness).any())
-        gen_best, improved = self._track_best(prev_state, fitness)
-        return {
+        with self.obs.phase("record"):  # a new best's params are device work
+            gen_best, improved = self._track_best(prev_state, fitness)
+        record = {
             "generation": self.generation,
             "reward_max": gen_best,
             "reward_mean": float(np.nanmean(fitness)) if finite_any else float("nan"),
@@ -491,12 +620,24 @@ class ES:
             "n_failed": int(fitness.size - np.isfinite(fitness).sum()),
             "best_reward": self.best_reward,
             "improved_best": improved,
-            "env_steps": steps,
+            "env_steps": int(steps),
             "env_steps_per_sec": steps / dt if dt > 0 else 0.0,
-            "grad_norm": grad_norm,
-            "sigma": float(prev_state.sigma),
+            "grad_norm": float(grad_norm),
+            "sigma": float(prev_state.sigma) if sigma is None else float(sigma),
             "wall_time_s": dt,
         }
+        return self._finalize_record(record)
+
+    def _finalize_record(self, record: dict) -> dict:
+        """The plumbing every train loop shares (sync, fold, overlap): the
+        generation's spans flushed into ``phases``, and the run's counters.
+        (The JAX package's compile events and cost model wait for
+        ``obs/profile/``, ROADMAP.md port item 6.)"""
+        record["phases"] = self.obs.take_phases()
+        self.obs.counters.inc("env_steps", record["env_steps"])
+        if record["n_failed"]:
+            self.obs.counters.inc("rollout_failures", record["n_failed"])
+        return record
 
     def _emit_record(self, record: dict, log_fn: Callable[[dict], None] | None,
                      verbose: bool) -> None:

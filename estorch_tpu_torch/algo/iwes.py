@@ -28,7 +28,7 @@ outside Pallas).  The device backend only, with the standard or decomposed
 forward; the reuse ring is not part of a checkpoint.
 
 The three module functions are the ratio rule the async scheduler's late
-folds will share.
+folds share (``algo/scheduler.py``).
 """
 
 from __future__ import annotations
@@ -133,42 +133,47 @@ class IW_ES(ES):
         generation.  (Nothing is compiled ahead here: the JAX package's
         warm-up of its reuse programs has no counterpart in torch.)"""
         n = self.population_size
+        obs = self.obs
+        obs.discard_phases()  # partial spans of a generation that raised
         for _ in range(n_steps):
             t0 = time.perf_counter()
             st = self.state
-            ev = self.engine.evaluate(st)
-            fitness = ev.fitness.cpu().numpy()  # waits for the evaluation
+            with obs.phase("eval"):
+                ev = self.engine.evaluate(st)
+                fitness = ev.fitness.cpu().numpy()  # waits for the evaluation
             n_valid = int(np.isfinite(fitness).sum())
             if n_valid < 2:
                 raise RuntimeError(
                     f"only {n_valid}/{n} population members produced valid fitness — "
                     "cannot form an update; check env/rollout health")
 
-            # each buffered generation is admitted on its own ESS
-            accepted, best_ess = [], 0.0
-            for entry in self._prev:
-                lam, d_vec, c, offs = self._ratios(entry, st)
-                ess = float(lam.sum() ** 2 / (lam**2).sum()) if lam.sum() > 0 else 0.0
-                best_ess = max(best_ess, ess)
-                if ess >= self.ess_min * n:
-                    accepted.append((entry[3], lam, d_vec, c, offs))
+            with obs.phase("reuse_ratios"):  # each buffered generation on its own ESS
+                accepted, best_ess = [], 0.0
+                for entry in self._prev:
+                    lam, d_vec, c, offs = self._ratios(entry, st)
+                    ess = float(lam.sum() ** 2 / (lam**2).sum()) if lam.sum() > 0 else 0.0
+                    best_ess = max(best_ess, ess)
+                    if ess >= self.ess_min * n:
+                        accepted.append((entry[3], lam, d_vec, c, offs))
             reused = bool(accepted)
-            if reused:
-                self._dry_gens = 0
-                self._dry_best_ess = 0.0
-                new_st, gnorm = self._reuse_update(st, fitness, accepted)
-            else:
-                if len(self._prev) == self.reuse_window:
-                    self._dry_gens += 1
-                    self._dry_best_ess = max(self._dry_best_ess, best_ess)
-                    self._maybe_warn_never_reusing()
-                weights = torch.as_tensor(rank_weights_with_failures(fitness)).to(self.device)
-                new_st, gnorm = self.engine.apply_weights(st, weights)
-            gnorm = float(gnorm)  # waits for the update
+            with obs.phase("update"):
+                if reused:
+                    self._dry_gens = 0
+                    self._dry_best_ess = 0.0
+                    new_st, gnorm = self._reuse_update(st, fitness, accepted)
+                else:
+                    if len(self._prev) == self.reuse_window:
+                        self._dry_gens += 1
+                        self._dry_best_ess = max(self._dry_best_ess, best_ess)
+                        self._maybe_warn_never_reusing()
+                    weights = torch.as_tensor(rank_weights_with_failures(fitness)).to(self.device)
+                    new_st, gnorm = self.engine.apply_weights(st, weights)
+                gnorm = float(gnorm)  # waits for the update
 
             self.state = new_st
-            self._prev.append((st.params_flat, float(st.sigma),
-                               self.engine.all_pair_offsets(st), fitness))
+            with obs.phase("sample"):  # this generation, buffered for reuse
+                self._prev.append((st.params_flat, float(st.sigma),
+                                   self.engine.all_pair_offsets(st), fitness))
             dt = time.perf_counter() - t0
             record = self._base_record(st, fitness, int(ev.steps), gnorm, dt)
             record.update(reused_prev=reused, reused_gens=len(accepted),

@@ -17,9 +17,10 @@ backends:
 A generation is the engine's split path: ``evaluate`` (on the device path
 the streamed forward and its matvec kernel when asked for), the k-NN and
 the ranks on the host, ``apply_weights`` (the ``weighted_noise_sum`` kernel
-with ``noise_kernel=True``), then one center episode.  Each record's
-``split_s`` holds the host-clock seconds of those parts; each part ends in
-a copy to the host, so the device's work lands in the part that spent it.
+with ``noise_kernel=True``), then one center episode.  Each is a span of
+the JAX package's names (``select``, ``eval``, ``novelty_knn``,
+``update``, ``archive``) in the record's ``phases``; each ends in a copy to
+the host, so the device's work lands in the span that spent it.
 """
 
 from __future__ import annotations
@@ -130,33 +131,34 @@ class NS_ES(ES):
         """Run ``n_steps`` generations, each on one center of the
         meta-population; ``n_proc`` sizes the host backend's workers."""
         self._setup_n_proc(n_proc)
+        obs = self.obs
+        obs.discard_phases()  # partial spans of a generation that raised
         for _ in range(n_steps):
             t0 = time.perf_counter()
-            m = self._select_meta_index()
+            with obs.phase("select"):
+                m = self._select_meta_index()
             st = self.meta_states[m]
-            t1 = time.perf_counter()
-            ev = self.engine.evaluate(st)
-            fitness = np.asarray(_host(ev.fitness))  # waits for the evaluation
-            bc = np.asarray(_host(ev.bc))
-            t2 = time.perf_counter()
-            novelty = self.archive.novelty(bc)
-            weights = self._weights_with_failures(fitness, novelty)
-            if self.backend == "device":
-                weights = torch.as_tensor(weights).to(self.device)
-            t3 = time.perf_counter()
-            new_st, gnorm = self.engine.apply_weights(st, weights)
-            gnorm = float(_host(gnorm))  # waits for the update
-            t4 = time.perf_counter()
+            with obs.phase("eval"):
+                ev = self.engine.evaluate(st)
+                fitness = np.asarray(_host(ev.fitness))  # waits for the evaluation
+                bc = np.asarray(_host(ev.bc))
+            with obs.phase("novelty_knn"):
+                novelty = self.archive.novelty(bc)
+                weights = self._weights_with_failures(fitness, novelty)
+                if self.backend == "device":
+                    weights = torch.as_tensor(weights).to(self.device)
+            with obs.phase("update"):
+                new_st, gnorm = self.engine.apply_weights(st, weights)
+                gnorm = float(_host(gnorm))  # waits for the update
             self.meta_states[m] = new_st
             if m == 0:
                 self.state = new_st  # the base class's accessors follow center 0
-            # the updated center: its BC joins the archive
-            cres = self.engine.evaluate_center(new_st)
-            cbc = _center_bc(cres)
-            self.archive.add(cbc)
-            self._center_bc[m] = cbc
-            t5 = time.perf_counter()
-            dt = t5 - t0
+            with obs.phase("archive"):  # the updated center: its BC joins the archive
+                cres = self.engine.evaluate_center(new_st)
+                cbc = _center_bc(cres)
+                self.archive.add(cbc)
+                self._center_bc[m] = cbc
+            dt = time.perf_counter() - t0
             record = self._base_record(st, fitness, int(ev.steps), gnorm, dt)
             record.update(
                 meta_index=m,
@@ -164,8 +166,6 @@ class NS_ES(ES):
                 novelty_mean=float(novelty.mean()),
                 novelty_max=float(novelty.max()),
                 archive_size=len(self.archive),
-                split_s={"select": t1 - t0, "evaluate": t2 - t1, "knn": t3 - t2,
-                         "update": t4 - t3, "center": t5 - t4},
             )
             self._post_update(record)
             self._emit_record(record, log_fn, verbose)

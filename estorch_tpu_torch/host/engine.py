@@ -32,9 +32,12 @@ An agent's policy lives on ``device``: an agent that builds CPU tensors
 must move them to ``next(policy.parameters()).device`` itself (or the run
 passes ``device="cpu"``); nothing moves them behind its back.
 
-The JAX package's chaos hooks (``kill_workers``, ``member_fault``,
-``poison_update``, ``mutate_fitness``) and its span telemetry belong to
-ROADMAP.md port item 6 and are not here.
+The generation's phases (``sample``, ``eval``, ``update``) land on the
+``telemetry`` hub ``ES`` points at its own, and the JAX package's chaos
+hooks fire where they fire there (``resilience/chaos.py``):
+``kill_workers`` at the start of a process-mode generation,
+``member_fault`` in each member's rollout, ``mutate_fitness`` on the
+gathered fitness and ``poison_update`` in :meth:`HostEngine.apply_grad`.
 """
 
 from __future__ import annotations
@@ -46,7 +49,9 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
+from ..obs.spans import NULL_TELEMETRY
 from ..ops.noise_kernels import weighted_noise_sum
+from ..resilience.chaos import kill_workers, member_fault, mutate_fitness, poison_update
 from ..utils.backend import resolve_device
 from ..utils.fault import rank_weights_with_failures
 
@@ -108,6 +113,8 @@ class HostEngine:
     ``policy_factory()`` returns a fresh policy (on the CPU; the engine moves
     it), ``agent_factory()`` a fresh agent.
     """
+
+    telemetry = NULL_TELEMETRY  # ES points it at its hub
 
     def __init__(
         self,
@@ -249,36 +256,52 @@ class HostEngine:
         # None (not 0.0) is the sentinel, so a fully decayed σ == 0 is honoured
         return self.sigma if state.sigma is None else float(state.sigma)
 
-    def _theta(self, state: HostState, sigma: float, offs: np.ndarray, i: int) -> torch.Tensor:
+    def perturbed(self, params_flat: torch.Tensor, sigma: float, offs: np.ndarray,
+                  i: int) -> torch.Tensor:
+        """Member i's θ around the center ``params_flat`` (on the engine's
+        device): the scaled slice, then the add, the rounding of the NumPy
+        form ``params + σ·sign·eps`` with no fused multiply-add."""
         sign, off = member_sign_offset(offs, i, self.mirrored)
-        # the scaled slice, then the add: the rounding of the NumPy form
-        # ``params + σ·sign·eps``, with no fused multiply-add
-        return state.params_flat + self.table[off:off + self.dim] * (sigma * sign)
+        return params_flat + self.table[off:off + self.dim] * (sigma * sign)
 
     def member_params(self, state: HostState, member_index: int) -> torch.Tensor:
-        return self._theta(state, self._state_sigma(state), self._pair_offsets(state),
-                           member_index)
+        return self.perturbed(state.params_flat, self._state_sigma(state),
+                              self._pair_offsets(state), member_index)
 
     # ------------------------------------------------------------- rollouts
 
-    def _proc_evaluate(self, state: HostState, offs: np.ndarray) -> HostEvalResult:
+    def proc_pool(self):
+        """The fork pool of ``n_proc`` workers, built at first use and
+        pointed at the hub.  The forked children never touch CUDA: they get
+        the table, the master's state_dict and each center as CPU data."""
         from .procpool import ProcessPool
 
         if self._proc_pool is None or self._proc_pool.n_proc != self.n_proc:
             if self._proc_pool is not None:
                 self._proc_pool.close()
-            # the forked children never touch CUDA: they get the table, the
-            # master's state_dict and the center as CPU data
             master_state = {k: v.detach().cpu() for k, v in self.master.state_dict().items()}
             self._proc_pool = ProcessPool(
                 self.policy_factory, self.agent_factory, self.n_proc, self.population_size,
                 self.dim, self.table.cpu().numpy(), master_state=master_state,
                 mirrored=self.mirrored)
+        self._proc_pool.telemetry = self.telemetry
+        return self._proc_pool
+
+    def chaos_kill_workers(self, generation: int) -> None:
+        """The ``kill_worker`` hook at a process-mode generation's start."""
+        killed = kill_workers(generation, self._proc_pool.worker_pids)
+        if killed:
+            self.telemetry.counters.inc("chaos_worker_kills", len(killed))
+            self.telemetry.event("chaos_worker_kill", pids=killed, gen=int(generation))
+
+    def _proc_evaluate(self, state: HostState, offs: np.ndarray) -> HostEvalResult:
+        pool = self.proc_pool()
         # generation boundary: workers lost last generation come back now
-        self._proc_pool.respawn_dead()
-        fitness, bc, steps = self._proc_pool.evaluate(
+        pool.respawn_dead()
+        self.chaos_kill_workers(state.generation)
+        fitness, bc, steps = pool.evaluate(
             state.params_flat.cpu().numpy(), self._state_sigma(state), offs,
-            timeout_s=self.proc_timeout_s)
+            timeout_s=self.proc_timeout_s, generation=int(state.generation))
         return HostEvalResult(fitness=fitness, bc=bc, steps=int(steps))
 
     def evaluate(self, state: HostState, offs: np.ndarray | None = None) -> HostEvalResult:
@@ -295,8 +318,9 @@ class HostEngine:
         def run_slice(w: int) -> None:
             policy, agent = self._workers[w]
             for i in range(w, self.population_size, self.n_proc):
-                load_flat(policy, self._theta(state, sigma, offs, i))
+                load_flat(policy, self.perturbed(state.params_flat, sigma, offs, i))
                 try:
+                    member_fault(state.generation, i)
                     results[i] = call_rollout(agent, policy)
                 except Exception:  # noqa: BLE001 — a dead member must not kill the generation
                     results[i] = HostRolloutResult(float("nan"), np.zeros(0, np.float32), 0)
@@ -339,11 +363,15 @@ class HostEngine:
 
     def apply_grad(self, state: HostState, grad_ascent) -> tuple[HostState, float]:
         """Torch optimizer step from an already scaled ascent direction, with
-        weight decay and σ annealing; the input state is left untouched."""
+        weight decay, the ``nan_update`` chaos hook and σ annealing; the
+        input state is left untouched.  ``apply_weights`` and the async
+        scheduler's fold both end here."""
         grad_ascent = torch.as_tensor(grad_ascent, dtype=torch.float32).to(self.device)
         sigma = self._state_sigma(state)
         if self.weight_decay > 0.0:
             grad_ascent = grad_ascent - self.weight_decay * state.params_flat
+        if poison_update(state.generation):
+            grad_ascent = torch.full_like(grad_ascent, float("nan"))
 
         load_flat(self.master, state.params_flat)
         if state.opt_state is not None:
@@ -371,15 +399,21 @@ class HostEngine:
         return new_state, float(torch.linalg.vector_norm(grad_ascent))
 
     def generation_step(self, state: HostState):
-        """sample → eval → update.  Fewer than 2 valid members leave the
-        state untouched (``n_valid`` says so; ES.train rejects and re-runs)."""
-        offs = self._pair_offsets(state)
-        ev = self.evaluate(state, offs=offs)
-        n_valid = int(np.isfinite(ev.fitness).sum())
-        base = {"fitness": ev.fitness, "bc": ev.bc, "steps": ev.steps, "n_valid": n_valid}
+        """sample → eval → update, each a span.  Fewer than 2 valid members
+        leave the state untouched (``n_valid`` says so; ES.train rejects and
+        re-runs)."""
+        obs = self.telemetry
+        with obs.phase("sample"):
+            offs = self._pair_offsets(state)
+        with obs.phase("eval"):
+            ev = self.evaluate(state, offs=offs)
+        fitness = mutate_fitness(state.generation, ev.fitness)
+        n_valid = int(np.isfinite(fitness).sum())
+        base = {"fitness": fitness, "bc": ev.bc, "steps": ev.steps, "n_valid": n_valid}
         if n_valid < 2:
             return state, {**base, "grad_norm": float("nan"), "update_finite": True}
-        weights = rank_weights_with_failures(ev.fitness)
-        new_state, gnorm = self.apply_weights(state, weights, offs=offs)
+        with obs.phase("update"):
+            weights = rank_weights_with_failures(fitness)
+            new_state, gnorm = self.apply_weights(state, weights, offs=offs)
         finite = bool(np.isfinite(gnorm) and torch.isfinite(new_state.params_flat).all())
         return new_state, {**base, "grad_norm": gnorm, "update_finite": finite}

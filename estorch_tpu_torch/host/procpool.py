@@ -7,8 +7,11 @@ on pure-Python rollout code; this pool forks persistent processes instead:
   (copy-on-write, never sent over a pipe) and a CPU copy of the master's
   ``state_dict`` (its buffers: frozen VBN statistics, running means);
 - each worker builds its own policy, on the CPU, and agent once;
-- a generation sends each worker (params_flat, σ, offsets) once as NumPy
-  and gets back its member slice's (indices, fitness, bc, steps).
+- a generation sends each worker (generation, params_flat, σ, offsets)
+  once as NumPy and gets back its member slice's (indices, fitness, bc,
+  steps, eval_s), ``eval_s`` the worker's busy seconds;
+- the chaos hook ``member_fault`` runs inside the worker, keyed on the
+  generation (``resilience/chaos.py``; forks inherit ``ESTORCH_CHAOS``).
 
 The parent may have a live CUDA context (the update runs on the card);
 a forked child must never touch CUDA, so everything it gets is CPU data
@@ -23,8 +26,12 @@ result at the deadline stays NaN and the update drops it
 (``utils/fault.py``).  Stale replies of late workers are told apart by a
 sequence tag and discarded.
 
-The JAX package's asynchronous API of this pool (``dispatch``, ``poll``)
-serves its async scheduler, ROADMAP.md port item 5, and is not here.
+The asynchronous API (:meth:`ProcessPool.dispatch`, :meth:`ProcessPool.poll`,
+``worker_alive``, ``conn_has_data``) serves the fold scheduler
+(``algo/scheduler.py``): one slice message a worker, and every reply
+returned, late ones included.  Respawns, retries and failed sends count
+on the pool's ``telemetry`` hub (``workers_respawned``, ``slice_retries``,
+``members_retried``, ``worker_send_failures``).
 """
 
 from __future__ import annotations
@@ -36,6 +43,8 @@ import time
 from typing import Any, Callable
 
 import numpy as np
+
+from ..obs.spans import NULL_TELEMETRY
 
 # poll slice for result collection: a worker dying mid-generation is
 # noticed after about this long, not after the whole deadline
@@ -51,12 +60,13 @@ def _worker_main(conn, worker_id: int, policy_factory: Callable[[], Any],
     """Build a policy and an agent once, then evaluate member slices until
     the parent sends None or goes away.
 
-    Messages are ``(seq, params_flat, sigma, offsets, indices)``;
+    Messages are ``(seq, generation, params_flat, sigma, offsets, indices)``;
     ``indices=None`` means the worker's own round-robin slice, an array a
     retry of another worker's members.
     """
     import torch
 
+    from ..resilience.chaos import member_fault
     from .engine import call_rollout, load_flat, member_sign_offset
 
     torch.set_num_threads(1)  # workers parallelize across processes, not BLAS
@@ -73,7 +83,7 @@ def _worker_main(conn, worker_id: int, policy_factory: Callable[[], Any],
             return  # the parent's end is closed
         if msg is None:
             return
-        seq, params_flat, sigma, offsets, indices = msg
+        seq, generation, params_flat, sigma, offsets, indices = msg
         if indices is None:
             indices = list(range(worker_id, population_size, n_proc))
         else:
@@ -81,10 +91,12 @@ def _worker_main(conn, worker_id: int, policy_factory: Callable[[], Any],
         fitness = np.full(len(indices), np.nan, np.float32)
         bcs: list[np.ndarray] = []
         steps = 0
+        t0 = time.perf_counter()
         for j, i in enumerate(indices):
             sign, off = member_sign_offset(offsets, i, mirrored)
             load_flat(policy, torch.from_numpy(params_flat + sigma * sign * table[off:off + dim]))
             try:
+                member_fault(generation, i)
                 res = call_rollout(agent, policy)
             except Exception:  # noqa: BLE001 — NaN marks the member failed
                 bcs.append(np.zeros(0, np.float32))
@@ -97,11 +109,14 @@ def _worker_main(conn, worker_id: int, policy_factory: Callable[[], Any],
         for j, b in enumerate(bcs):
             if b.shape[0]:
                 bc[j] = b
-        conn.send((seq, np.asarray(indices, np.int64), fitness, bc, steps))
+        conn.send((seq, np.asarray(indices, np.int64), fitness, bc, steps,
+                   time.perf_counter() - t0))
 
 
 class ProcessPool:
     """Persistent fork-based workers for HostEngine."""
+
+    telemetry = NULL_TELEMETRY  # HostEngine points it at its hub
 
     def __init__(self, policy_factory, agent_factory, n_proc: int, population_size: int,
                  dim: int, table: np.ndarray, master_state: dict, mirrored: bool = True):
@@ -116,6 +131,7 @@ class ProcessPool:
         self._procs: list[Any] = [None] * self.n_proc
         self._conns: list[Any] = [None] * self.n_proc
         self._retired: list[Any] = []  # replaced dead workers, joined at close
+        self._eof: set[int] = set()  # workers whose pipe hit EOF (poll skips them)
         for w in range(self.n_proc):
             self._spawn(w)
 
@@ -127,10 +143,17 @@ class ProcessPool:
         child.close()
         self._procs[w] = p
         self._conns[w] = parent
+        self._eof.discard(w)
 
-    def respawn_dead(self) -> None:
+    @property
+    def worker_pids(self) -> list[int]:
+        return [p.pid for p in self._procs]
+
+    def respawn_dead(self) -> int:
         """Replace dead workers with fresh forks (at a generation boundary);
-        a dead worker's pipe is closed, with any stale result in it."""
+        a dead worker's pipe is closed, with any stale result in it.
+        Returns the number replaced."""
+        n = 0
         for w, p in enumerate(self._procs):
             if p.is_alive():
                 continue
@@ -140,13 +163,19 @@ class ProcessPool:
                 pass  # the pipe is gone with its worker either way
             self._retired.append(p)
             self._spawn(w)
+            n += 1
+            self.telemetry.counters.inc("workers_respawned")
+            self.telemetry.event("worker_respawned", worker=w, pid=self._procs[w].pid)
+        return n
 
     def _send(self, w: int, msg) -> bool:
         try:
             self._conns[w].send(msg)
             return True
         except (BrokenPipeError, OSError):
-            return False  # a dead worker: the retry or NaN path covers its slice
+            # a dead worker: the retry or NaN path covers its slice
+            self.telemetry.counters.inc("worker_send_failures")
+            return False
 
     def _collect(self, seq: int, pending: dict[int, Any], deadline: float, parts: list) -> None:
         """Drain results tagged ``seq`` from ``pending`` (worker → conn) until
@@ -176,7 +205,8 @@ class ProcessPool:
                     del pending[w]
 
     def evaluate(self, params_flat: np.ndarray, sigma: float, offsets: np.ndarray,
-                 timeout_s: float = 600.0) -> tuple[np.ndarray, np.ndarray, int]:
+                 timeout_s: float = 600.0, generation: int = 0
+                 ) -> tuple[np.ndarray, np.ndarray, int]:
         """One generation: (fitness, bc, steps).  ``timeout_s`` bounds the
         whole generation.  The members of workers that died are retried once
         on the survivors; what is unanswered at the deadline stays NaN."""
@@ -185,7 +215,8 @@ class ProcessPool:
         deadline = time.monotonic() + timeout_s
         params_flat = np.asarray(params_flat, np.float32)
         offsets = np.asarray(offsets)
-        msg = (seq, params_flat, float(sigma), offsets, None)
+        generation = int(generation)
+        msg = (seq, generation, params_flat, float(sigma), offsets, None)
         pending = {w: self._conns[w] for w in range(self.n_proc) if self._send(w, msg)}
         parts: list = []
         self._collect(seq, pending, deadline, parts)
@@ -197,13 +228,17 @@ class ProcessPool:
                    if i not in covered and not self._procs[i % self.n_proc].is_alive()]
         alive = [w for w in range(self.n_proc) if self._procs[w].is_alive()]
         if missing and alive and deadline - time.monotonic() > 0:
+            self.telemetry.counters.inc("slice_retries")
+            self.telemetry.counters.inc("members_retried", len(missing))
+            self.telemetry.event("slice_retry", members=len(missing), survivors=len(alive),
+                                 gen=generation)
             self._seq += 1
             rseq = self._seq
             retry: dict[int, Any] = {}
             for k, w in enumerate(alive):
                 chunk = missing[k::len(alive)]
-                if chunk and self._send(w, (rseq, params_flat, float(sigma), offsets,
-                                            np.asarray(chunk, np.int64))):
+                if chunk and self._send(w, (rseq, generation, params_flat, float(sigma),
+                                            offsets, np.asarray(chunk, np.int64))):
                     retry[w] = self._conns[w]
             self._collect(rseq, retry, deadline, parts)
 
@@ -211,12 +246,54 @@ class ProcessPool:
         bc_dim = max((p[2].shape[1] for p in parts), default=0)
         bc = np.zeros((self.population_size, bc_dim), np.float32)
         steps = 0
-        for indices, f, b, st in parts:
+        for indices, f, b, st, _eval_s in parts:
             fitness[indices] = f
             if b.shape[1]:
                 bc[indices] = b
             steps += st
         return fitness, bc, steps
+
+    # ------------------------------------------------- async (the scheduler)
+
+    def dispatch(self, worker: int, params_flat: np.ndarray, sigma: float,
+                 offsets: np.ndarray, generation: int, indices=None) -> int | None:
+        """Send one slice message to ``worker``: its sequence tag, or None
+        when the pipe is dead (the caller accounts the slice as lost).
+        ``indices=None`` is the worker's own round-robin slice."""
+        self._seq += 1
+        msg = (self._seq, int(generation), np.asarray(params_flat, np.float32), float(sigma),
+               np.asarray(offsets), None if indices is None else np.asarray(indices, np.int64))
+        return self._seq if self._send(worker, msg) else None
+
+    def poll(self, timeout_s: float) -> list[tuple]:
+        """One bounded wait, then every buffered reply: ``(seq, indices,
+        fitness, bc, steps, eval_s)`` of every sequence tag, late ones
+        included (staleness is the scheduler's business)."""
+        live = {id(c): w for w, c in enumerate(self._conns)
+                if c is not None and not c.closed and w not in self._eof}
+        if not live:
+            time.sleep(min(timeout_s, POLL_SLICE_S))
+            return []
+        out: list[tuple] = []
+        for c in mpc.wait([self._conns[w] for w in live.values()], timeout=timeout_s):
+            w = live[id(c)]
+            try:
+                out.append(c.recv())
+            except (EOFError, OSError):
+                # a dead pipe stays out of later polls until its respawn, or
+                # an EOF-readable corpse would turn poll into a spin
+                self._eof.add(w)
+        return out
+
+    def worker_alive(self, w: int) -> bool:
+        return self._procs[w].is_alive()
+
+    def conn_has_data(self, w: int) -> bool:
+        """A buffered reply outlives its writer: ``poll`` can still drain it."""
+        try:
+            return w not in self._eof and self._conns[w].poll(0)
+        except (OSError, EOFError):
+            return False
 
     def close(self) -> None:
         for c in self._conns:

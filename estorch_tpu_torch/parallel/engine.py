@@ -56,6 +56,7 @@ from ..envs.rollout import (
     member_params_apply,
 )
 from ..models.decomposed import mlp_decomposed_population_apply, mlp_lowrank_population_apply
+from ..obs.spans import NULL_TELEMETRY
 from ..ops.gradient import es_gradient, fold_mirrored_weights, rank_weighted_noise_sum
 from ..ops.lowrank import (
     LowRankSpec,
@@ -232,6 +233,8 @@ class ESEngine:
     importance ratios and its update with reused samples (``algo/iwes.py``).
     """
 
+    telemetry = NULL_TELEMETRY  # ES points it at its hub
+
     def __init__(self, env: Any, module: Any, spec: ParamSpec, table: NoiseTable,
                  optimizer: Any, config: EngineConfig, device: torch.device,
                  streamed_apply: Callable[..., torch.Tensor] | None = None,
@@ -386,8 +389,11 @@ class ESEngine:
         """This generation's offsets, per pair (mirrored) or per member, on
         the device: exactly those :meth:`sample` draws first, so an outside
         evaluator perturbs with the noise the update reduces."""
+        return self._host_pair_offsets(state).to(self.device)
+
+    def _host_pair_offsets(self, state: ESState) -> torch.Tensor:
         return sample_pair_offsets(self._generation_generator(state), self.rows,
-                                   self.table.size, self.noise_dim).to(self.device)
+                                   self.table.size, self.noise_dim)
 
     # --------------------------------------------------------- generation
 
@@ -729,8 +735,10 @@ class ESEngine:
                       sample: Sample | None = None) -> torch.Tensor:
         """One member's flat params θ + σ s ε (dense, also for low rank),
         rebuilt from this generation's offsets, e.g. to keep the best
-        member."""
-        offsets = self.all_pair_offsets(state) if sample is None else sample.offsets
+        member.  The offsets stay on the host: reading one from the card
+        would wait for every generation queued there (the overlap
+        scheduler's)."""
+        offsets = self._host_pair_offsets(state) if sample is None else sample.offsets
         if self.config.mirrored:
             off = int(offsets[member_index // 2])
             sign = 1.0 if member_index % 2 == 0 else -1.0

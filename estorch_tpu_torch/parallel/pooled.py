@@ -32,8 +32,10 @@ forward runs on the card.  On CUDA each half's actions come back through a
 ``non_blocking`` copy into a pinned buffer and a CUDA event, so waiting
 for one half never waits for the other half's forward.
 
-The JAX package's chaos hook (``mutate_fitness``) belongs to ROADMAP.md
-port item 6 and is not here.
+A generation's phases land on the ``telemetry`` hub: ``eval`` (with
+``eval/sample``, the materialization, fenced on a CUDA event) and
+``update`` (with ``update/obsnorm_merge``); the chaos hook
+``mutate_fitness`` fires on the host-ranked fitness, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -46,8 +48,10 @@ import torch
 
 from ..envs.gym_vec_pool import make_pool
 from ..envs.rollout import RolloutResult, map_carry, population_forward
+from ..obs.spans import NULL_TELEMETRY, device_fence
 from ..ops.noise import gather_rows, member_offsets, pair_signs
 from ..ops.params import ParamSpec, map_tree
+from ..resilience.chaos import mutate_fitness
 from ..utils.fault import rank_weights_with_failures
 from .engine import EngineConfig, ESEngine, ESState, merge_obs_moments_np
 
@@ -61,6 +65,8 @@ class PooledEvalResult:
 
 class PooledEngine:
     """The engine interface of ``ESEngine`` with pooled evaluation."""
+
+    telemetry = NULL_TELEMETRY  # ES points it at its hub
 
     def __init__(self, env_name: str, module: Any, spec: ParamSpec, table, optimizer,
                  config: EngineConfig, device: torch.device, n_threads: int = 0,
@@ -238,8 +244,9 @@ class PooledEngine:
                  ) -> PooledEvalResult:
         """Every member's episode; ``pair_offsets`` replaces this
         generation's offsets (tests hand in the JAX package's)."""
-        offs = self.all_pair_offsets(state) if pair_offsets is None else pair_offsets
-        members = self.materialize(state, offs)
+        with self.telemetry.phase("sample", fence=device_fence(self.device)):
+            offs = self.all_pair_offsets(state) if pair_offsets is None else pair_offsets
+            members = self.materialize(state, offs)
         norm = self._norm_params(state) if self.obs_norm else None
         if self.obs_norm:
             # moments of this evaluation, merged only into the update of the
@@ -391,23 +398,27 @@ class PooledEngine:
         if (self.obs_norm and moments is not None and key is not None
                 and key[0] == int(state.generation) and key[1] is state.params_flat
                 and moments[0] > 0):
-            new_state = new_state._replace(
-                obs_stats=merge_obs_moments_np(new_state.obs_stats, *moments))
+            with self.telemetry.phase("obsnorm_merge"):
+                new_state = new_state._replace(
+                    obs_stats=merge_obs_moments_np(new_state.obs_stats, *moments))
         return new_state, gnorm
 
     def generation_step(self, state: ESState, pair_offsets: torch.Tensor | None = None):
         """One generation: ``(new_state, metrics)``, metrics on the host.
         ``pair_offsets`` replaces this generation's offsets (tests)."""
-        ev = self.evaluate(state, pair_offsets)
-        fit = np.asarray(ev.fitness)
+        obs = self.telemetry
+        with obs.phase("eval"):
+            ev = self.evaluate(state, pair_offsets)
+        fit = mutate_fitness(state.generation, np.asarray(ev.fitness))
         n_valid = int(np.isfinite(fit).sum())
         base = {"fitness": fit, "bc": ev.bc, "steps": ev.steps, "n_valid": n_valid}
         if n_valid < 2:
             # a collapsed population: the state stays; ES.train rejects it
             return state, {**base, "grad_norm": float("nan"), "update_finite": True}
-        weights = rank_weights_with_failures(fit)
-        new_state, gnorm = self.apply_weights(state, weights, pair_offsets)
-        gnorm = float(gnorm)
+        with obs.phase("update"):
+            weights = rank_weights_with_failures(fit)
+            new_state, gnorm = self.apply_weights(state, weights, pair_offsets)
+            gnorm = float(gnorm)  # waits for the update
         finite = bool(np.isfinite(gnorm) and torch.isfinite(new_state.params_flat).all())
         return new_state, {**base, "grad_norm": gnorm, "update_finite": finite}
 

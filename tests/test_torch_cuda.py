@@ -692,3 +692,73 @@ def test_nsr_es_on_card_matches_cpu(cuda):
     for a, b in zip(card.meta_states, cpu.meta_states):
         torch.testing.assert_close(a.params_flat.cpu(), b.params_flat, rtol=0, atol=1e-4)
     np.testing.assert_allclose(card.archive.bcs, cpu.archive.bcs, rtol=1e-3, atol=1e-3)
+
+
+# ------------------------------------------------------- barrier-free generations
+
+
+def test_fold_on_card_matches_cpu(cuda):
+    """A fold run's event log (4 thread workers on the CPU, a straggler
+    folded late) replayed on the card and on the CPU: each update one
+    reduction launch on the card, the params within 1e-6 of their largest
+    entry, the async blocks equal."""
+    import json
+    import os
+
+    from estorch_tpu_torch.resilience import chaos
+
+    os.environ[chaos.CHAOS_ENV] = json.dumps({"events": [
+        {"kind": "straggler", "gen": 1, "member": 5, "sleep_s": 0.3}]})
+    chaos.reset_cache()
+    try:
+        live = _host_es("cpu")
+        live.train_async(4, n_proc=4, verbose=False)
+    finally:
+        os.environ.pop(chaos.CHAOS_ENV)
+        chaos.reset_cache()
+    log = json.loads(json.dumps(live.async_event_log.to_dict()))
+    assert sum(r["async"]["folded"] for r in live.history) > 0
+    card, cpu = _host_es(cuda), _host_es("cpu")
+    nk.reset_launch_counts()
+    card.train_async(4, replay=log, verbose=False)
+    assert nk.launch_counts == {"weighted_noise_sum": 4, "population_noise_matvec": 0}
+    cpu.train_async(4, replay=log, verbose=False)
+    got, want = card.state.params_flat.cpu(), cpu.state.params_flat
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    for a, b in zip(card.history, cpu.history):
+        assert {k: v for k, v in a["async"].items() if k != "mean_lambda"} == \
+            {k: v for k, v in b["async"].items() if k != "mean_lambda"}
+        assert a["async"]["mean_lambda"] == pytest.approx(b["async"]["mean_lambda"], abs=1e-4)
+
+
+def test_fold_replay_is_bitwise_its_live_run_on_card(cuda):
+    """A live fold run on the card (4 thread workers, their policies on the
+    card) and two replays of its log on the card: the same params bit for
+    bit."""
+    live = _host_es(cuda)
+    live.train_async(4, n_proc=4, verbose=False)
+    log = live.async_event_log.to_dict()
+    for _ in range(2):
+        again = _host_es(cuda)
+        again.train_async(4, replay=log, verbose=False)
+        assert torch.equal(again.state.params_flat, live.state.params_flat)
+
+
+def test_overlap_is_bitwise_train_on_card(cuda):
+    """The streamed Pendulum path with the kernel update: 3 generations of
+    train and of the overlap scheduler give the same params bit for bit,
+    with the same kernel launches."""
+    from estorch_tpu_torch import ES
+
+    def make():
+        return _pendulum_es(ES, cuda, streamed=True, noise_kernel=True)
+
+    sync, ov = make(), make()
+    nk.reset_launch_counts()
+    sync.train(3, verbose=False)
+    want = dict(nk.launch_counts)
+    nk.reset_launch_counts()
+    ov.train_async(3, verbose=False)
+    assert nk.launch_counts == want == {"weighted_noise_sum": 3, "population_noise_matvec": 450}
+    assert torch.equal(sync.state.params_flat, ov.state.params_flat)
+    assert [r["reward_mean"] for r in sync.history] == [r["reward_mean"] for r in ov.history]

@@ -23,7 +23,8 @@ from estorch_tpu import MLPPolicy as JMLPPolicy
 from estorch_tpu.envs.rollout import make_batched_rollout as jmake_batched_rollout
 from estorch_tpu.parallel import population_mesh
 from estorch_tpu.parallel.engine import _gen_keys
-from estorch_tpu_torch import ES, CartPole, DeviceAgent, MLPPolicy, Pendulum, adam, interop
+from estorch_tpu_torch import (ES, CartPole, DeviceAgent, MLPPolicy, Pendulum, PooledAgent, adam,
+                               interop)
 from estorch_tpu_torch.envs.rollout import make_batched_rollout
 from estorch_tpu_torch.parallel import Sample
 from estorch_tpu_torch.utils import resolve_device
@@ -261,21 +262,18 @@ class _RecurrentPolicy:
         del kwargs
 
 
-class _PooledAgent:
-    env_name = "cartpole"
-
-
 class _HostAgent:
     def rollout(self, policy):
         return 0.0
 
 
-# each case names an option that still waits for its ROADMAP.md item
+# each case names an option that still waits for its ROADMAP.md item; the
+# two telemetry cases (the hub came with port item 5) hold it live instead
 @pytest.mark.parametrize("option", [
     {"mesh": object()},
-    {"telemetry": True},  # observability, item 6
+    {"telemetry": True},  # live on the device path
     {"model_shards": 2},  # the param-sharded engine, item 7
-    {"agent": _PooledAgent(), "telemetry": True},  # telemetry on the pooled path
+    {"agent": "pooled", "telemetry": True},  # live on the pooled path
     {"agent": _HostAgent(), "mesh": object()},  # a mesh on the host path
     {"policy": _RecurrentPolicy, "partition_rules": ()},  # the sharded engine's rules
     {"shard_params": True, "mesh": object()},
@@ -290,8 +288,30 @@ def test_unported_options_raise(option):
               policy_kwargs=PENDULUM_POLICY, optimizer_kwargs={"learning_rate": 1e-2},
               table_size=1 << 16)
     kw.update(option)
+    if "telemetry" in option:
+        _check_telemetry_live(policy, agent, kw)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ES(policy, agent, adam, **kw)
+
+
+def _check_telemetry_live(policy, agent, kw):
+    """``telemetry=True`` on the device or pooled path: every record carries
+    the JAX package's phases for that backend, and the hub counts."""
+    if agent == "pooled":
+        agent = PooledAgent("pendulum", horizon=20)
+        want = {"eval", "eval/sample", "update", "record"}
+    else:
+        want = {"dispatch", "device", "host_sync", "record"}
+    es = ES(policy, agent, adam, **kw)
+    assert es.obs.enabled
+    es.train(2, verbose=False)
+    for r in es.history:
+        assert set(r["phases"]) == want
+        assert all(v >= 0 for v in r["phases"].values())
+    snap = es.obs.counters.snapshot()
+    assert snap["generations"] == 2
+    assert snap["env_steps"] == sum(r["env_steps"] for r in es.history) > 0
 
 
 @pytest.mark.parametrize("option,message", [
@@ -333,7 +353,7 @@ def test_host_agent_and_vbn_raise():
 
 def test_import_loads_no_jax_and_no_reference_package():
     code = (
-        "import sys, estorch_tpu_torch\n"
+        "import sys, estorch_tpu_torch, estorch_tpu_torch.algo.scheduler\n"
         "bad = sorted(m for m in sys.modules if m.startswith(('jax', 'flax', 'optax', 'chex'))"
         " or m == 'estorch_tpu' or m.startswith('estorch_tpu.'))\n"
         "print(bad)\n"

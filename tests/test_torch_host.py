@@ -530,7 +530,19 @@ def test_es_signature_matches_jax():
     ("noise_mode", "program", "7")])
 def test_stub_keywords_raise_naming_their_item(option, value, item):
     """F1: a keyword whose item is not ported raises naming it; its default
-    (and telemetry=False) does nothing on every backend."""
+    (and telemetry=False) does nothing on every backend.  ``telemetry`` came
+    with port item 5: live on the host path instead, its phases and
+    counters those of the JAX package's host engine."""
+    if option == "telemetry":
+        es = _make(telemetry=value)
+        es.train(2, verbose=False)
+        for r in es.history:
+            assert set(r["phases"]) == {"sample", "eval", "update", "record"}
+        snap = es.obs.counters.snapshot()
+        assert snap["generations"] == 2
+        assert snap["env_steps"] == sum(r["env_steps"] for r in es.history)
+        assert not _make(telemetry=False).obs.enabled
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md, port queue item: {item}"):
         _make(**{option: value})
     with pytest.raises(NotImplementedError, match=f"item: {item}"):

@@ -460,7 +460,17 @@ def test_recipe_builds_with_the_jax_recipes_options(name, monkeypatch):
 ])
 def test_unported_recipe_raises_naming_its_item(name, over, item):
     """Every recipe is ported; an option that still waits for its port item,
-    passed through a recipe's overrides, raises naming that item."""
+    passed through a recipe's overrides, raises naming that item.
+    ``telemetry`` came with port item 5: through a recipe it is live, the
+    records carrying the device path's phases."""
+    if "telemetry" in over:
+        es = configs.CONFIGS[name](device="cpu", population_size=8, table_size=1 << 16,
+                                   agent_kwargs={"env": tenvs.Cheetah2D(), "horizon": 5},
+                                   **over)
+        es.train(1, verbose=False)
+        assert set(es.history[0]["phases"]) == {"dispatch", "device", "host_sync", "record"}
+        assert es.obs.counters.get("env_steps") == es.history[0]["env_steps"] > 0
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md, port queue item: {item}"):
         configs.CONFIGS[name](device="cpu", **over)
 

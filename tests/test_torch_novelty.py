@@ -299,7 +299,7 @@ def test_golden_recipe_matches_jax_goldens(name):
     np.testing.assert_allclose(round(float(tes.archive.bcs.sum()), 5), g["archive_sum"],
                                atol=2e-4)
     assert len(tes.archive) == 2 + 3
-    for key in ("center_reward", "novelty_mean", "novelty_max", "archive_size", "split_s"):
+    for key in ("center_reward", "novelty_mean", "novelty_max", "archive_size", "phases"):
         assert key in tes.history[-1]
     if name == "NSRA_ES":
         assert 0.0 <= tes.history[-1]["nsra_weight"] <= 1.0

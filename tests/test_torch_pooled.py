@@ -452,9 +452,11 @@ class _Recurrent:
 def test_unported_pooled_options_raise():
     kw = dict(BASE, device="cpu")
     agent = PooledAgent("cartpole", horizon=10)
-    # a recurrent pooled policy trains (tests/test_torch_recurrent.py); telemetry waits
-    with pytest.raises(NotImplementedError, match="item: 6"):
-        ES(_Recurrent, agent, adam, telemetry=True, **kw)
+    # a recurrent pooled policy trains (tests/test_torch_recurrent.py); telemetry
+    # is live (port item 5): the pooled engine's spans in each record
+    es = ES(MLPPolicy, agent, adam, telemetry=True, **kw)
+    es.train(1, verbose=False)
+    assert set(es.history[0]["phases"]) == {"eval", "eval/sample", "update", "record"}
     with pytest.raises(ValueError, match="learned_carry is a device-path feature"):
         ES(_Recurrent, agent, adam, **dict(kw, policy_kwargs={"learned_carry": True}))
     with pytest.raises(NotImplementedError, match="item: 7"):
