@@ -52,10 +52,13 @@ Phases, in order; any failure exits non-zero before the last line:
    Adam 1e-5 (``reused_prev`` equal, params within 1e-5), and a host
    NS-ES on phase 9's ``rollout(policy)`` Pendulum agent at population 32,
    2 generations (meta indices equal, reward means within 1e-4, update
-   cosine 0.999); then the fold: a CPU live ``train_async`` run's event
-   log (pop 32, horizon 60, a straggler folded late) replayed on the card
-   and on the CPU (params within 1e-6 of their largest entry, one
-   reduction launch an update);
+   cosine 0.999); then the fold: three CPU live ``train_async`` runs'
+   event logs (pop 32, horizon 60, a straggler folded late) each replayed
+   on the card and on the CPU (params within 1e-6 of their largest entry,
+   one reduction launch an update); then a CPU checkpoint of the streamed path
+   (population 64, horizon 50, generation 2) restored on the card, the
+   state bit for bit, and continued 2 generations on each (reward means
+   within 1e-4 relative, params within 1e-4);
 5. the other paths at the width of phase 3, each through ``ES(...).train``
    with 1 warm-up and 3 timed generations, its launch counts read around
    that run and checked exactly, then one profiled generation: (a) the
@@ -66,13 +69,13 @@ Phases, in order; any failure exits non-zero before the last line:
    population, and the products alone over 1024 rows against 4096: which
    results depend on the chunk (reported, not held);
 7. the env paths at full width, each through ``ES(...).train`` with 1
-   warm-up and 3 timed generations (1 for (h)), its launch counts read
+   warm-up and 2 timed generations (1 for (h)), its launch counts read
    around that run and checked exactly, then one profiled generation: (f)
    Cheetah2D, MLP 64x64, pop 1024, horizon 200 (the ``cheetah2d_device``
    recipe at the JAX bench's LOCO horizon), standard forward; (g) the same,
    streamed forward + kernel update; (h) the ``humanoid2d_pop10k`` recipe
    (Humanoid2D, MLP 256x256, pop 10240, rank-1 noise, obs_norm with 4 probe
-   episodes, chunks of 1024) in bf16 at horizon 100; (i) SyntheticEnv
+   episodes, chunks of 1024) in bf16 at horizon 50; (i) SyntheticEnv
    (376 -> 256x256 -> 17), pop 4096, horizon 200, streamed forward + kernel
    update;
 8. the pooled paths, each through ``ES(...).train`` with 1 warm-up and 3
@@ -139,10 +142,21 @@ Phases, in order; any failure exits non-zero before the last line:
    replayed on the card bit-identical to the live run and a second replay
    profiled for the fold's device time; (z') the JAX bench's async A/B at
    its selfcheck shape (sync and async twice each, generations/s); the
-   hub's cost (``ESTORCH_OBS=0`` against on) on the cell and on (j).
+   hub's cost (``ESTORCH_OBS=0`` against on) on the cell and on (j);
+13. crash-safe training on the main path's cell (``run_crash_safe``): (aa)
+   a checkpoint after 1 + 2 generations, its bytes, the sync save's, the
+   async save's blocking and draining and the restore's times, then 2
+   resumed generations bit-identical to an uninterrupted 5 with exact
+   launches; (ab) ``run_resilient`` through a crash in a save and a
+   poisoned update, bit-identical to the clean run; (ac) the
+   ``Supervisor`` driving spawned children to generation 8 through a
+   SIGKILL and a silent wedge, its final checkpoint bit-identical to the
+   in-process run, records 0-7 each once, the time from each death to the
+   next child's first generation, and ``obs summarize``'s lines.
 
-Then one JSON line of per-path numbers, one of per-kernel numbers (launches
-from phase 3, and of the reduction in (j), (k), (m), phases 10, 11 and 12),
+Then one JSON line of per-path numbers (with phase 13's under
+``crash_safe``), one of per-kernel numbers (launches from phase 3, and of
+the reduction in (j), (k), (m), phases 10-13),
 the card line, and the last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -180,12 +194,15 @@ PATHS = [
 # streamed forward's 3 matvec launches an env step and the update's 1
 # reduction a generation)
 LOCO_HORIZON = 200  # the JAX bench's LOCO row (bench.py:285)
-LOCO10K_HORIZON = 100  # the JAX bench's LOCO10K rows (bench.py:287)
+# the JAX bench's LOCO10K rows run 400 (bench.py:287): cut to 100 in PR 4,
+# to 50 to make room for phase 13
+LOCO10K_HORIZON = 50
 ENV_PATHS = [
+    # (f) and (g) time 2 generations (3 before phase 13)
     ("f loco/standard/f32", lambda tt, cf: cf.cheetah2d_device(
-        agent_kwargs={"env": tt.Cheetah2D(), "horizon": LOCO_HORIZON}), 3, False),
+        agent_kwargs={"env": tt.Cheetah2D(), "horizon": LOCO_HORIZON}), 2, False),
     ("g loco/streamed/f32+nk", lambda tt, cf: cf.cheetah2d_device(
-        agent_kwargs={"env": tt.Cheetah2D(), "horizon": LOCO_HORIZON}, **STREAMED), 3, True),
+        agent_kwargs={"env": tt.Cheetah2D(), "horizon": LOCO_HORIZON}, **STREAMED), 2, True),
     ("h loco10k/lowrank1+obsnorm/bf16", lambda tt, cf: cf.humanoid2d_pop10k(
         agent_kwargs={"env": tt.Humanoid2D(), "horizon": LOCO10K_HORIZON},
         compute_dtype="bfloat16"), 1, False),
@@ -1696,44 +1713,49 @@ def rel_max(a, b) -> float:
     return float((a.cpu() - b.cpu()).abs().max() / b.cpu().abs().max())
 
 
-def compare_fold_card_cpu(torch, tt, nk) -> list[dict]:
-    """Phase 4, the fold: a live fold run of the (m) policy at population 32,
-    horizon 60, 4 thread workers on the CPU with a straggler folded late,
-    its event log replayed on the card and on the CPU: one reduction launch
-    an update on the card, params within 1e-6 of their largest entry (the
-    kernel and the plain gather + product sum in other orders; the Adam
-    steps in float32), the async blocks' counts equal."""
+def compare_fold_card_cpu(torch, tt, nk, n_logs: int = 3) -> list[dict]:
+    """Phase 4, the fold: ``n_logs`` live fold runs of the (m) policy at
+    population 32, horizon 60, 4 thread workers on the CPU with a straggler
+    folded late, each run's event log replayed on the card and on the CPU:
+    one reduction launch an update on the card, params within 1e-6 of their
+    largest entry (the kernel and the plain gather + product sum in other
+    orders; the Adam steps in float32), the async blocks' counts equal.
+    Each live run times its own stragglers, so each log is another batch
+    mix: the importance ratios of every mix must agree across devices."""
     small = dict(population_size=32, table_size=1 << 22, horizon=60)
-    with_chaos([{"kind": "straggler", "gen": 1, "member": 5, "sleep_s": 0.5}])
-    try:
-        live = host_es(tt, device="cpu", **small)
-        live.train_async(4, n_proc=4, verbose=False)
-    finally:
-        with_chaos(None)
-    log = json.loads(json.dumps(live.async_event_log.to_dict()))
-    folded = sum(r["async"]["folded"] for r in live.history)
-    es_gpu, es_cpu = host_es(tt, **small), host_es(tt, device="cpu", **small)
-    torch.cuda.synchronize()
-    nk.reset_launch_counts()
-    es_gpu.train_async(4, replay=log, verbose=False)
-    torch.cuda.synchronize()
-    counts = dict(nk.launch_counts)
-    es_cpu.train_async(4, replay=log, verbose=False)
-    err = rel_max(es_gpu.state.params_flat, es_cpu.state.params_flat)
     keys = ("consumed", "fresh", "folded", "max_staleness", "consumed_dispatches")
-    same = all(a["async"][k] == b["async"][k] for a, b in zip(es_gpu.history, es_cpu.history)
-               for k in keys)
-    print(f"card vs CPU, the fold (VBN 64x64, pop 32, horizon 60, a CPU live run's log of 4 "
-          f"updates, {folded} results folded late, replayed): params rel err {err:.3g} (tol "
-          f"1e-6), launches {counts}, async blocks equal {same}")
-    if err > 1e-6 or not same or folded == 0 or counts != {"weighted_noise_sum": 4,
-                                                           "population_noise_matvec": 0}:
-        fail(f"card vs CPU, the fold: rel err {err:g}, blocks equal {same}, folded {folded}, "
-             f"launches {counts}")
-    for es in (live, es_gpu, es_cpu):
-        es.engine.close()
-    return [{"check": "the fold, replayed", "params_rel_err": err, "folded": folded,
-             "launches": counts}]
+    out = []
+    for i in range(n_logs):
+        with_chaos([{"kind": "straggler", "gen": 1, "member": 5, "sleep_s": 0.5}])
+        try:
+            live = host_es(tt, device="cpu", **small)
+            live.train_async(4, n_proc=4, verbose=False)
+        finally:
+            with_chaos(None)
+        log = json.loads(json.dumps(live.async_event_log.to_dict()))
+        folded = sum(r["async"]["folded"] for r in live.history)
+        es_gpu, es_cpu = host_es(tt, **small), host_es(tt, device="cpu", **small)
+        torch.cuda.synchronize()
+        nk.reset_launch_counts()
+        es_gpu.train_async(4, replay=log, verbose=False)
+        torch.cuda.synchronize()
+        counts = dict(nk.launch_counts)
+        es_cpu.train_async(4, replay=log, verbose=False)
+        err = rel_max(es_gpu.state.params_flat, es_cpu.state.params_flat)
+        same = all(a["async"][k] == b["async"][k]
+                   for a, b in zip(es_gpu.history, es_cpu.history) for k in keys)
+        print(f"card vs CPU, the fold, log {i + 1} of {n_logs} (VBN 64x64, pop 32, horizon 60, "
+              f"a CPU live run's log of 4 updates, {folded} results folded late, replayed): "
+              f"params rel err {err:.3g} (tol 1e-6), launches {counts}, async blocks equal {same}")
+        if err > 1e-6 or not same or folded == 0 or counts != {"weighted_noise_sum": 4,
+                                                               "population_noise_matvec": 0}:
+            fail(f"card vs CPU, the fold, log {i + 1}: rel err {err:g}, blocks equal {same}, "
+                 f"folded {folded}, launches {counts}")
+        for es in (live, es_gpu, es_cpu):
+            es.engine.close()
+        out.append({"check": f"the fold, replayed, log {i + 1}", "params_rel_err": err,
+                    "folded": folded, "launches": counts})
+    return out
 
 
 def overlap_in_turns(torch, nk, label: str, build, per_gen: dict) -> dict:
@@ -1987,6 +2009,267 @@ def run_async_paths(torch, tt, nk, card: str) -> dict:
     paths.append(run_fold_path(torch, tt, nk, card))
     paths.append(run_bench_ab(torch, tt))
     return {"paths": paths, "hub_cost": hub_cost(torch, tt, nk)}
+
+
+# phase 13, crash-safe training on the main path's cell: the supervised run's
+# target, checkpoint interval, chaos (a SIGKILL before generation 4 and a
+# silent wedge before 6) and heartbeat staleness limit (a generation takes
+# 0.15-0.5 s; a restarted child's setup beats between its steps)
+SUP_TARGET = 8
+SUP_EVERY = 2
+SUP_STALE_S = 15.0
+
+
+def streamed_cell():
+    """The main path's cell, built on the card: phase 13's supervised
+    children build it from this module (``"chip_smoke:streamed_cell"``)."""
+    from estorch_tpu_torch import ES, DeviceAgent, MLPPolicy, Pendulum, adam
+
+    return ES(MLPPolicy, DeviceAgent(Pendulum(), horizon=HORIZON), adam,
+              population_size=POPULATION, sigma=0.05, policy_kwargs=POLICY,
+              optimizer_kwargs={"learning_rate": 1e-2}, **STREAMED)
+
+
+def same_state(a, b) -> bool:
+    """Two device states bit for bit (params, Adam's moments and count, σ,
+    generation), on whatever devices they are."""
+    return (torch_equal(a.params_flat, b.params_flat)
+            and torch_equal(a.opt_state.mu, b.opt_state.mu)
+            and torch_equal(a.opt_state.nu, b.opt_state.nu)
+            and a.opt_state.count == b.opt_state.count and a.generation == b.generation
+            and torch_equal(a.sigma, b.sigma))
+
+
+def torch_equal(x, y) -> bool:
+    import torch
+
+    return bool(torch.equal(x.cpu(), y.cpu()))
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(path)
+               for f in files)
+
+
+def compare_checkpoint_card_cpu(torch, tt) -> dict:
+    """Phase 4, the checkpoint across devices: the streamed path at
+    population 64, horizon 50, two generations on the CPU, checkpointed,
+    restored on the card (the state bit for bit) and continued two
+    generations on each, at phase 4's float32 tolerance (reward_mean within
+    1e-4 relative, params within 1e-4)."""
+    import shutil
+    import tempfile
+
+    from estorch_tpu_torch.utils import restore_checkpoint, save_checkpoint
+
+    small = dict(population_size=64, sigma=0.05, policy_kwargs=POLICY,
+                 optimizer_kwargs={"learning_rate": 1e-2}, table_size=1 << 22, **STREAMED)
+
+    def make(device):
+        return tt.ES(tt.MLPPolicy, tt.DeviceAgent(tt.Pendulum(), horizon=50), tt.adam,
+                     device=device, **small)
+
+    cpu, card = make("cpu"), make(None)
+    cpu.train(2, verbose=False)
+    path = tempfile.mkdtemp(prefix="chip_smoke_ck_")
+    try:
+        save_checkpoint(cpu, path)
+        restore_checkpoint(card, path)
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    if card.state.params_flat.device.type != "cuda" or not same_state(card.state, cpu.state):
+        fail("a CPU checkpoint restored on the card is not the CPU's state")
+    card.train(2, verbose=False)
+    cpu.train(2, verbose=False)
+    fit_err = max(abs(a["reward_mean"] - b["reward_mean"]) / abs(b["reward_mean"])
+                  for a, b in zip(card.history[2:], cpu.history[2:]))
+    p_err = float((card.state.params_flat.cpu() - cpu.state.params_flat).abs().max())
+    if fit_err > 1e-4 or p_err > 1e-4 or len(card.history) != 4:
+        fail(f"CPU checkpoint continued on the card: reward_mean rel err {fit_err:g}, "
+             f"params max |err| {p_err:g}")
+    print(f"card vs CPU, a CPU checkpoint at generation 2 restored on the card (bit for bit) "
+          f"and continued 2 generations: reward_mean rel err {fit_err:.3g} (tol 1e-4), "
+          f"params max |err| {p_err:.3g} (tol 1e-4)")
+    return {"check": "CPU checkpoint continued on the card", "reward_mean_rel_err": fit_err,
+            "params_max_abs_err": p_err}
+
+
+def watch_records(path: str, stop, seen: list) -> None:
+    """Note the time at which each line lands in the supervised run's
+    JSONL (a generation's end in a child), until ``stop`` is set."""
+    n = 0
+    while not stop.is_set():
+        try:
+            with open(path) as f:
+                lines = f.read().count("\n")
+        except OSError:
+            lines = 0
+        now = time.time()
+        seen.extend([now] * (lines - n))
+        n = max(n, lines)
+        time.sleep(0.02)
+
+
+def run_crash_safe(torch, tt, nk, card: str) -> dict:
+    """Phase 13 on the main path's cell (both kernels):
+
+    (aa) a checkpoint after 1 + 2 generations: its bytes on disk, the sync
+    save's time, the async save's time blocking the loop and its drain,
+    the restore's time; the async checkpoint restores to the state at its
+    call, and the restored run continued 2 generations is the uninterrupted
+    run of 5 bit for bit, with the launches exact (600 matvec + 1 reduction
+    a generation);
+
+    (ab) ``run_resilient`` with a crash in the save at ``es.generation`` 2
+    and a poisoned update at generation 3: skipped 1, rejected 1, the clean
+    run's params bit for bit;
+
+    (ac) the ``Supervisor`` with spawned children built by
+    ``"chip_smoke:streamed_cell"``, target 8, a checkpoint every 2, a
+    SIGKILL before generation 4 and a 600 s silent wedge before 6: two
+    restarts (exit -SIGKILL, then a stale heartbeat), the final checkpoint
+    the in-process run of 8 bit for bit, records 0-7 each once, the time
+    from each death being noticed to the next child's first generation,
+    and ``obs summarize``'s lines.
+    """
+    import shutil
+    import tempfile
+    import threading
+
+    from estorch_tpu_torch.resilience import ChaosPlan, Supervisor, run_resilient
+    from estorch_tpu_torch.utils import (PeriodicCheckpointer, restore_checkpoint,
+                                         save_checkpoint)
+
+    out: dict = {"path": "crash-safe training (phase 13)", "cell": "streamed (phase 3)"}
+    work = tempfile.mkdtemp(prefix="chip_smoke_crash_")
+    try:
+        # (aa) -------------------------------------------------------------
+        a = streamed_cell()
+        a.train(1, verbose=False)  # warm-up
+        a.train(2, verbose=False)
+        torch.cuda.synchronize()
+        at3 = a.state
+        sync_dir, async_dir = os.path.join(work, "sync"), os.path.join(work, "async")
+        t0 = time.perf_counter()
+        save_checkpoint(a, sync_dir)
+        sync_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        handle = save_checkpoint(a, async_dir, asynchronous=True)
+        block_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        handle.wait()
+        drain_ms = (time.perf_counter() - t0) * 1e3
+        b = streamed_cell()
+        restore_checkpoint(b, async_dir)
+        if not same_state(b.state, at3):
+            fail("(aa) the async checkpoint does not hold the state at its call")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restore_checkpoint(b, sync_dir)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        nk.reset_launch_counts()
+        b.train(2, verbose=False)
+        resumed = dict(nk.launch_counts)
+        a.train(2, verbose=False)
+        want = {"population_noise_matvec": 2 * 3 * HORIZON, "weighted_noise_sum": 2}
+        if resumed != want:
+            fail(f"(aa) resumed launches {resumed}, expected {want}")
+        if not torch.equal(a.state.params_flat, b.state.params_flat) or \
+                [r["reward_mean"] for r in a.history] != [r["reward_mean"] for r in b.history]:
+            fail("(aa) the resumed run is not the uninterrupted run of 5 bit for bit")
+        nbytes = dir_bytes(sync_dir)
+        print(f"(aa) checkpoint at generation 3: {nbytes} bytes on disk; sync save "
+              f"{sync_ms:.2f} ms, async save {block_ms:.2f} ms blocking + {drain_ms:.2f} ms "
+              f"drain, restore {restore_ms:.2f} ms (host clock, {card}); resumed 2 "
+              f"generations bit-identical to the uninterrupted 5, launches {resumed}")
+        out["checkpoint"] = {"bytes": nbytes, "sync_save_ms": sync_ms,
+                             "async_block_ms": block_ms, "async_drain_ms": drain_ms,
+                             "restore_ms": restore_ms, "resumed_launches": resumed,
+                             "bit_identical": True}
+
+        # (ab) -------------------------------------------------------------
+        with_chaos([{"kind": "ckpt_crash", "gen": 2}, {"kind": "nan_update", "gen": 3}])
+        try:
+            r = streamed_cell()
+            ck = PeriodicCheckpointer(r, os.path.join(work, "ab"), every=1, max_to_keep=2)
+            t0 = time.perf_counter()
+            run_resilient(r, 5, checkpointer=ck)
+            torch.cuda.synchronize()
+            ab_s = time.perf_counter() - t0
+        finally:
+            with_chaos(None)
+        skipped = r.obs.counters.get("generations_skipped")
+        rejected = r.obs.counters.get("generations_rejected")
+        if skipped != 1 or rejected != 1 or not torch.equal(r.state.params_flat,
+                                                           a.state.params_flat):
+            fail(f"(ab) run_resilient: skipped {skipped}, rejected {rejected}, params "
+                 f"equal {torch.equal(r.state.params_flat, a.state.params_flat)}")
+        print(f"(ab) run_resilient, ckpt_crash at es.generation 2 and nan_update at 3: "
+              f"generations_skipped {skipped}, generations_rejected {rejected}, params "
+              f"bit-identical to the clean run of 5; {ab_s:.2f} s for 5 generations with "
+              "a save each")
+        out["run_resilient"] = {"generations_skipped": skipped, "generations_rejected": rejected,
+                                "seconds": ab_s, "bit_identical": True}
+        del r
+
+        # (ac) -------------------------------------------------------------
+        a.train(SUP_TARGET - a.generation, verbose=False)  # the in-process run of 8
+        root = os.path.join(work, "sup")
+        plan = [{"kind": "die", "gen": 4}, {"kind": "wedge", "gen": 6, "sleep_s": 600.0}]
+        with_chaos(ChaosPlan(plan, ledger=os.path.join(work, "chaos_ledger")))
+        stop, seen = threading.Event(), []
+        watcher = threading.Thread(target=watch_records,
+                                   args=(os.path.join(root, "run.jsonl"), stop, seen))
+        watcher.start()
+        t0 = time.time()
+        try:
+            sup = Supervisor("chip_smoke:streamed_cell", root, SUP_TARGET, every=SUP_EVERY,
+                             max_restarts=3, backoff_s=0.1, poll_s=0.25,
+                             stale_after_s=SUP_STALE_S, startup_grace_s=240.0)
+            res = sup.run()
+        finally:
+            stop.set()
+            watcher.join()
+            with_chaos(None)
+        sup_s = time.time() - t0
+        restarts = res["restarts"]
+        if not res["ok"] or len(restarts) != 2 or restarts[0]["exitcode"] != -9 \
+                or "stale" not in restarts[1]["reason"]:
+            fail(f"(ac) supervisor: {res}")
+        restore_checkpoint(b, res["checkpoint"])
+        if b.generation != SUP_TARGET or not same_state(b.state, a.state):
+            fail(f"(ac) the supervised run's final checkpoint ({res['checkpoint']}) is not "
+                 f"the in-process train({SUP_TARGET}) bit for bit")
+        with open(os.path.join(root, "run.jsonl")) as f:
+            gens = [json.loads(line)["generation"] for line in f if line.strip()]
+        if gens != list(range(SUP_TARGET)):
+            fail(f"(ac) records {gens}, expected 0..{SUP_TARGET - 1} each once")
+        to_first = [next((t for t in seen if t > rs["ts"]), float("nan")) - rs["ts"]
+                    for rs in restarts]
+        summ = subprocess.run([sys.executable, "-m", "estorch_tpu_torch.obs", "summarize",
+                               os.path.join(root, "run.jsonl")], cwd=HERE,
+                              capture_output=True, text=True, timeout=120)
+        if summ.returncode != 0 or "restarts         2" not in summ.stdout:
+            fail(f"(ac) obs summarize: {summ.stdout} {summ.stderr}")
+        lines = [ln for ln in summ.stdout.splitlines()
+                 if ln.startswith(("resilience", "restarts", "diagnosis"))]
+        resil = json.load(open(os.path.join(root, "manifest.json")))["resilience"]
+        for i, (rs, dt) in enumerate(zip(restarts, to_first)):
+            print(f"(ac) restart {i + 1}: {rs['reason']}; death noticed -> the next child's "
+                  f"first generation {dt:.2f} s")
+        print(f"(ac) supervised run to {SUP_TARGET}: {sup_s:.1f} s, final checkpoint "
+              f"bit-identical to the in-process run, records 0-{SUP_TARGET - 1} each once, "
+              f"counters {resil['counters']}")
+        for ln in lines:
+            print(f"  obs summarize: {ln}")
+        out["supervisor"] = {"seconds": sup_s, "restarts": [
+            {"reason": rs["reason"], "exitcode": rs["exitcode"], "to_first_generation_s": dt}
+            for rs, dt in zip(restarts, to_first)], "counters": resil["counters"],
+            "summarize": lines, "bit_identical": True}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
 
 
 def main() -> None:
@@ -2262,6 +2545,7 @@ def main() -> None:
     env_cmp += compare_recurrent_card_cpu(torch, estorch_tpu_torch)
     env_cmp += compare_novelty_card_cpu(torch, estorch_tpu_torch)
     env_cmp += compare_fold_card_cpu(torch, estorch_tpu_torch, nk)
+    env_cmp.append(compare_checkpoint_card_cpu(torch, estorch_tpu_torch))
 
     # ---- 5. the slice's other paths at full width ----------------------------
     phase("5. the other paths")
@@ -2304,6 +2588,10 @@ def main() -> None:
     async_paths = run_async_paths(torch, estorch_tpu_torch, nk, card)
     fold = next(p for p in async_paths["paths"] if p.get("strategy") == "fold")
 
+    # ---- 13. crash-safe training ---------------------------------------------------
+    phase("13. crash-safe training")
+    crash_safe = run_crash_safe(torch, estorch_tpu_torch, nk, card)
+
     # ---- report --------------------------------------------------------------
     phase("report")
     kernels = [
@@ -2321,7 +2609,8 @@ def main() -> None:
          "launches_novelty": {p["path"]: p["launches"]["weighted_noise_sum"]
                               for p in novelty},
          "launches_async": {fold["path"]: fold["launches"]["weighted_noise_sum"]},
-         "launches_per_fold_update": fold["launches_per_update"]},
+         "launches_per_fold_update": fold["launches_per_update"],
+         "launches_resumed": crash_safe["checkpoint"]["resumed_launches"]["weighted_noise_sum"]},
         {"name": "population_noise_matvec", "route": "cuda",
          "source": "estorch_tpu_torch/ops/csrc/noise_kernels.cu",
          "replaces": "estorch_tpu/ops/pallas_noise.py:201",
@@ -2333,10 +2622,12 @@ def main() -> None:
                                            "plain_ms", "bound_ms")}
                     for layer in layers + extra],
          "launches_novelty": {p["path"]: p["launches"]["population_noise_matvec"]
-                              for p in novelty}},
+                              for p in novelty},
+         "launches_resumed": crash_safe["checkpoint"]["resumed_launches"][
+             "population_noise_matvec"]},
     ]
     print(json.dumps({"paths": paths, "eval_chunk": chunking, "card_vs_cpu_envs": env_cmp,
-                      "async": async_paths}))
+                      "async": async_paths, "crash_safe": crash_safe}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

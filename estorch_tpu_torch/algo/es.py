@@ -632,7 +632,7 @@ class ES:
         """The plumbing every train loop shares (sync, fold, overlap): the
         generation's spans flushed into ``phases``, and the run's counters.
         (The JAX package's compile events and cost model wait for
-        ``obs/profile/``, ROADMAP.md port item 6.)"""
+        ``obs/profile/``, ROADMAP.md port item 6b.)"""
         record["phases"] = self.obs.take_phases()
         self.obs.counters.inc("env_steps", record["env_steps"])
         if record["n_failed"]:
@@ -652,6 +652,35 @@ class ES:
         return (f"gen {r['generation']:4d}  max {r['reward_max']:9.2f}  "
                 f"mean {r['reward_mean']:9.2f}  best {r['best_reward']:9.2f}  "
                 f"steps/s {r['env_steps_per_sec']:,.0f}")
+
+    # ----------------------------------------------------------- observability
+
+    def run_manifest(self, extra: dict | None = None) -> dict:
+        """The facts of this run (``obs/manifest.py``): the JAX package's
+        config keys, torch's versions, the run's device, the git sha."""
+        from ..obs.manifest import collect_manifest
+
+        cfg = getattr(self, "config", None)  # the device and pooled engines' config
+        config = {
+            "algorithm": type(self).__name__,
+            "backend": self.backend,
+            "population_size": self.population_size,
+            "sigma": self.sigma,
+            "seed": self.seed,
+            "compute_dtype": cfg.compute_dtype if cfg else "float32",
+            "mirrored": cfg.mirrored if cfg else bool(self.engine.mirrored),
+            "obs_norm": bool(cfg and cfg.obs_norm),
+            "low_rank": cfg.low_rank if cfg else 0,
+            "decomposed": bool(cfg and cfg.decomposed),
+            "streamed": bool(cfg and cfg.streamed),
+            "shard_params": False,
+        }
+        return collect_manifest(config=config, devices=[self.device], extra=extra)
+
+    def write_manifest(self, path: str, extra: dict | None = None) -> str:
+        from ..obs.manifest import write_manifest
+
+        return write_manifest(path, self.run_manifest(extra))
 
     # ------------------------------------------------------------- inspection
 

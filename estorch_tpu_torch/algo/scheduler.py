@@ -433,10 +433,16 @@ class GenerationScheduler:
                     # the current center
                     d_vec = (src.params - center) / sigma_u
                     c = src.sigma / sigma_u
-                    eps = gather_rows(eng.table, torch.from_numpy(offs).to(eng.device), dim)
-                    stats = torch.stack([eps @ d_vec, (eps * eps).sum(dim=1)]).cpu().numpy()
+                    # the stats in float64: log λ is a difference of terms
+                    # of size ‖d‖², and a float32 dot's rounding (which
+                    # differs between the card's and the CPU's summation
+                    # order) would move λ, and the update, by far more
+                    eps = gather_rows(eng.table, torch.from_numpy(offs).to(eng.device),
+                                      dim).double()
+                    d64 = d_vec.double()
+                    stats = torch.stack([eps @ d64, (eps * eps).sum(dim=1)]).cpu().numpy()
                     lam = clipped_stale_lambdas(stats[0] * signs, stats[1],
-                                                float(d_vec @ d_vec), c, dim, self.iw_clip)
+                                                float(d64 @ d64), c, dim, self.iw_clip)
                     lam_stale.extend(float(x) for x in lam)
                 coeff = w[idx] * lam
                 row_offs.append(offs)

@@ -26,6 +26,13 @@ result at the deadline stays NaN and the update drops it
 (``utils/fault.py``).  Stale replies of late workers are told apart by a
 sequence tag and discarded.
 
+A worker counts as dead once its pipe has reached EOF, whatever
+``Process.is_alive()`` says: a live worker never closes its end, and a
+SIGKILLed worker's pipe reaches EOF when the kernel closes its files,
+before the process is a zombie that ``waitpid`` can see.  Under load that
+window is wide; trusting ``is_alive()`` alone there left the dead worker's
+members unretried (NaN) and the run parted from a clean one.
+
 The asynchronous API (:meth:`ProcessPool.dispatch`, :meth:`ProcessPool.poll`,
 ``worker_alive``, ``conn_has_data``) serves the fold scheduler
 (``algo/scheduler.py``): one slice message a worker, and every reply
@@ -50,8 +57,11 @@ from ..obs.spans import NULL_TELEMETRY
 # noticed after about this long, not after the whole deadline
 POLL_SLICE_S = 0.1
 
-# the worker's idle poll: what makes a dead parent's EOF observable
+# the worker's idle poll: how soon a worker whose parent died notices it
 WORKER_POLL_S = 1.0
+
+# the bound on reaping a worker whose pipe hit EOF before it was a zombie
+REAP_TIMEOUT_S = 5.0
 
 
 def _worker_main(conn, worker_id: int, policy_factory: Callable[[], Any],
@@ -70,12 +80,19 @@ def _worker_main(conn, worker_id: int, policy_factory: Callable[[], Any],
     from .engine import call_rollout, load_flat, member_sign_offset
 
     torch.set_num_threads(1)  # workers parallelize across processes, not BLAS
+    parent = os.getppid()
     policy = policy_factory()
     policy.load_state_dict(master_state)  # buffers: parameter loads write only parameters
     agent = agent_factory()
 
     while True:
         if not conn.poll(WORKER_POLL_S):
+            # a SIGKILLed parent sends no EOF: each fork inherits the parent
+            # ends of the pipes made before it (its own included), so the
+            # pipe stays open.  Reparenting is what tells: an orphan exits
+            # rather than hold its parent's stdout open forever
+            if os.getppid() != parent:
+                return
             continue
         try:
             msg = conn.recv()
@@ -131,7 +148,7 @@ class ProcessPool:
         self._procs: list[Any] = [None] * self.n_proc
         self._conns: list[Any] = [None] * self.n_proc
         self._retired: list[Any] = []  # replaced dead workers, joined at close
-        self._eof: set[int] = set()  # workers whose pipe hit EOF (poll skips them)
+        self._eof: set[int] = set()  # workers whose pipe hit EOF: dead (see above)
         for w in range(self.n_proc):
             self._spawn(w)
 
@@ -149,14 +166,23 @@ class ProcessPool:
     def worker_pids(self) -> list[int]:
         return [p.pid for p in self._procs]
 
+    def _dead(self, w: int) -> bool:
+        return w in self._eof or not self._procs[w].is_alive()
+
     def respawn_dead(self) -> int:
         """Replace dead workers with fresh forks (at a generation boundary);
-        a dead worker's pipe is closed, with any stale result in it.
+        a dead worker's pipe is closed, with any stale result in it, and a
+        worker whose pipe hit EOF before it was reaped is joined (bounded).
         Returns the number replaced."""
         n = 0
         for w, p in enumerate(self._procs):
-            if p.is_alive():
+            if not self._dead(w):
                 continue
+            if p.is_alive():  # EOF came first: the kernel is still tearing it down
+                p.join(timeout=REAP_TIMEOUT_S)
+                if p.is_alive():
+                    p.kill()
+                    p.join(timeout=REAP_TIMEOUT_S)
             try:
                 self._conns[w].close()
             except OSError:
@@ -173,7 +199,9 @@ class ProcessPool:
             self._conns[w].send(msg)
             return True
         except (BrokenPipeError, OSError):
-            # a dead worker: the retry or NaN path covers its slice
+            # a dead worker (its end is closed): the retry or NaN path
+            # covers its slice
+            self._eof.add(w)
             self.telemetry.counters.inc("worker_send_failures")
             return False
 
@@ -190,7 +218,7 @@ class ProcessPool:
             if not ready:
                 # a corpse with an empty pipe never answers: do not wait for it
                 for w in [w for w, c in pending.items()
-                          if not self._procs[w].is_alive() and not c.poll(0)]:
+                          if self._dead(w) and not c.poll(0)]:
                     del pending[w]
                 continue
             for c in ready:
@@ -199,6 +227,7 @@ class ProcessPool:
                     got = c.recv()
                 except (EOFError, OSError):
                     del pending[w]  # the pipe closed under us: the worker died
+                    self._eof.add(w)
                     continue
                 if got[0] == seq:
                     parts.append(got[1:])
@@ -225,8 +254,8 @@ class ProcessPool:
         # Alive stragglers are not retried; their results may still come.
         covered = {int(i) for indices, *_ in parts for i in indices}
         missing = [i for i in range(self.population_size)
-                   if i not in covered and not self._procs[i % self.n_proc].is_alive()]
-        alive = [w for w in range(self.n_proc) if self._procs[w].is_alive()]
+                   if i not in covered and self._dead(i % self.n_proc)]
+        alive = [w for w in range(self.n_proc) if not self._dead(w)]
         if missing and alive and deadline - time.monotonic() > 0:
             self.telemetry.counters.inc("slice_retries")
             self.telemetry.counters.inc("members_retried", len(missing))
@@ -286,7 +315,7 @@ class ProcessPool:
         return out
 
     def worker_alive(self, w: int) -> bool:
-        return self._procs[w].is_alive()
+        return not self._dead(w)
 
     def conn_has_data(self, w: int) -> bool:
         """A buffered reply outlives its writer: ``poll`` can still drain it."""

@@ -6,8 +6,9 @@ JAX param tree (the MLP's, or NatureCNN's with its conv kernels in HWIO and
 its VBN ``scale``/``bias``) or its flat ``params_flat``, a policy's frozen
 ``vbn_stats`` and the JAX noise table can be handed to the port and both
 compute the same thing; batched JAX env states
-are packed into the port's ``(n, state_dim)`` rows.  Only numpy crosses
-the boundary; nothing here imports JAX.
+are packed into the port's ``(n, state_dim)`` rows, and a JAX checkpoint's
+content restores a port ES in place (:func:`restore_from_jax`).  Only numpy
+crosses the boundary; nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -76,3 +77,70 @@ def env_states_from_jax(env: Any, states: Any, device: str | torch.device = "cpu
             for k in ("pos", "theta", "vel", "omega", "t")]
     packed = env.layout.pack_fields(*flat)
     return packed.reshape(lead + (packed.shape[-1],)).to(device)
+
+
+def _find_adam(node: Any):
+    """The ``(count, mu, nu)`` node of an optax state as numpy: the
+    ``ScaleByAdamState`` (a namedtuple, or the dict a checkpoint restores
+    it as) wherever it sits in the optax chain's tuple."""
+    if isinstance(node, dict) or hasattr(node, "items"):
+        if {"count", "mu", "nu"} <= set(node.keys()):
+            return node["count"], node["mu"], node["nu"]
+        children = list(node.values())
+    elif all(hasattr(node, k) for k in ("count", "mu", "nu")):
+        return node.count, node.mu, node.nu
+    elif isinstance(node, (list, tuple)):
+        children = list(node)
+    else:
+        return None
+    for child in children:
+        found = _find_adam(child)
+        if found is not None:
+            return found
+    return None
+
+
+def restore_from_jax(es, tree: dict, meta: dict, history: list | None = None) -> None:
+    """Restore the port's ``es`` (device or pooled backend) in place from
+    a JAX package checkpoint's content: ``tree`` is the numeric tree of its
+    ``_state_tree`` as numpy, ``meta`` its ``meta.json`` dict and
+    ``history`` its ``history.json`` list (kept when None).
+
+    Carried: params, the optax Adam state ``(count, mu, nu)`` as
+    ``optim.AdamState``, generation, σ, obs stats, the best member, the
+    history, the archive with its centers' BCs, the NSRA weight and the
+    meta RNG state.  The JAX key is not: the port keeps its own ``seed``
+    (its draws are not JAX's; tests inject JAX's).  A mismatch of backend,
+    algorithm or obs-norm schema raises the checkpoint's ``ValueError``s.
+    """
+    from .optim import AdamState
+    from .parallel.engine import ESState
+    from .utils.checkpoint import check_meta, restore_run
+
+    if es.backend == "host":
+        raise ValueError("restore_from_jax carries device and pooled states; a host "
+                         "checkpoint's torch optimizer state loads with torch directly")
+    check_meta(es, meta)
+    dev = es.device
+
+    def f32(x) -> torch.Tensor:
+        return torch.as_tensor(np.array(x, dtype=np.float32)).to(dev)
+
+    templates = list(es.meta_states) if hasattr(es, "meta_states") else [es.state]
+    states = []
+    for packed, template in zip(tree["states"], templates, strict=True):
+        opt = None
+        if template.opt_state is not None:
+            found = _find_adam(packed["opt_state"])
+            if found is None or not isinstance(template.opt_state, AdamState):
+                raise ValueError("only an optax Adam state carries across (optim.adam)")
+            count, mu, nu = found
+            opt = AdamState(int(np.asarray(count)), f32(mu), f32(nu))
+        obs_stats = packed.get("obs_stats")
+        states.append(ESState(
+            params_flat=f32(packed["params_flat"]), opt_state=opt, seed=template.seed,
+            generation=int(np.asarray(packed["generation"])), sigma=f32(packed["sigma"]),
+            obs_stats=None if obs_stats is None else tuple(f32(x) for x in obs_stats)))
+    restore_run(es, tree, meta, states, f32)
+    if history is not None:
+        es.history = list(history)

@@ -11,7 +11,8 @@ async scheduler use (stdlib only):
   the cap a quantile is the geometric midpoint of its bucket, within
   ``r - 1`` relative inside the ladder;
 * ``to_dict`` snapshots (sparse counts) in the JAX package's schema 1, the
-  shape the heartbeat carries.
+  shape the heartbeat carries, and :func:`merge_snapshots`, the
+  bucket-wise fold with which the supervisor sums its children's.
 
 Quantiles equal the JAX package's for the same observations.
 """
@@ -122,6 +123,71 @@ class Histogram:
             if self._exact is not None and not compact:
                 out["exact"] = list(self._exact)
             return out
+
+
+    def _same_ladder(self, other: "Histogram") -> bool:
+        return (self.lo, self.per_decade, self.n) == (other.lo, other.per_decade, other.n)
+
+    def merge(self, other: "Histogram") -> "Histogram":
+        """Fold ``other`` into self (in place; returns self).  Raises on a
+        ladder mismatch: bucket-wise addition across different edges would
+        make a distribution up."""
+        if not self._same_ladder(other):
+            raise ValueError(
+                f"ladder mismatch: (lo={self.lo}, per_decade={self.per_decade}, n={self.n}) "
+                f"vs (lo={other.lo}, per_decade={other.per_decade}, n={other.n})")
+        with other._lock:
+            o_counts, o_count, o_sum = list(other._counts), other._count, other._sum
+            o_exact = None if other._exact is None else list(other._exact)
+        with self._lock:
+            for i, c in enumerate(o_counts):
+                self._counts[i] += c
+            self._count += o_count
+            self._sum += o_sum
+            if self._exact is not None and o_exact is not None \
+                    and self._count <= self.exact_cap:
+                self._exact.extend(o_exact)
+            else:
+                self._exact = None
+        return self
+
+    @classmethod
+    def from_dict(cls, data: dict) -> "Histogram":
+        if data.get("schema") != HIST_SCHEMA:
+            raise ValueError(f"unknown histogram schema {data.get('schema')!r}")
+        per_decade, n = int(data["per_decade"]), int(data["n"])
+        if n % per_decade:
+            raise ValueError(f"n {n} not a multiple of per_decade {per_decade}")
+        h = cls(lo=float(data["lo"]), decades=n // per_decade, per_decade=per_decade)
+        for key, c in (data.get("counts") or {}).items():
+            i = int(key)
+            if not 0 <= i < len(h._counts):
+                raise ValueError(f"bucket index {i} outside ladder")
+            h._counts[i] = int(c)
+        h._count = int(data.get("count", 0))
+        h._sum = float(data.get("sum", 0.0))
+        exact = data.get("exact")
+        h._exact = [float(x) for x in exact] if isinstance(exact, list) else None
+        return h
+
+
+def merge_snapshots(total: dict | None, snaps: dict | None) -> dict:
+    """Bucket-wise fold of ``snaps`` (name → ``to_dict``) into ``total``, as
+    a new dict.  A ladder mismatch keeps the side with more observations:
+    a fold across restarts degrades, it never raises."""
+    out = {name: dict(snap) for name, snap in (total or {}).items()}
+    for name, snap in (snaps or {}).items():
+        if not isinstance(snap, dict):
+            continue
+        if name not in out:
+            out[name] = dict(snap)
+            continue
+        try:
+            out[name] = Histogram.from_dict(out[name]).merge(Histogram.from_dict(snap)).to_dict()
+        except (ValueError, KeyError, TypeError):
+            if int(snap.get("count", 0)) > int(out[name].get("count", 0)):
+                out[name] = dict(snap)
+    return out
 
 
 class Histograms:

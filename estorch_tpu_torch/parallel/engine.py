@@ -29,7 +29,9 @@ generation
    (``ops/gradient.py``), or one einsum per layer for ``low_rank``;
 5. applies weight decay, the optimizer step and σ annealing, and, with
    ``obs_norm``, refreshes the running observation moments from episodes
-   of the center policy.
+   of the center policy.  The ``nan_update`` chaos hook poisons the update
+   direction here (the JAX package has it on its host engine only), so the
+   post-update guard's rejection can be driven on the card too.
 
 The novelty family takes the same generation apart (``evaluate``, weights
 from the host's k-NN, ``apply_weights``); IW-ES adds ``noise_stats`` and
@@ -71,6 +73,7 @@ from ..ops.noise import NoiseTable, gather_rows, member_offsets, pair_signs, sam
 from ..ops.noise_kernels import weighted_noise_sum
 from ..ops.params import ParamSpec, map_tree
 from ..ops.ranks import centered_rank_safe
+from ..resilience.chaos import poison_update
 
 
 @dataclasses.dataclass(frozen=True)
@@ -670,6 +673,8 @@ class ESEngine:
         cfg = self.config
         if cfg.weight_decay > 0.0:
             grad_ascent = grad_ascent - cfg.weight_decay * state.params_flat
+        if poison_update(state.generation):
+            grad_ascent = torch.full_like(grad_ascent, float("nan"))
         updates, new_opt_state = self.optimizer.update(-grad_ascent, state.opt_state)
         new_sigma = state.sigma
         if cfg.sigma_decay != 1.0:

@@ -24,13 +24,20 @@ straggler       the same place, a ``sleep_s`` stall plus a jitter in
                 [0, ``jitter_s``) seeded by the event id
 nan_fitness     on the gathered fitness (host and pooled engines)
 kill_worker     SIGKILL of a process worker at the generation start
-nan_update      poisons the host engine's update direction
+nan_update      poisons the update direction (host engine, and the
+                device and pooled engines' update, which the JAX
+                package's lack)
+ckpt_crash      raises inside ``save_checkpoint``, after the sidecar
+                files and before the payload's commit
+die             SIGKILL of this whole process before the generation
+                (``run_resilient``)
+wedge           a silent ``sleep_s`` before the generation, no beats
+                (``run_resilient``; the supervisor's watchdog kills it)
 ==============  ====================================================
 
-The hooks of ``ckpt_crash``, ``die`` and ``wedge`` come with the
-checkpoint and supervisor (ROADMAP.md port item 6), those of
-``straggle_host``/``kill_host`` with the elastic scheduler (item 7), and
-those of ``kill_replica``/``wedge_replica`` with serving (item 9).
+The hooks of ``straggle_host``/``kill_host`` come with the elastic
+scheduler (ROADMAP.md port item 7), those of ``kill_replica``/
+``wedge_replica`` with serving (item 9).
 
 Events fire once: an in-memory set, and across processes the plan's
 optional ``ledger`` file of fired ids, appended.  With ``ESTORCH_CHAOS``
@@ -272,3 +279,36 @@ def poison_update(generation) -> bool:
     if plan is None:
         return False
     return any(plan.fire(ev) for ev in plan.events_at(int(generation), "nan_update"))
+
+
+def crash_checkpoint(generation) -> None:
+    """``ckpt_crash``: raise mid-checkpoint (the caller has written the
+    sidecar files and not committed the payload)."""
+    plan = active_plan()
+    if plan is None:
+        return
+    for ev in plan.events_at(int(generation), "ckpt_crash"):
+        if plan.fire(ev):
+            raise ChaosError(f"injected checkpoint-write crash (gen {int(generation)})")
+
+
+def process_kill(generation) -> None:
+    """``die``: SIGKILL this whole process.  ``fire`` writes the ledger
+    before the kill, so the restarted replay of the generation lives."""
+    plan = active_plan()
+    if plan is None:
+        return
+    for ev in plan.events_at(int(generation), "die"):
+        if plan.fire(ev):
+            os.kill(os.getpid(), signal.SIGKILL)
+
+
+def process_wedge(generation) -> None:
+    """``wedge``: sleep ``sleep_s`` (default an hour) without beating; the
+    supervisor's staleness watchdog must find and kill this process."""
+    plan = active_plan()
+    if plan is None:
+        return
+    for ev in plan.events_at(int(generation), "wedge"):
+        if plan.fire(ev):
+            time.sleep(float(ev.get("sleep_s", 3600.0)))

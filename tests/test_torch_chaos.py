@@ -13,6 +13,7 @@ members are retried on the survivors.
 
 import json
 import os
+import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -202,3 +203,78 @@ def test_kill_worker_retried_on_survivors(chaos_env):
     assert snap["workers_respawned"] == 1
     assert snap.get("members_retried", 0) + snap.get("worker_send_failures", 0) >= 1
     assert torch.equal(es.state.params_flat, clean.state.params_flat)
+
+
+def test_kill_worker_retried_when_reaping_lags(chaos_env):
+    """The kill race made deterministic: the killed worker's pipe reaches
+    EOF before ``waitpid`` can see it die.  Its ``is_alive()`` is made to
+    stay True for the first calls after the kill, as under load; the pool
+    must still count it dead from the EOF, retry its members on the
+    survivor, respawn it once, and end on the clean run's params."""
+    clean = make_host()
+    clean.train(3, verbose=False)
+    chaos_env([{"kind": "kill_worker", "gen": 1, "worker": 0}])
+    es = make_host(worker_mode="process")
+    real_kill = es.engine.chaos_kill_workers
+
+    def kill_then_lag(generation):
+        real_kill(generation)
+        if generation != 1:
+            return
+        proc = es.engine._proc_pool._procs[0]
+        real_is_alive, calls = proc.is_alive, [0]
+
+        def lagging_is_alive():
+            calls[0] += 1
+            return True if calls[0] <= 8 else real_is_alive()
+
+        proc.is_alive = lagging_is_alive
+
+    es.engine.chaos_kill_workers = kill_then_lag
+    try:
+        es.train(3, n_proc=2, verbose=False)
+    finally:
+        es.engine.close()
+    snap = es.obs.counters.snapshot()
+    assert snap["chaos_worker_kills"] == 1
+    assert snap["members_retried"] == 4
+    assert snap["workers_respawned"] == 1
+    assert [r["n_failed"] for r in es.history] == [0, 0, 0]
+    assert torch.equal(es.state.params_flat, clean.state.params_flat)
+
+
+def _train_and_report_workers(queue):
+    es = make_host(worker_mode="process")
+    es.train(1, n_proc=2, verbose=False)
+    queue.put(es.engine._proc_pool.worker_pids)
+    time.sleep(600)  # until killed
+
+
+def _gone(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/status") as f:
+            return "\tZ" in next(line for line in f if line.startswith("State:"))
+    except OSError:
+        return True
+
+
+def test_workers_exit_when_their_parent_is_killed():
+    """A SIGKILLed trainer (the supervisor's ``die``) leaves its fork
+    workers without EOF on their pipes (each holds parent ends it
+    inherited); they notice the reparenting and exit within a few polls."""
+    import multiprocessing as mp
+    import signal
+
+    ctx = mp.get_context("fork")
+    queue = ctx.Queue()
+    trainer = ctx.Process(target=_train_and_report_workers, args=(queue,))
+    trainer.start()
+    try:
+        pids = queue.get(timeout=60)
+    finally:
+        os.kill(trainer.pid, signal.SIGKILL)
+        trainer.join(10)
+    deadline = time.monotonic() + 15
+    while not all(_gone(p) for p in pids) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    assert all(_gone(p) for p in pids), f"orphaned workers still alive: {pids}"

@@ -762,3 +762,78 @@ def test_overlap_is_bitwise_train_on_card(cuda):
     assert nk.launch_counts == want == {"weighted_noise_sum": 3, "population_noise_matvec": 450}
     assert torch.equal(sync.state.params_flat, ov.state.params_flat)
     assert [r["reward_mean"] for r in sync.history] == [r["reward_mean"] for r in ov.history]
+
+
+def _streamed_cartpole(device):
+    from estorch_tpu_torch import ES, CartPole, DeviceAgent, MLPPolicy, adam
+
+    return ES(MLPPolicy, DeviceAgent(CartPole(), horizon=100), adam, device=device,
+              population_size=256, sigma=0.1, seed=3, table_size=1 << 20,
+              policy_kwargs={"action_dim": 2, "hidden": (32, 32)},
+              optimizer_kwargs={"learning_rate": 1e-2}, streamed=True, noise_kernel=True)
+
+
+def _states_equal_on_cpu(a, b) -> bool:
+    return (torch.equal(a.params_flat.cpu(), b.params_flat.cpu())
+            and torch.equal(a.opt_state.mu.cpu(), b.opt_state.mu.cpu())
+            and torch.equal(a.opt_state.nu.cpu(), b.opt_state.nu.cpu())
+            and a.opt_state.count == b.opt_state.count and a.generation == b.generation
+            and torch.equal(a.sigma.cpu(), b.sigma.cpu()))
+
+
+def test_checkpoint_resume_is_bitwise_on_card(cuda, tmp_path):
+    """A streamed CartPole run (both kernels) checkpointed at generation 2,
+    restored into a fresh object on the card and continued 2 generations:
+    the uninterrupted run's params bit for bit, through the kernels (3
+    matvec launches an env step, 1 reduction a generation)."""
+    from estorch_tpu_torch.utils import restore_checkpoint, save_checkpoint
+
+    ref = _streamed_cartpole(cuda)
+    ref.train(4, verbose=False)
+    a = _streamed_cartpole(cuda)
+    a.train(2, verbose=False)
+    save_checkpoint(a, str(tmp_path / "ck"))
+    b = _streamed_cartpole(cuda)
+    restore_checkpoint(b, str(tmp_path / "ck"))
+    assert b.state.params_flat.device.type == "cuda" and _states_equal_on_cpu(b.state, a.state)
+    nk.reset_launch_counts()
+    b.train(2, verbose=False)
+    assert nk.launch_counts["weighted_noise_sum"] == 2
+    assert nk.launch_counts["population_noise_matvec"] % 3 == 0
+    assert nk.launch_counts["population_noise_matvec"] > 0
+    assert torch.equal(b.state.params_flat, ref.state.params_flat)
+    assert [r["reward_mean"] for r in b.history] == [r["reward_mean"] for r in ref.history]
+
+
+def test_async_save_on_card_holds_the_state_at_the_call(cuda, tmp_path):
+    """An async save taken between generations, with training going on
+    before it is waited for: the checkpoint holds the state at the call."""
+    from estorch_tpu_torch.utils import restore_checkpoint, save_checkpoint
+
+    es = _streamed_cartpole(cuda)
+    es.train(2, verbose=False)
+    at_call = es.state
+    handle = save_checkpoint(es, str(tmp_path / "ck"), asynchronous=True)
+    es.train(3, verbose=False)
+    handle.wait()
+    b = _streamed_cartpole(cuda)
+    restore_checkpoint(b, str(tmp_path / "ck"))
+    assert b.generation == 2 and _states_equal_on_cpu(b.state, at_call)
+    assert not torch.equal(es.state.params_flat, at_call.params_flat)
+
+
+@pytest.mark.parametrize("src,dst", [("cpu", "cuda"), ("cuda", "cpu")])
+def test_checkpoint_crosses_devices(cuda, tmp_path, src, dst):
+    """A checkpoint from the CPU restores on the card and one from the card
+    on the CPU: the same state bit for bit, on the restoring ES's device."""
+    from estorch_tpu_torch.utils import restore_checkpoint, save_checkpoint
+
+    a = _streamed_cartpole(src)
+    a.train(2, verbose=False)
+    save_checkpoint(a, str(tmp_path / "ck"))
+    b = _streamed_cartpole(dst)
+    restore_checkpoint(b, str(tmp_path / "ck"))
+    assert b.state.params_flat.device.type == dst and b.state.opt_state.mu.device.type == dst
+    assert _states_equal_on_cpu(b.state, a.state)
+    b.train(1, verbose=False)
+    assert b.generation == 3

@@ -354,6 +354,10 @@ def test_host_agent_and_vbn_raise():
 def test_import_loads_no_jax_and_no_reference_package():
     code = (
         "import sys, estorch_tpu_torch, estorch_tpu_torch.algo.scheduler\n"
+        "import estorch_tpu_torch.utils.checkpoint, estorch_tpu_torch.resilience.supervisor\n"
+        "import estorch_tpu_torch.resilience.interleave, estorch_tpu_torch.obs.sinks\n"
+        "import estorch_tpu_torch.obs.manifest, estorch_tpu_torch.obs.summarize\n"
+        "import estorch_tpu_torch.obs.__main__\n"
         "bad = sorted(m for m in sys.modules if m.startswith(('jax', 'flax', 'optax', 'chex'))"
         " or m == 'estorch_tpu' or m.startswith('estorch_tpu.'))\n"
         "print(bad)\n"

@@ -11,6 +11,7 @@ JAX package's and that pass its ``validate_record``.
 
 import json
 import math
+import os
 import random
 import threading
 
@@ -36,6 +37,7 @@ from estorch_tpu_torch import (ES, IW_ES, NSR_ES, CartPole, DeviceAgent, MLPPoli
                                adam)
 from estorch_tpu_torch import obs as tobs
 from estorch_tpu_torch.obs import hist as thist
+from estorch_tpu_torch.obs import summarize as tsummarize
 from test_scheduler import QuadAgent, TinyPolicy
 
 CARTPOLE_POLICY = {"action_dim": 2, "hidden": (8,)}
@@ -209,6 +211,7 @@ def _check_records(tes, jes) -> None:
     for r in tes.history:
         assert "phases" in r
         assert validate_record(json.loads(json.dumps(r))) == []
+        assert tsummarize.validate_record(json.loads(json.dumps(r))) == []
 
 
 def test_device_records_match_jax():
@@ -286,3 +289,183 @@ def test_rejection_counts_and_keeps_phases_clean():
     assert any(e["name"] == "generation_rejected" for e in es.obs.recorder.events())
     assert es.obs.counters.get("generations") == 1
     assert np.isfinite(list(es.history[0]["phases"].values())).all()
+
+
+# ---------------------------------------------------------------------------
+# sinks, manifest, heartbeat reader and the summarizer
+# ---------------------------------------------------------------------------
+
+
+def _port_device_es(**kw):
+    return ES(MLPPolicy, DeviceAgent(CartPole(), horizon=20), adam, device="cpu",
+              **_device_kw(**kw))
+
+
+def _jax_device_es(**kw):
+    return JES(JMLPPolicy, JaxAgent, optax.adam, mesh=_mesh(),
+               agent_kwargs={"env": JCartPole(), "horizon": 20}, **_device_kw(**kw))
+
+
+def test_sinks_round_trip(tmp_path):
+    """JsonlSink appends what JsonlSink.read and the JAX package's reader
+    give back; MultiSink fans out and echoes; TensorBoardSink writes
+    scalars (or raises JAX's ImportError where tensorboard is missing)."""
+    from estorch_tpu.obs.sinks import JsonlSink as JJsonlSink
+
+    from estorch_tpu_torch.obs import JsonlSink, MultiSink, TensorBoardSink
+
+    es = _port_device_es()
+    path = str(tmp_path / "run.jsonl")
+    sink = JsonlSink(path)
+    seen = []
+    es.train(2, log_fn=MultiSink([sink, seen.append], echo=True))
+    sink.close()
+    back = JsonlSink.read(path)
+    assert back == JJsonlSink.read(path) == json.loads(json.dumps(seen))
+    assert [r["generation"] for r in back] == [0, 1]
+    try:
+        tb = TensorBoardSink(str(tmp_path / "tb"))
+    except ImportError as e:
+        assert "tensorboard" in str(e)
+    else:
+        for r in seen:
+            tb(r)
+        tb.close()
+        assert os.listdir(tmp_path / "tb")
+
+
+def test_manifest_has_the_jax_keys(tmp_path):
+    """The port's manifest has the JAX package's schema and keys, with
+    ``torch``/``cuda`` where JAX writes ``jax``; ``run_manifest``'s config
+    has JAX's keys and values for the same ES; the device entry is
+    ``{"id", "platform", "kind", "process_index"}``; a wrong schema raises."""
+    from estorch_tpu.obs import manifest as jmanifest
+
+    from estorch_tpu_torch.obs import manifest as tmanifest
+
+    t = _port_device_es().run_manifest()
+    j = _jax_device_es().run_manifest()
+    assert set(t) - {"torch", "cuda"} == set(j) - {"jax"}
+    assert t["schema"] == j["schema"] == tmanifest.MANIFEST_SCHEMA
+    assert t["config"] == j["config"]
+    assert set(t["devices"][0]) == set(j["devices"][0])
+    assert t["devices"] == [{"id": 0, "platform": "cpu", "kind": "cpu", "process_index": 0}]
+    path = tmanifest.write_manifest(str(tmp_path / "m.json"), t)
+    assert tmanifest.load_manifest(path) == jmanifest.load_manifest(path) == json.loads(
+        json.dumps(t))
+    json.dump({"schema": 99}, open(path, "w"))
+    with pytest.raises(ValueError, match="manifest schema 99"):
+        tmanifest.load_manifest(path)
+    host = ES(TinyPolicy, QuadAgent, torch.optim.Adam, device="cpu", population_size=8,
+              optimizer_kwargs={"lr": 0.05}, table_size=1 << 12).run_manifest()
+    jhost = JES(TinyPolicy, QuadAgent, torch.optim.Adam, population_size=8,
+                optimizer_kwargs={"lr": 0.05}, table_size=1 << 12).run_manifest()
+    assert host["config"] == jhost["config"]
+
+
+def test_read_and_describe_heartbeat_equal_jax(tmp_path):
+    from estorch_tpu.obs import recorder as jrecorder
+
+    from estorch_tpu_torch.obs import recorder as trecorder
+
+    path = str(tmp_path / "hb.json")
+    assert trecorder.read_heartbeat(path) is None
+    assert trecorder.describe_heartbeat(path) == jrecorder.describe_heartbeat(path)
+    trecorder.Heartbeat(path).beat("eval", 7, {"env_steps": 3})
+    t, j = trecorder.read_heartbeat(path), jrecorder.read_heartbeat(path)
+    assert set(t) == set(j) and t["phase"] == "eval" and t["generation"] == 7
+    assert 0 <= t["age_s"] < 60
+    assert trecorder.describe_heartbeat(path) == "last phase=eval gen=7 heartbeat 0s ago"
+    assert trecorder.STALE_AFTER_S == jrecorder.STALE_AFTER_S
+    rec = trecorder.FlightRecorder(capacity=2)
+    assert rec.last() is None
+    for i in range(3):
+        rec.add("event", f"e{i}")
+    assert rec.last()["name"] == "e2"
+    ring = str(tmp_path / "ring.jsonl")
+    open(ring, "w").write('{"kind": "event", "name": "old"}\n{"torn')
+    rec.dump_jsonl(ring)
+    assert [e["name"] for e in map(json.loads, open(ring))] == ["old", "e1", "e2"]
+
+
+def _write_jsonl(path, records):
+    with open(path, "w") as f:
+        for r in records:
+            f.write(json.dumps(r, default=float) + "\n")
+
+
+def test_summarize_equals_jax_on_port_and_jax_runs(tmp_path):
+    """For a port run's JSONL (sync and async records), a JAX run's, and a
+    supervised run's manifest: the port's ``summarize`` gives the JAX
+    package's dict; both selfchecks are clean; every port record passes
+    the port's ``validate_record``; a torn final line is dropped by both."""
+    import importlib
+
+    from estorch_tpu_torch.obs import summarize as tsum
+
+    jsum = importlib.import_module("estorch_tpu.obs.summarize")  # the package exports a function
+
+    assert tsum.selfcheck() == [] == jsum.selfcheck()
+    tes = _port_device_es()
+    tes.train(3, verbose=False)
+    host = ES(TinyPolicy, QuadAgent, torch.optim.Adam, device="cpu", population_size=8,
+              sigma=0.05, optimizer_kwargs={"lr": 0.05}, table_size=1 << 12)
+    host.train_async(3, verbose=False)
+    jes = _jax_device_es()
+    jes.train(3, verbose=False)
+    manifest = str(tmp_path / "manifest.json")
+    json.dump({"resilience": {"restart_count": 1, "completed": True,
+                              "restarts": [{"reason": "child died with exit code -9"}],
+                              "counters": {"generations_rejected": 2,
+                                           "generations_skipped": 1}}}, open(manifest, "w"))
+    for name, records in (("port", tes.history), ("async", host.history),
+                          ("jax", jes.history), ("replayed", tes.history + tes.history[1:])):
+        path = str(tmp_path / f"{name}.jsonl")
+        _write_jsonl(path, records)
+        if name != "jax":
+            for r in tsum.load_records(path):
+                assert tsum.validate_record(r) == [], name
+        loaded = tsum.load_records(path)
+        assert loaded == jsum.load_records(path)
+        for kw in ({}, {"manifest_path": manifest}):
+            t, j = tsum.summarize(loaded, **kw), jsum.summarize(loaded, **kw)
+            assert t == j, name
+            assert tsum.format_summary(t) == jsum.format_summary(j), name
+        with open(path, "a") as f:
+            f.write('{"generation": 9, "rew')
+        assert tsum.load_records_tolerant(path) == jsum.load_records_tolerant(path)
+    assert "async" in tsum.summarize(host.history)
+
+
+def test_cli_summarize(tmp_path):
+    """``python -m estorch_tpu_torch.obs``: ``summarize --selfcheck``, a run
+    with its heartbeat and manifest beside it (found without flags), the
+    JSON form, and the JAX package's other subcommands named as not ported."""
+    import subprocess
+    import sys
+
+    from estorch_tpu_torch.obs import JsonlSink
+
+    root = tmp_path / "run"
+    root.mkdir()
+    es = _port_device_es()
+    sink = JsonlSink(str(root / "run.jsonl"))
+    es.train(2, log_fn=sink)
+    sink.close()
+    es.write_manifest(str(root / "manifest.json"))
+    tobs.Heartbeat(str(root / "heartbeat.json")).beat("eval", 2)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+    def cli(*args):
+        return subprocess.run([sys.executable, "-m", "estorch_tpu_torch.obs", *args], cwd=repo,
+                              capture_output=True, text=True, timeout=120)
+
+    out = cli("summarize", "--selfcheck")
+    assert out.returncode == 0 and "obs selfcheck: OK" in out.stdout
+    out = cli("summarize", str(root / "run.jsonl"))
+    assert out.returncode == 0 and "generations      2" in out.stdout
+    assert "heartbeat fresh: last phase=eval gen=2" in out.stdout
+    out = cli("summarize", str(root / "run.jsonl"), "--json")
+    assert json.loads(out.stdout)["generations"] == 2
+    out = cli("trace", str(root / "run.jsonl"))
+    assert out.returncode == 3 and "item 6b" in out.stderr

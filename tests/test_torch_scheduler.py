@@ -224,6 +224,44 @@ def test_fold_batch_matches_jax():
     assert tnorm == pytest.approx(jnorm, rel=1e-6)
 
 
+def test_fold_stats_are_float64(monkeypatch):
+    """The stale members' ε·d and ‖ε‖², and ‖d‖², reach the importance
+    ratios as float64 sums.  log λ differs between members by terms of size
+    |ε·d|, so a float32 dot's rounding, which depends on the device's
+    summation order, would move λ and the update with it: a log replayed on
+    the card and on the CPU would part."""
+    from estorch_tpu_torch.host.engine import member_sign_offset
+
+    tes = make_host()
+    dim, sigma = tes.engine.dim, 0.05
+    rng = np.random.default_rng(5)
+    p_old = tes.state.params_flat.numpy().copy()
+    p_new = (p_old + rng.normal(0, 0.5, dim)).astype(np.float32)
+    offs_old = tes.engine._pair_offsets(tes.state._replace(generation=5))
+    tes.state = tes.state._replace(params_flat=torch.from_numpy(p_new), generation=2)
+    ts = tsched.GenerationScheduler(tes)
+    ts._sources = {5: tsched.Source(5, 0, torch.from_numpy(p_old), sigma, offs_old)}
+    seen = []
+    lambdas = tsched.clipped_stale_lambdas
+
+    def spy(dots, norms, d2, c, n, clip):
+        seen.append((np.array(dots), np.array(norms), d2))
+        return lambdas(dots, norms, d2, c, n, clip)
+
+    monkeypatch.setattr(tsched, "clipped_stale_lambdas", spy)
+    batch = [tsched.Arrival(5, i, float(f), 1, 0.0) for i, f in enumerate(rng.normal(size=8))]
+    ts._fold_batch(batch, 2)
+    dots, norms, d2 = seen[0]
+    d = ((torch.from_numpy(p_old) - torch.from_numpy(p_new)) / sigma).double().numpy()
+    table = tes.engine.table.double().numpy()
+    for i in range(8):
+        sign, off = member_sign_offset(offs_old, i, True)
+        eps = table[off:off + dim]
+        assert dots[i] == pytest.approx(sign * (eps @ d), rel=1e-12)
+        assert norms[i] == pytest.approx(eps @ eps, rel=1e-12)
+    assert d2 == pytest.approx(d @ d, rel=1e-12)
+
+
 # ---------------------------------------------------------------------------
 # accounting and rejection
 # ---------------------------------------------------------------------------
