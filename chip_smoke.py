@@ -152,10 +152,22 @@ Phases, in order; any failure exits non-zero before the last line:
    ``Supervisor`` driving spawned children to generation 8 through a
    SIGKILL and a silent wedge, its final checkpoint bit-identical to the
    in-process run, records 0-7 each once, the time from each death to the
-   next child's first generation, and ``obs summarize``'s lines.
+   next child's first generation, and ``obs summarize``'s lines;
+14. performance attribution on the main path's cell (``run_attribution``),
+   its training in a process of its own so that its ES loads the kernels:
+   (ad) a manifest and a JSONL of 1 + 3 generations, record 0 with
+   ``cost_model`` and the ``noise_kernels`` compile event, ``obs profile``
+   (a subprocess) rating the ``device`` phase's achieved FLOP/s and
+   bytes/s against the H100 SXM data sheet, and the steady generations
+   rated by phase and whole; (ae) ``obs trace`` validated, and one more
+   generation under ``obs.trace.trace`` whose torch.profiler trace names
+   1 reduction and 600 matvec launches; (af) ``obs serve-metrics`` scraped
+   once, parsed and validated; (ag) ``obs regress --phases`` on two
+   3-generation runs of the cell in turns (the verdict printed, not
+   gated) and the profile, regress and hist selfchecks.
 
 Then one JSON line of per-path numbers (with phase 13's under
-``crash_safe``), one of per-kernel numbers (launches from phase 3, and of
+``crash_safe`` and phase 14's under ``attribution``), one of per-kernel numbers (launches from phase 3, and of
 the reduction in (j), (k), (m), phases 10-13),
 the card line, and the last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -2272,6 +2284,271 @@ def run_crash_safe(torch, tt, nk, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------
+# phase 14, performance attribution on the main path's cell: the run's own
+# records (cost model, compile ledger, spans) through the obs CLI
+# ---------------------------------------------------------------------
+
+
+def attribution_child(run_dir: str) -> None:
+    """Phase 14's training, in a process of its own (``python -c "import
+    chip_smoke; chip_smoke.attribution_child(DIR)"``), so that the cell's
+    ES is the first in its process to load the kernels and its first record
+    carries the ``noise_kernels`` compile event.  Writes the manifest and
+    ``run.jsonl`` (1 warm-up + 3 generations), one more generation under
+    ``obs.trace.trace`` into ``trace/``, two 3-generation runs of the cell
+    from one state in turns (``a.jsonl``, ``b.jsonl``), and ``child.json``
+    (the launch counts)."""
+    from estorch_tpu_torch.obs import JsonlSink
+    from estorch_tpu_torch.obs.trace import trace
+    from estorch_tpu_torch.ops import noise_kernels as nk
+
+    t0 = time.perf_counter()
+    steps = {}
+    es = streamed_cell()
+    steps["cell built"] = time.perf_counter() - t0
+    es.write_manifest(os.path.join(run_dir, "manifest.json"))
+    sink = JsonlSink(os.path.join(run_dir, "run.jsonl"))
+    nk.reset_launch_counts()
+    es.train(GENERATIONS, log_fn=sink, verbose=False)
+    sink.close()
+    launches = dict(nk.launch_counts)
+    steps["1 + 3 generations"] = time.perf_counter() - t0
+    nk.reset_launch_counts()
+    with trace(os.path.join(run_dir, "trace")):
+        es.train(1, verbose=False)
+    traced = dict(nk.launch_counts)
+    steps["traced generation, trace written"] = time.perf_counter() - t0
+    pair = (streamed_cell(), streamed_cell())  # one seed: one state
+    sinks = [JsonlSink(os.path.join(run_dir, n)) for n in ("a.jsonl", "b.jsonl")]
+    for _ in range(3):
+        for cell, s in zip(pair, sinks):
+            cell.train(1, log_fn=s, verbose=False)
+    for s in sinks:
+        s.close()
+    steps["two cells, 3 generations each"] = time.perf_counter() - t0
+    with open(os.path.join(run_dir, "child.json"), "w") as f:
+        json.dump({"launches": launches, "traced_launches": traced, "steps_s": steps,
+                   "compile_time_s": es.compile_time_s,
+                   "pair_compile_time_s": [c.compile_time_s for c in pair]}, f)
+
+
+def _rates(row: dict, peak_f: float, peak_b: float) -> str:
+    return (f"{row['flops_per_s'] / 1e9:.3f} GFLOP/s ({row['flops_per_s'] / peak_f:.5%} of "
+            f"{peak_f / 1e12:g} TFLOP/s), {row['bytes_per_s'] / 1e9:.3f} GB/s "
+            f"({row['bytes_per_s'] / peak_b:.4%} of {peak_b / 1e12:g} TB/s)")
+
+
+def run_attribution(torch, card: str, name: str) -> dict:
+    """Phase 14 on the main path's cell, from the run's own records:
+
+    (ad) the cell's run (:func:`attribution_child`) into a run directory
+    with its manifest and JSONL: record 0 carries ``cost_model`` and a
+    ``noise_kernels`` compile event with ``cached`` set; ``obs profile``
+    (a subprocess) rates the ``device`` phase against the roofline the
+    manifest's card picks (the H100 SXM data sheet on an H100 80GB HBM3),
+    and the steady generations (the warm-up left out) are rated from the
+    same records, by phase and over the whole generation;
+
+    (ae) ``obs trace`` of the JSONL validates clean, and the torch.profiler
+    trace of one more generation (``obs.trace.trace``) names 1
+    ``weighted_noise_sum`` and 600 matvec launches, phase 3's exact counts;
+
+    (af) ``obs serve-metrics`` on the run directory at ``--port 0``,
+    scraped once: the exposition parses and its histograms validate;
+
+    (ag) ``obs regress --phases --json`` on two 3-generation runs of the
+    cell from one state, in turns: a verdict that parses and names the
+    phases (not gated on a pass: times spread up to 2x between runs); the
+    ``profile``, ``regress`` (median and tail) and ``hist`` selfchecks exit 0.
+    """
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    import urllib.request
+
+    from estorch_tpu_torch.obs import __main__ as obs_cli
+    from estorch_tpu_torch.obs.export.prometheus import (histogram_series, parse_exposition,
+                                                         samples_by_name,
+                                                         validate_histogram_series)
+    from estorch_tpu_torch.obs.export.traceevent import validate_trace
+    from estorch_tpu_torch.obs.profile import find_cost_model, phase_cost_for, profile_records
+    from estorch_tpu_torch.obs.profile.roofline import is_h100_sxm
+
+    t_start = time.perf_counter()
+    out: dict = {"path": "attribution (phase 14)", "cell": "streamed (phase 3)"}
+    run_dir = tempfile.mkdtemp(prefix="chip_smoke_attr_")
+    sidecar = None
+    try:
+        # ---- (ad) the run, its records and obs profile ----------------------
+        env = dict(os.environ, ESTORCH_OBS="1",
+                   ESTORCH_OBS_HEARTBEAT=os.path.join(run_dir, "heartbeat.json"))
+        env.pop("ESTORCH_CHAOS", None)
+        child = subprocess.run(
+            [sys.executable, "-c",
+             f"import chip_smoke; chip_smoke.attribution_child({run_dir!r})"],
+            cwd=HERE, env=env, capture_output=True, text=True, timeout=300)
+        if child.returncode != 0:
+            fail(f"(ad) the attribution run exited {child.returncode}\n{child.stderr[-3000:]}")
+        with open(os.path.join(run_dir, "child.json")) as f:
+            facts = json.load(f)
+        print(f"(ad) the run's process: {time.perf_counter() - t_start:.1f} s, in it "
+              + ", ".join(f"{k} at {v:.1f} s" for k, v in facts["steps_s"].items()))
+        # (af)'s sidecar starts now: its import overlaps with (ad) and (ae)
+        pf = os.path.join(run_dir, "port.json")
+        sidecar = subprocess.Popen([sys.executable, "-m", "estorch_tpu_torch.obs",
+                                    "serve-metrics", "--run-dir", run_dir, "--port", "0",
+                                    "--port-file", pf], cwd=HERE, stdout=subprocess.DEVNULL,
+                                   stderr=subprocess.PIPE, text=True)
+        want = {"population_noise_matvec": 3 * HORIZON * GENERATIONS,
+                "weighted_noise_sum": GENERATIONS}
+        if facts["launches"] != want:
+            fail(f"(ad) launch counts {facts['launches']}, expected {want}")
+        jsonl = os.path.join(run_dir, "run.jsonl")
+        with open(jsonl) as f:
+            records = [json.loads(line) for line in f if line.strip()]
+        if len(records) != GENERATIONS or "cost_model" not in records[0]:
+            fail(f"(ad) {len(records)} records; record 0 keys {sorted(records[0])}")
+        evs = [e for e in records[0].get("compile_events", [])
+               if e.get("program") == "noise_kernels"]
+        if len(evs) != 1 or not isinstance(evs[0].get("cached"), bool):
+            fail(f"(ad) record 0's compile events {records[0].get('compile_events')}")
+        if any("compile_events" in r for r in records[1:]):
+            fail("(ad) a compile event after the first record")
+        if facts["pair_compile_time_s"] != [0.0, 0.0]:
+            fail(f"(ad) later cells recorded the load again: {facts['pair_compile_time_s']}")
+        ev = evs[0]
+        print(f"(ad) record 0: cost_model and the noise_kernels compile event {ev}; "
+              f"compile_time_s {facts['compile_time_s']:.4f} s")
+        spans = [(r["phases"]["device"], r["phases"]["dispatch"]) for r in records]
+        print("  spans a generation: device " + ", ".join(f"{d * 1e3:.3f}" for d, _ in spans)
+              + " ms; dispatch " + ", ".join(f"{x:.4f}" for _, x in spans) + " s")
+        model = find_cost_model(records)
+        steps = records[0]["env_steps"]
+        per_gen = phase_cost_for(model, "device", env_steps=steps, n_generations=1)
+        print(f"  model: {per_gen['flops'] / 1e9:.4f} GFLOP and {per_gen['bytes'] / 1e9:.4f} GB "
+              f"a generation ({model['flops_per_env_step']} FLOP an env step x {steps} steps "
+              f"+ sample + update)")
+        proc = subprocess.run([sys.executable, "-m", "estorch_tpu_torch.obs", "profile", jsonl,
+                               "--json"], cwd=HERE, capture_output=True, text=True, timeout=120)
+        if proc.returncode != 0:
+            fail(f"(ad) obs profile exited {proc.returncode}\n{proc.stderr[-3000:]}")
+        prof = json.loads(proc.stdout.strip().splitlines()[-1])
+        if is_h100_sxm(name) and prof.get("basis") != "h100_sxm_datasheet_f32":
+            fail(f"(ad) roofline basis {prof.get('basis')!r} on {name}")
+        peak_f = prof["roofline"]["peak_flops_per_s"]
+        peak_b = prof["roofline"]["peak_bytes_per_s"]
+        dev = prof["phases"].get("device")
+        if not dev or "flops_per_s" not in dev:
+            fail(f"(ad) no rated device phase: {prof['phases']}")
+        print(f"  obs profile ({prof['generations']} generations, warm-up included), basis "
+              f"{prof['basis']}, on {card}:")
+        if peak_f and peak_b:
+            print(f"    device phase {dev['seconds']:.4f} s: {_rates(dev, peak_f, peak_b)}")
+        else:
+            print(f"    device phase {dev['seconds']:.4f} s: {dev['flops_per_s'] / 1e9:.3f} "
+                  f"GFLOP/s, {dev['bytes_per_s'] / 1e9:.3f} GB/s (no roofline for this card)")
+        for pname, row in prof["phases"].items():
+            print(f"    {pname:<10} share {row['share']:.4f}, {row['seconds']:.4f} s")
+        # the steady generations, rated from the same records, model and roofline
+        roof = {"platform": prof["platform"], "basis": prof["basis"],
+                "peak_flops_per_s": peak_f, "peak_bytes_per_s": peak_b}
+        steady = profile_records(records[1:], roof, cost_model=model)
+        wall = sum(r["wall_time_s"] for r in records[1:])
+        gen_rate = {"flops_per_s": per_gen["flops"] * len(records[1:]) / wall,
+                    "bytes_per_s": per_gen["bytes"] * len(records[1:]) / wall}
+        sdev = steady["phases"]["device"]
+        if peak_f and peak_b:
+            print(f"  steady ({len(records) - 1} generations, {wall / (len(records) - 1):.4f} s "
+                  f"each): device phase {sdev['seconds']:.4f} s, {_rates(sdev, peak_f, peak_b)}; "
+                  f"whole generation {_rates(gen_rate, peak_f, peak_b)}")
+        out.update(compile_event=ev, compile_time_s=facts["compile_time_s"],
+                   model_per_generation=per_gen, basis=prof["basis"],
+                   profile_device=dev, steady_device=sdev, steady_generation=gen_rate,
+                   steady_s_per_generation=wall / (len(records) - 1),
+                   steady_shares={k: v["share"] for k, v in steady["phases"].items()})
+
+        # ---- (ae) obs trace, and the torch.profiler trace's kernels ------------
+        trace_json = os.path.join(run_dir, "trace.json")
+        if obs_cli.main(["trace", jsonl, "-o", trace_json]) != 0:
+            fail("(ae) obs trace failed")
+        with open(trace_json) as f:
+            problems = validate_trace(json.load(f))
+        if problems:
+            fail(f"(ae) obs trace output invalid: {problems[:5]}")
+        (tpath,) = [os.path.join(run_dir, "trace", p)
+                    for p in os.listdir(os.path.join(run_dir, "trace"))]
+        with open(tpath) as f:
+            kernels = [e["name"] for e in json.load(f)["traceEvents"]
+                       if e.get("cat") == "kernel"]
+        counted = {"weighted_noise_sum": sum("weighted_sum_partials" in k for k in kernels),
+                   "population_noise_matvec": sum("noise_matvec" in k for k in kernels)}
+        want1 = {"weighted_noise_sum": 1, "population_noise_matvec": 3 * HORIZON}
+        if counted != want1 or facts["traced_launches"] != want1:
+            fail(f"(ae) traced kernels {counted}, counted launches "
+                 f"{facts['traced_launches']}, expected {want1}")
+        print(f"(ae) obs trace valid; torch.profiler trace of one generation: {counted} "
+              f"({len(kernels)} kernel launches in all) at {time.perf_counter() - t_start:.1f} s")
+        out["trace_kernels"] = counted
+        out["trace_kernel_launches"] = len(kernels)
+
+        # ---- (af) serve-metrics, scraped once ---------------------------------
+        deadline = time.monotonic() + 120
+        while not os.path.exists(pf):
+            if sidecar.poll() is not None or time.monotonic() > deadline:
+                fail(f"(af) serve-metrics did not start: {sidecar.stderr.read()[-2000:]}")
+            time.sleep(0.1)
+        with open(pf) as f:
+            port = json.load(f)["port"]
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=30) as r:
+            body = r.read().decode()
+        samples = parse_exposition(body)
+        problems = validate_histogram_series(samples)
+        if problems:
+            fail(f"(af) scraped histograms invalid: {problems[:5]}")
+        vals = samples_by_name(samples)
+        n_hist = len(histogram_series(samples))
+        print(f"(af) /metrics: {len(samples)} samples, {n_hist} histograms, estorch_up "
+              f"{vals.get('estorch_up')}, env_steps {vals.get('estorch_env_steps')}: parses "
+              f"and validates, at {time.perf_counter() - t_start:.1f} s")
+        out["scrape"] = {"samples": len(samples), "histograms": n_hist,
+                         "up": vals.get("estorch_up")}
+
+        # ---- (ag) obs regress --phases, and the selfchecks ---------------------
+        # the CLI's main in this process (the subcommand's own code and exit
+        # codes: 0 pass, 1 regression or unreadable input) saves a torch import
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            rc = obs_cli.main(["regress", os.path.join(run_dir, "a.jsonl"), "--baseline",
+                               os.path.join(run_dir, "b.jsonl"), "--phases", "--json"])
+        if rc not in (0, 1):
+            fail(f"(ag) obs regress --phases exited {rc}")
+        verdict = json.loads(text.getvalue().strip().splitlines()[-1])
+        if verdict.get("verdict") not in ("pass", "regress") or not verdict.get("phases"):
+            fail(f"(ag) regress verdict {verdict}")
+        print(f"(ag) regress --phases (a in turns with b, 3 generations each): "
+              f"{verdict['verdict']}, regressed {verdict['regressed_phases']}; " + ", ".join(
+                  f"{k} {v['current_median_s']:.4f}/{v['baseline_median_s']:.4f} s "
+                  f"({v['slowdown_pct']:+.1f} %, band {v['band_pct']} %)"
+                  for k, v in verdict["phases"].items()))
+        for argv in (["profile", "--selfcheck"], ["regress", "--selfcheck"],
+                     ["regress", "--tail", "--selfcheck"], ["hist", "--selfcheck"]):
+            if obs_cli.main(argv) != 0:
+                fail(f"(ag) obs {' '.join(argv)} failed")
+        out["regress_phases"] = {"verdict": verdict["verdict"],
+                                 "regressed": verdict["regressed_phases"],
+                                 "phases": verdict["phases"]}
+    finally:
+        if sidecar is not None:
+            sidecar.terminate()
+            sidecar.wait(timeout=30)
+        shutil.rmtree(run_dir, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_start
+    print(f"phase 14: {out['phase_s']:.1f} s on {card}")
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -2592,6 +2869,10 @@ def main() -> None:
     phase("13. crash-safe training")
     crash_safe = run_crash_safe(torch, estorch_tpu_torch, nk, card)
 
+    # ---- 14. performance attribution --------------------------------------------
+    phase("14. attribution")
+    attribution = run_attribution(torch, card, name)
+
     # ---- report --------------------------------------------------------------
     phase("report")
     kernels = [
@@ -2627,7 +2908,8 @@ def main() -> None:
              "population_noise_matvec"]},
     ]
     print(json.dumps({"paths": paths, "eval_chunk": chunking, "card_vs_cpu_envs": env_cmp,
-                      "async": async_paths, "crash_safe": crash_safe}))
+                      "async": async_paths, "crash_safe": crash_safe,
+                      "attribution": attribution}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

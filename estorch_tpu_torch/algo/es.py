@@ -49,7 +49,18 @@ the caller passes ``"cpu"``.  ``best_policy`` keeps the best member seen, and
 is on unless ``ESTORCH_OBS=0``, a bool forces it, or pass a
 ``Telemetry``): every record carries ``phases``, the seconds of each span
 of its generation, and the hub counts ``env_steps``, ``rollout_failures``
-and ``generations_rejected``.  ``train_async`` runs barrier-free
+and ``generations_rejected``.  With the hub on, the first record also
+carries ``cost_model``, the analytic FLOPs and bytes of a generation of
+this configuration (``obs/profile/costmodel.py``), which ``python -m
+estorch_tpu_torch.obs profile`` turns into achieved rates.  A record
+carries ``compile_events`` when the generation loaded one of the port's
+native libraries for the first time in the process: the CUDA kernels
+(``ops/_build.py``, program ``noise_kernels``) or the envpool
+(``envs/native_pool.py``, program ``envpool``, loaded while the ES is
+built, so in the first record).  These builds at first use are the port's
+compiles: torch compiles nothing ahead of time, and nothing runs a
+throw-away generation to imitate the JAX package's AOT step.
+``compile_time_s`` sums them (0.0 where this ES loaded neither).  ``train_async`` runs barrier-free
 generations (``algo/scheduler.py``): the fold scheduler on the host
 backend, the overlap scheduler elsewhere, and the replay of a fold run's
 event log (``async_event_log``).
@@ -70,6 +81,7 @@ from ..host.engine import HostEngine, load_flat
 from ..models.decomposed import supports_decomposed
 from ..models.vbn import capture_reference_stats
 from ..obs.spans import cuda_done_event, resolve_telemetry
+from ..ops._build import claim_library_loads
 from ..ops.lowrank import make_lowrank_spec, make_lowrank_tree_spec
 from ..ops.noise import DEFAULT_TABLE_SIZE, make_noise_table
 from ..ops.noise_kernels import flat_layer_offsets, mlp_streamed_apply
@@ -161,6 +173,7 @@ class ES:
     ):
         # the hub first, so every backend's init runs with it
         self.obs = resolve_telemetry(telemetry)
+        self._t_created = time.monotonic()  # native loads from here on are this ES's
         self.obs.note("init")
         if model_shards is not None or partition_rules is not None or noise_mode != "auto":
             _unsupported("model_shards / partition_rules / noise_mode (the param-sharded "
@@ -198,6 +211,7 @@ class ES:
             self._init_host(policy, dict(policy_kwargs or {}), agent, dict(agent_kwargs or {}),
                             optimizer, dict(optimizer_kwargs or {}), table_size, device,
                             weight_decay, worker_mode, sigma_decay, sigma_min, mirrored)
+            self._post_engine_init()
             return
         if worker_mode != "thread":
             raise ValueError(
@@ -312,6 +326,60 @@ class ES:
             self.engine = self._device_engine(params, streamed, low_rank, carry_init)
         self.engine.telemetry = self.obs
         self.state = self.engine.init_state(flat, self.seed)
+        self._post_engine_init()
+
+    def _post_engine_init(self) -> None:
+        """Once the engine exists (every backend): the native loads its
+        construction caused (a pooled engine's envpool), and the cost
+        model, built only with the hub on."""
+        self.compile_time_s = 0.0
+        self._claim_compiles()
+        if self.obs.enabled:
+            self.obs.set_cost_model(self._build_cost_model())
+        self._cost_model_emitted = False
+
+    def _claim_compiles(self) -> None:
+        """Record in this hub the native libraries first loaded in the
+        process since this ES was built (``ops/_build.py``), and add their
+        seconds to ``compile_time_s``."""
+        for e in claim_library_loads(self._t_created):
+            self.compile_time_s += e["compile_s"]
+            self.obs.compile_event(e["program"], e["compile_s"], cached=e["cached"],
+                                   library=e["library"])
+
+    def _build_cost_model(self) -> dict | None:
+        """Analytic per-phase FLOPs/bytes of THIS configuration
+        (``obs/profile/costmodel.py``), as the JAX package builds it: the
+        2-D kernels' shapes and ``param_dim`` from the flat spec on the
+        device and pooled backends, from ``engine.master``'s parameters on
+        the host backend (whose agents own their horizon: None); 2 bytes a
+        value under bfloat16; the noise is always the table.  Diagnostic
+        only: None rather than a failed construction (a policy without 2-D
+        kernels has no matmul model, a note in ``obs profile``)."""
+        from ..obs.profile.costmodel import generation_cost
+
+        try:
+            if self.backend == "host":
+                params = list(self.engine.master.parameters())
+                shapes = [tuple(p.shape) for p in params if p.dim() == 2]
+                param_dim = int(sum(p.numel() for p in params))
+                horizon, dtype_bytes, episodes, low_rank = None, 4, 1, 0
+                mirrored = bool(self.engine.mirrored)
+            else:
+                cfg = self.config
+                shapes = [s for s in self.spec.shapes if len(s) == 2]
+                param_dim = int(self.spec.dim)
+                horizon = int(cfg.horizon)
+                dtype_bytes = 2 if cfg.compute_dtype == "bfloat16" else 4
+                episodes, low_rank, mirrored = cfg.episodes_per_member, cfg.low_rank, cfg.mirrored
+            if not shapes:
+                return None
+            return generation_cost(
+                population=self.population_size, matmul_shapes=shapes, param_dim=param_dim,
+                horizon=horizon, episodes_per_member=episodes, mirrored=mirrored,
+                low_rank=low_rank, dtype_bytes=dtype_bytes, noise="table")
+        except Exception:  # noqa: BLE001 — diagnostic, never a failed construction
+            return None
 
     def _device_engine(self, params: dict, streamed: bool, low_rank: int,
                        carry_init) -> ESEngine:
@@ -630,10 +698,17 @@ class ES:
 
     def _finalize_record(self, record: dict) -> dict:
         """The plumbing every train loop shares (sync, fold, overlap): the
-        generation's spans flushed into ``phases``, and the run's counters.
-        (The JAX package's compile events and cost model wait for
-        ``obs/profile/``, ROADMAP.md port item 6b.)"""
+        native loads of the generation claimed, the spans flushed into
+        ``phases``, the compile events since the last record, the cost
+        model once a run, and the run's counters."""
+        self._claim_compiles()
         record["phases"] = self.obs.take_phases()
+        compile_events = self.obs.take_compile_events()
+        if compile_events:
+            record["compile_events"] = compile_events
+        if not self._cost_model_emitted and self.obs.cost_model is not None:
+            record["cost_model"] = self.obs.cost_model
+            self._cost_model_emitted = True
         self.obs.counters.inc("env_steps", record["env_steps"])
         if record["n_failed"]:
             self.obs.counters.inc("rollout_failures", record["n_failed"])

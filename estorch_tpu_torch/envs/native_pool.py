@@ -23,11 +23,12 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import time
 from pathlib import Path
 
 import numpy as np
 
-from ..ops._build import BUILD_DIR
+from ..ops._build import BUILD_DIR, note_library_load
 
 SOURCE = Path(__file__).resolve().parents[1] / "native" / "envpool.cpp"
 # estorch_tpu/native/Makefile's flags: a portable ISA, since the library may
@@ -104,7 +105,11 @@ def load_library() -> ctypes.CDLL:
     """The envpool library, built on first call and kept for the process."""
     global _library
     if _library is None:
-        lib = ctypes.CDLL(str(build()))
+        cached = library_path().exists()
+        t0 = time.perf_counter()
+        path = build()
+        t1 = time.perf_counter()
+        lib = ctypes.CDLL(str(path))
         lib.envpool_create.restype = ctypes.c_void_p
         lib.envpool_create.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                        ctypes.c_uint64]
@@ -117,6 +122,10 @@ def load_library() -> ctypes.CDLL:
         lib.envpool_step.argtypes = [ctypes.c_void_p, f32p, f32p, f32p,
                                      ctypes.POINTER(ctypes.c_uint8)]
         _library = lib
+        # a compile in the port's sense (ops/_build.py): the build's
+        # seconds (0.0 on a hash hit) and the dlopen's
+        note_library_load("envpool", 0.0 if cached else t1 - t0, time.perf_counter() - t1,
+                          cached, path)
     return _library
 
 

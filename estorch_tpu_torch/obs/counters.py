@@ -37,13 +37,26 @@ class Counters:
             return dict(self._values)
 
     def sample_peak_rss(self) -> float:
-        """Record the process's peak RSS as the ``peak_rss_mb`` gauge
-        (``ru_maxrss`` is KiB on Linux, bytes on macOS)."""
-        import resource
-        import sys
+        """Record the process's peak resident set as the ``peak_rss_mb``
+        gauge: ``VmHWM`` of ``/proc/self/status`` where that file exists,
+        else ``ru_maxrss`` (KiB on Linux, bytes on macOS).  Linux carries
+        ``ru_maxrss`` across an exec, so a spawned child's would read its
+        parent's peak (ROADMAP.md, F13); ``VmHWM`` is the child's own."""
+        mb = None
+        try:
+            with open("/proc/self/status") as f:
+                for line in f:
+                    if line.startswith("VmHWM:"):
+                        mb = int(line.split()[1]) / 2**10  # kB
+                        break
+        except OSError:
+            pass
+        if mb is None:
+            import resource
+            import sys
 
-        div = 2**20 if sys.platform == "darwin" else 2**10
-        mb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / div
+            div = 2**20 if sys.platform == "darwin" else 2**10
+            mb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / div
         self.gauge("peak_rss_mb", round(mb, 3))
         return mb
 

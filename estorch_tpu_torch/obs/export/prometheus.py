@@ -1,0 +1,315 @@
+"""Prometheus text exposition (version 0.0.4) over the obs hub — zero deps.
+
+Counterpart of ``estorch_tpu/obs/export/prometheus.py``: given the same
+counters, heartbeat and histograms it renders byte-identical text (the
+HELP strings included).  One counter snapshot (+ optional heartbeat facts
+and histograms) becomes the exposition format every Prometheus-compatible
+scraper speaks.  Stdlib only and importable WITHOUT the package: the
+metrics sidecar loads it by file path.
+
+Encoding rules:
+
+* every sample is prefixed ``estorch_`` and sanitized to the metric
+  charset (dots and other separators become ``_``);
+* the hub's registry is one flat dict, so counter-vs-gauge is decided by
+  name: :data:`GAUGE_NAMES` + the ``_last``/``_depth``/``peak_``/
+  ``compile_`` conventions are gauges (last-write-wins), everything else
+  is a counter (monotone ``inc``);
+* heartbeat facts become ``estorch_heartbeat_age_seconds``,
+  ``estorch_heartbeat_generation``, ``estorch_heartbeat_stale`` and an
+  ``estorch_heartbeat_info{phase=...,pid=...} 1`` info-style sample;
+  ``estorch_up`` is 1 while the watched process beats fresh — the
+  alerting primitive;
+* label values are escaped per the exposition spec (backslash, quote,
+  newline).
+
+:func:`parse_exposition` is the other half: a small validating parser, so
+"the exposition parses" is checked by code that did not write it.
+"""
+
+from __future__ import annotations
+
+import math
+import re
+
+# heartbeat staleness threshold; mirrors obs.recorder.STALE_AFTER_S
+# (duplicated literal: this module must import nothing from the package)
+DEFAULT_STALE_AFTER_S = 120.0
+
+PREFIX = "estorch_"
+
+# registry names that are gauges (last-write-wins) rather than monotone
+# counters — the hub keeps both in one flat dict (obs/counters.py)
+GAUGE_NAMES = frozenset({
+    "peak_rss_mb",
+    "compile_time_s",
+    "queue_depth",
+    "batch_size_last",
+    "bucket_last",
+    # cold-start facts (serve/server.py): set once at load / first
+    # answer, re-derivable from the compile ledger — gauges
+    "startup_s",
+    "first_request_s",
+    "compiles_at_load",
+    "warm_cache_hits",
+    # elastic multi-host membership (algo/scheduler.py _HostSource):
+    # live-host count is a level, not a monotone count
+    "elastic_hosts",
+})
+
+_METRIC_OK = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
+_SANITIZE = re.compile(r"[^a-zA-Z0-9_:]")
+
+
+def is_gauge(name: str) -> bool:
+    """Counter-vs-gauge classification for one registry name.
+
+    The ``compile_`` prefix covers the compile-ledger facts
+    (``compile_s_<program>``, ``compile_peak_bytes_<program>``, … —
+    obs/profile/ledger.py): last-write-wins per program, re-derivable
+    from the ledger, hence gauges."""
+    return (name in GAUGE_NAMES
+            or name.endswith(("_last", "_depth"))
+            # per-host fold-latency p99s (elastic_fold_p99_s_h<i> +
+            # the worst-host rollup): last-write quantile snapshots
+            or name.startswith(("peak_", "compile_", "elastic_fold_p99")))
+
+
+def metric_name(name: str) -> str:
+    """Registry name -> exposition metric name (prefixed, sanitized)."""
+    clean = _SANITIZE.sub("_", name)
+    if not clean or not _METRIC_OK.match(clean):
+        clean = "_" + clean
+    return PREFIX + clean
+
+
+def _escape_label(value: str) -> str:
+    return (str(value).replace("\\", r"\\").replace("\n", r"\n")
+            .replace('"', r'\"'))
+
+
+def _fmt(value: float) -> str:
+    v = float(value)
+    if math.isnan(v):
+        return "NaN"
+    if math.isinf(v):
+        return "+Inf" if v > 0 else "-Inf"
+    if v == int(v) and abs(v) < 1e15:
+        return str(int(v))
+    return repr(v)
+
+
+def _sample(name: str, labels: dict | None, value: float) -> str:
+    if labels:
+        inner = ",".join(f'{k}="{_escape_label(v)}"'
+                         for k, v in sorted(labels.items()))
+        return f"{name}{{{inner}}} {_fmt(value)}"
+    return f"{name} {_fmt(value)}"
+
+
+def render_exposition(counters: dict | None,
+                      heartbeat: dict | None = None,
+                      *,
+                      stale_after_s: float = DEFAULT_STALE_AFTER_S,
+                      extra_gauges: dict | None = None,
+                      up: bool | None = None,
+                      histograms: dict | None = None) -> str:
+    """One scrape body from a counter snapshot + optional heartbeat facts.
+
+    ``heartbeat`` is the :func:`~estorch_tpu_torch.obs.recorder.read_heartbeat`
+    dict (with ``age_s``) or None — None renders ``estorch_up 0`` unless
+    ``up`` overrides it (the serve server IS the process being scraped,
+    so it is up regardless of whether a heartbeat file is configured).
+    ``extra_gauges``: point-in-time facts that live outside the registry
+    (queue depth, uptime) — name -> value, rendered as gauges.
+    ``histograms``: name → export shape (``Histogram.to_export()``:
+    cumulative ``(le, count)`` bucket pairs ending at +Inf, plus sum and
+    count) — rendered as true Prometheus ``histogram`` series
+    (``_bucket{le=...}``/``_sum``/``_count``), the type whose tails a
+    scraper can actually quantile.
+    """
+    lines: list[str] = []
+
+    def emit(metric: str, mtype: str, help_: str,
+             samples: list[tuple[dict | None, float]]) -> None:
+        lines.append(f"# HELP {metric} {help_}")
+        lines.append(f"# TYPE {metric} {mtype}")
+        for labels, value in samples:
+            lines.append(_sample(metric, labels, value))
+
+    # an extra gauge SHADOWS a registry entry of the same (sanitized)
+    # name: the point-in-time read is fresher than the last-written
+    # gauge, and emitting both would duplicate the metric's TYPE — the
+    # validating parser rightly rejects that exposition
+    extras = {name: value for name, value in (extra_gauges or {}).items()
+              if isinstance(value, (int, float))
+              and not isinstance(value, bool)}
+    shadowed = {metric_name(name) for name in extras}
+    for name in sorted(counters or {}):
+        value = counters[name]
+        if not isinstance(value, (int, float)) or isinstance(value, bool):
+            continue
+        if metric_name(name) in shadowed:
+            continue
+        mtype = "gauge" if is_gauge(name) else "counter"
+        emit(metric_name(name), mtype,
+             f"estorch_tpu obs registry {mtype} {name!r}",
+             [(None, float(value))])
+
+    for name in sorted(extras):
+        emit(metric_name(name), "gauge",
+             f"estorch_tpu point-in-time gauge {name!r}",
+             [(None, float(extras[name]))])
+
+    for name in sorted(histograms or {}):
+        series = histograms[name]
+        buckets = series.get("buckets") or []
+        if not buckets:
+            continue
+        base = metric_name(name)
+        lines.append(f"# HELP {base} estorch_tpu obs streaming "
+                     f"histogram {name!r}")
+        lines.append(f"# TYPE {base} histogram")
+        for le, cum in buckets:
+            lines.append(_sample(f"{base}_bucket", {"le": _fmt(le)},
+                                 float(cum)))
+        lines.append(_sample(f"{base}_sum", None,
+                             float(series.get("sum", 0.0))))
+        lines.append(_sample(f"{base}_count", None,
+                             float(series.get("count", 0))))
+
+    fresh = False
+    if heartbeat is not None:
+        age = float(heartbeat.get("age_s", 0.0))
+        fresh = age <= stale_after_s
+        emit(PREFIX + "heartbeat_age_seconds", "gauge",
+             "seconds since the watched process last beat",
+             [(None, age)])
+        emit(PREFIX + "heartbeat_generation", "gauge",
+             "generation in the last heartbeat",
+             [(None, float(heartbeat.get("generation", 0) or 0))])
+        emit(PREFIX + "heartbeat_stale", "gauge",
+             f"1 when the last beat is older than {stale_after_s:.0f}s",
+             [(None, 0.0 if fresh else 1.0)])
+        emit(PREFIX + "heartbeat_info", "gauge",
+             "last-known phase/pid of the watched process",
+             [({"phase": str(heartbeat.get("phase", "?")),
+                "pid": str(heartbeat.get("pid", "?"))}, 1.0)])
+    emit(PREFIX + "up", "gauge",
+         "1 while the watched process is alive and beating fresh",
+         [(None, 1.0 if (fresh if up is None else up) else 0.0)])
+    return "\n".join(lines) + "\n"
+
+
+def parse_exposition(text: str) -> list[tuple[str, dict, float]]:
+    """Validating parser for the text exposition: ``(name, labels,
+    value)`` triples.  Raises ``ValueError`` on any malformed line —
+    "parses cleanly" is a health check, so this must not silently skip
+    garbage."""
+    samples: list[tuple[str, dict, float]] = []
+    typed: set[str] = set()
+    for lineno, raw in enumerate(text.splitlines(), 1):
+        line = raw.strip()
+        if not line:
+            continue
+        if line.startswith("#"):
+            parts = line.split(None, 3)
+            if len(parts) < 3 or parts[1] not in ("HELP", "TYPE"):
+                raise ValueError(f"line {lineno}: bad comment {raw!r}")
+            if parts[1] == "TYPE":
+                if parts[2] in typed:
+                    raise ValueError(
+                        f"line {lineno}: duplicate TYPE for {parts[2]}")
+                typed.add(parts[2])
+                if parts[3] not in ("counter", "gauge", "histogram",
+                                    "summary", "untyped"):
+                    raise ValueError(
+                        f"line {lineno}: unknown type {parts[3]!r}")
+            continue
+        m = re.match(
+            r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{(.*)\})?\s+(\S+)$", line)
+        if not m:
+            raise ValueError(f"line {lineno}: bad sample {raw!r}")
+        name, _, labelstr, value = m.groups()
+        labels: dict = {}
+        if labelstr:
+            # the WHOLE block must be well-formed pairs (trailing comma
+            # allowed per the exposition spec) — collecting whichever
+            # pairs happen to match would bless garbage a real scraper
+            # rejects, which is the false health check this validating
+            # parser exists to prevent
+            pair = r'[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\]|\\.)*"'
+            if not re.fullmatch(f"{pair}(?:,{pair})*,?", labelstr):
+                raise ValueError(f"line {lineno}: bad labels {labelstr!r}")
+            for item in re.finditer(
+                    r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"',
+                    labelstr):
+                labels[item.group(1)] = item.group(2)
+        try:
+            v = float(value)
+        except ValueError as e:
+            raise ValueError(f"line {lineno}: bad value {value!r}") from e
+        samples.append((name, labels, v))
+    return samples
+
+
+def samples_by_name(samples: list[tuple[str, dict, float]]) -> dict:
+    """Label-free view: name -> value (label-carrying samples keep the
+    bare name too; last one wins) — the form the tests and monotonicity
+    checks want."""
+    return {name: value for name, _labels, value in samples}
+
+
+def histogram_series(samples: list[tuple[str, dict, float]]) -> dict:
+    """Histogram view of parsed samples: ``base name -> {"buckets":
+    [(le, cumulative)], "sum", "count"}`` for every base that exposes
+    ``_bucket{le=...}`` samples (the inverse of the ``histograms=``
+    encoding, so composition checks can read back what they scraped)."""
+    out: dict[str, dict] = {}
+    for name, labels, value in samples:
+        if name.endswith("_bucket") and "le" in labels:
+            base = name[: -len("_bucket")]
+            le_raw = labels["le"]
+            le = math.inf if le_raw == "+Inf" else float(le_raw)
+            out.setdefault(base, {"buckets": [], "sum": None,
+                                  "count": None})["buckets"].append(
+                (le, value))
+    for name, labels, value in samples:
+        for suffix, key in (("_sum", "sum"), ("_count", "count")):
+            if name.endswith(suffix):
+                base = name[: -len(suffix)]
+                if base in out and not labels:
+                    out[base][key] = value
+    return out
+
+
+def validate_histogram_series(samples: list[tuple[str, dict, float]]
+                              ) -> list[str]:
+    """Structural problems in the histogram series of a parsed scrape
+    ([] when clean): ``le`` edges strictly increasing, cumulative counts
+    non-decreasing, a ``+Inf`` bucket present and equal to ``_count``,
+    ``_sum``/``_count`` samples present.  The validating half of the
+    histogram encoding — used by ``obs hist --selfcheck`` and scrape
+    checks, so "the tail exports" is checked by code that did not write
+    it."""
+    problems: list[str] = []
+    for base, series in histogram_series(samples).items():
+        buckets = series["buckets"]
+        les = [le for le, _ in buckets]
+        if les != sorted(les) or len(set(les)) != len(les):
+            problems.append(f"{base}: le edges not strictly increasing: "
+                            f"{les}")
+        cums = [c for _, c in buckets]
+        if any(b < a for a, b in zip(cums, cums[1:])):
+            problems.append(f"{base}: cumulative bucket counts decrease: "
+                            f"{cums}")
+        if not les or not math.isinf(les[-1]):
+            problems.append(f"{base}: no +Inf bucket")
+        elif series["count"] is None:
+            problems.append(f"{base}: missing _count sample")
+        elif cums[-1] != series["count"]:
+            problems.append(f"{base}: +Inf bucket {cums[-1]} != _count "
+                            f"{series['count']}")
+        if series["sum"] is None:
+            problems.append(f"{base}: missing _sum sample")
+    return problems

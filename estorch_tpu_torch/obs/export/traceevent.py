@@ -1,0 +1,382 @@
+"""Perfetto/Chrome trace-event export of a run JSONL.
+
+Counterpart of ``estorch_tpu/obs/export/traceevent.py``: the same events
+for the same records; the process facts copied from the manifest are the
+port's (``torch`` and ``cuda`` where the JAX package copies ``jax``).
+``python -m estorch_tpu_torch.obs trace run.jsonl -o trace.json`` turns the
+per-generation span breakdown every record already carries
+(``record["phases"]``, nested ``parent/child`` names) into trace-event
+JSON that ``ui.perfetto.dev`` / ``chrome://tracing`` render as a
+timeline — the "where did generation 412 go" question answered by
+looking, not by reading numbers.
+
+Records carry durations, not wall timestamps (the JSONL stays one line
+per generation), so the exporter SYNTHESIZES the timeline: generations
+are laid end to end (``wall_time_s`` each), and inside a generation the
+top-level phases are laid sequentially in record order with their
+children nested at the parent's start.  The layout is a faithful
+rendering of per-phase time *shares*; it does not claim sub-generation
+ordering beyond what the record preserves.
+
+A run that crossed Supervisor restarts renders as ONE timeline: the
+records are split into per-child segments at replay boundaries
+(generation numbers going backwards — the resume-from-checkpoint
+signature) and, when a ``manifest.json`` with restart provenance is
+beside the JSONL, at the generation each dead child had reached.  Each
+segment becomes its own trace *process* lane keyed by the manifest's
+provenance (the dead child's heartbeat pid, the restart reason), and the
+boundary itself is an instant marker carrying the reason.
+
+Compile-ledger entries (``record["compile_events"]``, obs/profile/
+ledger.py) render as instant markers on a per-segment ``compiles`` lane
+at the carrying generation's start — compile seconds, ``cached`` and the
+library in the args, so "why is this generation wide" and "what did that
+library cost to build" are answered on the same timeline.
+
+Async runs get a causal ``async`` lane: each record's ``async`` block names the dispatches it
+snapshotted and the ``[dispatch, members]`` pairs it folded or
+discarded, rendered as Perfetto FLOW ARROWS — a flow starts at the
+dispatch instant, steps through each update that consumed part of it,
+and finishes at the last fold/discard, so a stale dispatch links
+visually to the exact update that folded it.
+
+Optional extra lanes: ``--events ring.jsonl`` (a flight-recorder
+``dump_jsonl``) and the run dir's heartbeat render as instant events on
+a separate wall-clock lane (rebased to 0; the synthesized lanes and the
+wall-clock lane deliberately do not share a clock and say so in their
+names).
+
+:func:`validate_trace` is the schema gate the tests and the e2e demo
+use — "renders in Perfetto" approximated by "every event is a
+well-formed trace event".
+"""
+
+from __future__ import annotations
+
+import json
+
+TRACE_PHASES = {"X", "B", "E", "i", "I", "C", "M", "s", "t", "f"}
+_FLOW_PHASES = {"s", "t", "f"}  # flow events: start / step / finish
+_WALL_PID = 0  # the wall-clock lane (flight recorder + heartbeat markers)
+
+
+def _us(seconds: float) -> float:
+    return round(float(seconds) * 1e6, 3)
+
+
+def _segment_bounds(records: list[dict], manifest: dict | None
+                    ) -> tuple[list[int], list[dict]]:
+    """Record indices where a new child's records begin, plus the restart
+    provenance rows (possibly empty) aligned to them best-effort."""
+    gens = [r.get("generation") for r in records]
+    bounds = [
+        i for i in range(1, len(records))
+        if gens[i] is not None and gens[i - 1] is not None
+        and gens[i] <= gens[i - 1]
+    ]
+    restarts: list[dict] = []
+    res = (manifest or {}).get("resilience")
+    if isinstance(res, dict) and isinstance(res.get("restarts"), list):
+        restarts = [r for r in res["restarts"] if isinstance(r, dict)]
+    # checkpoint-aligned restarts leave no replay: derive the boundary
+    # from the generation the dying child had reached (its last beat)
+    for r in restarts[len(bounds):]:
+        hb = r.get("heartbeat") or {}
+        g = hb.get("generation")
+        if g is None:
+            continue
+        for i in range(1, len(records)):
+            if gens[i] is not None and gens[i] >= g and i not in bounds:
+                bounds.append(i)
+                break
+    return sorted(set(bounds)), restarts
+
+
+def _async_pairs(block: dict, key: str) -> list[tuple[int, int]]:
+    """Well-formed ``(dispatch, count)`` pairs of one async-block list
+    (malformed entries skipped — post-mortem inputs degrade, not crash)."""
+    out = []
+    for pair in block.get(key) or []:
+        if (isinstance(pair, (list, tuple)) and len(pair) == 2
+                and isinstance(pair[0], int) and isinstance(pair[1], int)):
+            out.append((pair[0], pair[1]))
+    return out
+
+
+def export_trace(records: list[dict],
+                 manifest: dict | None = None,
+                 events: list[dict] | None = None,
+                 heartbeat: dict | None = None) -> dict:
+    """Build the trace-event dict (see module docstring)."""
+    bounds, restarts = _segment_bounds(records, manifest)
+    trace_events: list[dict] = []
+    # async causality pre-scan: the LAST record touching a dispatch
+    # (fold or discard) carries the flow FINISH; earlier touches are
+    # flow steps — one arrow chain per dispatch id
+    has_async = any(isinstance(r.get("async"), dict) for r in records)
+    last_touch: dict[int, int] = {}
+    for i, rec in enumerate(records):
+        a = rec.get("async")
+        if isinstance(a, dict):
+            for d, _n in (_async_pairs(a, "consumed_dispatches")
+                          + _async_pairs(a, "discarded_dispatches")):
+                last_touch[d] = i
+    flow_started: set[int] = set()
+
+    def seg_pid(seg: int) -> int:
+        if seg < len(restarts):
+            pid = (restarts[seg].get("heartbeat") or {}).get("pid")
+            if isinstance(pid, int):
+                return pid
+        if seg == len(bounds) and heartbeat is not None:
+            pid = heartbeat.get("pid")
+            if isinstance(pid, int):
+                return pid
+        return 100_000 + seg  # provenance unknown: synthetic stable id
+
+    def add_process_meta(seg: int, pid: int) -> None:
+        if seg < len(restarts):
+            ended = restarts[seg].get("reason") or "restarted"
+            name = f"child {seg} (pid {pid}) — {ended}"
+        elif bounds:
+            name = f"child {seg} (pid {pid}) — final"
+        else:
+            name = f"run (pid {pid})"
+        trace_events.append({"ph": "M", "name": "process_name",
+                             "pid": pid, "tid": 0,
+                             "args": {"name": name}})
+        lanes = [(1, "generations"), (2, "phases"), (3, "compiles")]
+        if has_async:
+            lanes.append((4, "async (dispatch→fold flows)"))
+        for tid, tname in lanes:
+            trace_events.append({"ph": "M", "name": "thread_name",
+                                 "pid": pid, "tid": tid,
+                                 "args": {"name": tname}})
+
+    seg = 0
+    pid = seg_pid(0)
+    add_process_meta(0, pid)
+    cursor = 0.0
+    for i, rec in enumerate(records):
+        if i in bounds:
+            seg += 1
+            pid = seg_pid(seg)
+            add_process_meta(seg, pid)
+            reason = (restarts[seg - 1].get("reason")
+                      if seg - 1 < len(restarts) else None)
+            trace_events.append({
+                "ph": "i", "s": "g", "name": "supervisor restart",
+                "ts": _us(cursor), "pid": pid, "tid": 1,
+                "args": {"reason": reason or "replay boundary "
+                         "(generation numbers went backwards)"},
+            })
+        gen = rec.get("generation", i)
+        wall = max(0.0, float(rec.get("wall_time_s", 0.0) or 0.0))
+        trace_events.append({
+            "ph": "X", "name": f"gen {gen}", "cat": "generation",
+            "ts": _us(cursor), "dur": _us(wall), "pid": pid, "tid": 1,
+            "args": {k: rec[k] for k in
+                     ("reward_mean", "reward_max", "env_steps", "n_failed")
+                     if k in rec},
+        })
+        if rec.get("env_steps_per_sec") is not None:
+            trace_events.append({
+                "ph": "C", "name": "env_steps_per_sec",
+                "ts": _us(cursor), "pid": pid, "tid": 1,
+                "args": {"steps_per_s": float(rec["env_steps_per_sec"])},
+            })
+        phases = rec.get("phases")
+        if isinstance(phases, dict):
+            tops = [(n, float(d)) for n, d in phases.items()
+                    if isinstance(d, (int, float)) and "/" not in n]
+            kids: dict[str, list[tuple[str, float]]] = {}
+            for n, d in phases.items():
+                if isinstance(d, (int, float)) and "/" in n:
+                    parent, _, child = n.partition("/")
+                    kids.setdefault(parent, []).append((child, float(d)))
+            off = cursor
+            for name, dur in tops:
+                dur = max(0.0, dur)
+                trace_events.append({
+                    "ph": "X", "name": name, "cat": "phase",
+                    "ts": _us(off), "dur": _us(dur), "pid": pid, "tid": 2,
+                })
+                k_off = off
+                for child, k_dur in kids.get(name, []):
+                    k_dur = max(0.0, min(k_dur, dur))
+                    trace_events.append({
+                        "ph": "X", "name": f"{name}/{child}",
+                        "cat": "phase",
+                        "ts": _us(k_off), "dur": _us(k_dur),
+                        "pid": pid, "tid": 2,
+                    })
+                    k_off += k_dur
+                off += dur
+        compiles = rec.get("compile_events")
+        if isinstance(compiles, list):
+            for e in compiles:
+                if not isinstance(e, dict) or "program" not in e:
+                    continue
+                trace_events.append({
+                    "ph": "i", "s": "t",
+                    "name": f"compile:{e['program']}", "cat": "compile",
+                    "ts": _us(cursor), "pid": pid, "tid": 3,
+                    "args": {k: v for k, v in e.items() if k != "program"},
+                })
+        # ---- async causal lane: flow arrows dispatch → fold/discard ----
+        a = rec.get("async")
+        if isinstance(a, dict):
+            t_end = cursor + wall
+
+            def flow(ph: str, d: int, ts: float) -> dict:
+                # one arrow chain per dispatch: Chrome binds flow events
+                # by identical (cat, id, name), so the name is the bare
+                # dispatch id for every s/t/f of that chain
+                ev = {"ph": ph, "id": d, "name": f"d{d}",
+                      "cat": "async-flow", "ts": _us(ts),
+                      "pid": pid, "tid": 4}
+                if ph == "f":
+                    ev["bp"] = "e"
+                return ev
+
+            for d in a.get("dispatches") or []:
+                if not isinstance(d, int) or isinstance(d, bool):
+                    continue
+                trace_events.append({
+                    "ph": "i", "s": "t", "name": f"dispatch d{d}",
+                    "cat": "async", "ts": _us(cursor), "pid": pid,
+                    "tid": 4, "args": {"dispatch": d},
+                })
+                trace_events.append(flow("s", d, cursor))
+                flow_started.add(d)
+            for verb, key in (("fold", "consumed_dispatches"),
+                              ("discard", "discarded_dispatches")):
+                for d, n in _async_pairs(a, key):
+                    if d not in flow_started:
+                        # dispatched before this log window: a degenerate
+                        # (same-record) arrow still names the causality
+                        trace_events.append(flow("s", d, cursor))
+                        flow_started.add(d)
+                    trace_events.append(flow(
+                        "f" if last_touch.get(d) == i else "t", d, t_end))
+                    trace_events.append({
+                        "ph": "i", "s": "t",
+                        "name": f"{verb} d{d}→u{rec.get('generation', i)}",
+                        "cat": "async", "ts": _us(t_end), "pid": pid,
+                        "tid": 4,
+                        "args": {"dispatch": d, "members": n,
+                                 "update": rec.get("generation", i),
+                                 "what": verb},
+                    })
+        cursor += wall
+
+    # ---- wall-clock lane: flight-recorder events + heartbeat ----------
+    wall_events = [e for e in (events or [])
+                   if isinstance(e, dict)
+                   and isinstance(e.get("ts"), (int, float))
+                   and not isinstance(e.get("ts"), bool)]
+    hb_ts = (heartbeat or {}).get("ts")
+    hb_placeable = (isinstance(hb_ts, (int, float))
+                    and not isinstance(hb_ts, bool))
+    # a heartbeat without a numeric ts (hand-edited or foreign file)
+    # cannot be placed on the lane — and with no events either, there is
+    # no lane to emit at all
+    if wall_events or hb_placeable:
+        trace_events.append({"ph": "M", "name": "process_name",
+                             "pid": _WALL_PID, "tid": 0,
+                             "args": {"name": "events (wall clock, "
+                                              "rebased — separate clock "
+                                              "from the run lanes)"}})
+        t0 = min([e["ts"] for e in wall_events]
+                 + ([float(hb_ts)] if hb_placeable else []))
+        for e in wall_events:
+            trace_events.append({
+                "ph": "i", "s": "t",
+                "name": f"{e.get('kind', 'event')}:{e.get('name', '?')}",
+                "ts": _us(e["ts"] - t0), "pid": _WALL_PID, "tid": 1,
+                "args": {k: v for k, v in e.items()
+                         if k not in ("ts", "kind", "name")},
+            })
+        if hb_placeable:
+            trace_events.append({
+                "ph": "i", "s": "t", "name": "last heartbeat",
+                "ts": _us(float(hb_ts) - t0),
+                "pid": _WALL_PID, "tid": 1,
+                "args": {"phase": heartbeat.get("phase"),
+                         "generation": heartbeat.get("generation"),
+                         "age_s": heartbeat.get("age_s")},
+            })
+
+    meta = {}
+    if manifest:
+        meta = {k: manifest.get(k) for k in
+                ("hostname", "pid", "git_sha", "torch", "cuda") if k in manifest}
+    return {
+        "traceEvents": trace_events,
+        "displayTimeUnit": "ms",
+        "otherData": {
+            "exporter": "estorch_tpu_torch.obs trace",
+            "generations": len(records),
+            "segments": len(bounds) + 1,
+            "restart_markers": len(bounds),
+            **meta,
+        },
+    }
+
+
+def validate_trace(trace) -> list[str]:
+    """Schema problems in a trace-event dict ([] when clean)."""
+    problems: list[str] = []
+    if not isinstance(trace, dict):
+        return [f"trace is {type(trace).__name__}, not an object"]
+    evs = trace.get("traceEvents")
+    if not isinstance(evs, list):
+        return ["traceEvents is missing or not a list"]
+    for i, e in enumerate(evs):
+        where = f"traceEvents[{i}]"
+        if not isinstance(e, dict):
+            problems.append(f"{where} is not an object")
+            continue
+        ph = e.get("ph")
+        if ph not in TRACE_PHASES:
+            problems.append(f"{where} has unknown ph {ph!r}")
+            continue
+        if not isinstance(e.get("name"), str) or not e["name"]:
+            problems.append(f"{where} has no name")
+        if "pid" not in e:
+            problems.append(f"{where} has no pid")
+        if ph != "M":
+            ts = e.get("ts")
+            if not isinstance(ts, (int, float)) or isinstance(ts, bool) \
+                    or ts < 0:
+                problems.append(f"{where} has bad ts {ts!r}")
+            if "tid" not in e:
+                problems.append(f"{where} has no tid")
+        if ph == "X":
+            dur = e.get("dur")
+            if not isinstance(dur, (int, float)) or isinstance(dur, bool) \
+                    or dur < 0:
+                problems.append(f"{where} has bad dur {dur!r}")
+        if ph == "i" and e.get("s") not in (None, "t", "p", "g"):
+            problems.append(f"{where} has bad instant scope {e.get('s')!r}")
+        if ph in _FLOW_PHASES:
+            fid = e.get("id")
+            if not isinstance(fid, int) or isinstance(fid, bool):
+                problems.append(f"{where} flow event has bad id {fid!r}")
+            if ph == "f" and e.get("bp") not in (None, "e"):
+                problems.append(f"{where} flow finish has bad bp "
+                                f"{e.get('bp')!r}")
+        if "args" in e and not isinstance(e["args"], dict):
+            problems.append(f"{where} args is not an object")
+    return problems
+
+
+def write_trace(trace: dict, path: str) -> str:
+    """Atomic write (tmp + rename), mirroring the manifest contract."""
+    import os
+
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(trace, f, default=float)
+    os.replace(tmp, path)
+    return path

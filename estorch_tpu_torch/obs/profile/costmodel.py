@@ -1,0 +1,243 @@
+"""Analytic FLOPs/bytes cost model per engine phase.
+
+Counterpart of ``estorch_tpu/obs/profile/costmodel.py`` (stdlib only):
+for the same arguments :func:`generation_cost` and :func:`phase_cost_for`
+give the same dicts.  Spans say *where* the time went; this module says
+what that time *bought*: an analytic floating-op and byte-traffic
+estimate per phase, from the run configuration alone (population, the
+policy's matmul shapes, the noise representation), so ``obs profile``
+can turn per-phase seconds into achieved FLOP/s and bytes/s against a
+platform roofline.
+
+The model is deliberately COARSE and says so: it counts the dominant
+terms only (policy matmuls for the forward, table-row traffic for the
+noise pathways) and ignores elementwise epilogues, env dynamics and
+collectives.  Its job is attribution to the right order of magnitude.
+
+Phase mapping (the span taxonomy of ``obs/spans.py``):
+
+* ``sample`` — perturbation construction: table-row reads + scaled add;
+* ``eval``  — policy forwards over every member env-step;
+* ``update``— the rank-weighted noise reduction;
+* ``device`` (the device backend) — the whole generation queued on the
+  card: its cost is their sum; ``dispatch``/``host_sync`` carry no
+  modeled cost.
+"""
+
+from __future__ import annotations
+
+COST_MODEL_SCHEMA = 1
+
+# phases whose cost is the per-generation sum of every modeled phase —
+# the fused device program cannot be split host-side (spans taxonomy)
+FUSED_PHASES = ("device",)
+MODELED_PHASES = ("sample", "eval", "update")
+
+
+def matmul_flops(matmul_shapes) -> int:
+    """2·Σ(m·n) over the policy's 2-D kernels — multiply-add per forward."""
+    return 2 * sum(int(m) * int(n) for m, n in matmul_shapes)
+
+
+def lowrank_noise_dim(matmul_shapes, rank: int, param_dim: int) -> int:
+    """Packed (A‖B‖bias) factor length (ops/lowrank.py): every 2-D kernel
+    contributes (m+n)·r, every non-kernel param stays dense."""
+    kernel_params = sum(int(m) * int(n) for m, n in matmul_shapes)
+    factors = sum((int(m) + int(n)) * rank for m, n in matmul_shapes)
+    return factors + (param_dim - kernel_params)
+
+
+def generation_cost(*, population: int, matmul_shapes, param_dim: int,
+                    horizon: int | None = None,
+                    episodes_per_member: int = 1,
+                    mirrored: bool = True,
+                    low_rank: int = 0,
+                    dtype_bytes: int = 4,
+                    noise: str = "table",
+                    n_devices: int = 1,
+                    model_shards: int = 1) -> dict:
+    """Per-phase FLOPs/bytes for ONE generation of this configuration.
+
+    ``horizon`` may be None (host agents own their rollout length); the
+    ``eval`` entry is then omitted and consumers derive eval cost from
+    the per-record ``env_steps`` × ``flops_per_env_step`` instead —
+    which is also what ``obs profile`` does even when horizon is known,
+    so early-terminating envs (done masks) are charged only for the
+    steps they actually ran.
+
+    ``noise="program"`` (the param-sharded engine's in-program ε,
+    parallel/sharded.py) changes the BYTE model: no table rows are ever
+    read — ε is generated in-registers — so sample/update traffic is the
+    param-sized center/accumulator only.  RNG hashing FLOPs are not
+    modeled (coarse-model contract; they scale like the scaled-add the
+    model does count).
+
+    ``n_devices``/``model_shards`` record the mesh and add a
+    ``sharding`` block with PER-DEVICE unit costs: an env-step's forward
+    is split over the ``model`` axis, so a per-chip MFU that divides
+    whole-program FLOPs by chip seconds must use
+    ``per_device_flops_per_env_step × total steps``, not pretend each
+    chip ran every step's full forward — the "per-shard attribution"
+    that keeps sharded MFU honest.
+    """
+    matmul_shapes = [tuple(int(d) for d in s) for s in matmul_shapes]
+    population = int(population)
+    param_dim = int(param_dim)
+    n_devices = max(int(n_devices), 1)
+    model_shards = max(int(model_shards), 1)
+    fwd = matmul_flops(matmul_shapes)
+    if low_rank:
+        noise_dim = lowrank_noise_dim(matmul_shapes, int(low_rank), param_dim)
+        # factored noise term per step: 2·Σ(m+n)·r instead of the dense 2·m·n
+        fwd_step = fwd + 2 * sum((m + n) * int(low_rank)
+                                 for m, n in matmul_shapes)
+    else:
+        noise_dim = param_dim
+        fwd_step = fwd
+    # distinct noise rows per generation: one per antithetic PAIR when
+    # mirrored (both members share the row), one per member otherwise
+    rows = population // 2 if mirrored else population
+    # table rows are HBM traffic; in-program rows are RNG output and
+    # never touch memory (streamed straight into the scaled-add/FMA)
+    row_read_bytes = 0 if noise == "program" else rows * noise_dim * dtype_bytes
+    per_gen = {
+        # theta = params + sigma·sign·eps: one scaled add over the noise
+        # vector per member; bytes = the noise rows (table mode only)
+        # plus the center read per member
+        "sample": {
+            "flops": 2 * population * noise_dim,
+            "bytes": row_read_bytes + population * param_dim * dtype_bytes,
+        },
+        # rank-weighted noise sum: one FMA per noise element per row;
+        # bytes = re-reading every row (table mode) plus the param-sized
+        # accumulator
+        "update": {
+            "flops": 2 * rows * noise_dim,
+            "bytes": row_read_bytes + param_dim * dtype_bytes,
+        },
+    }
+    out = {
+        "schema": COST_MODEL_SCHEMA,
+        # forward FLOPs per member env-step — the eval phase's unit cost
+        "flops_per_env_step": fwd_step,
+        # per-step traffic ≈ the member's weights through the MXU/ALU
+        # (GEMV regime; batched rollouts amortize this, so treat it as an
+        # upper bound on eval bytes)
+        "bytes_per_env_step": param_dim * dtype_bytes,
+        "per_generation": per_gen,
+        "population": population,
+        "param_dim": param_dim,
+        "noise_dim": noise_dim,
+        "mirrored": bool(mirrored),
+        "low_rank": int(low_rank),
+        "episodes_per_member": int(episodes_per_member),
+        "dtype_bytes": int(dtype_bytes),
+        "noise": str(noise),
+        "matmul_shapes": [list(s) for s in matmul_shapes],
+    }
+    if n_devices > 1 or model_shards > 1:
+        out["sharding"] = {
+            "n_devices": n_devices,
+            "model_shards": model_shards,
+            "pop_shards": n_devices // model_shards,
+            # one env-step's forward work per chip (split over model)
+            "per_device_flops_per_env_step": fwd_step / model_shards,
+            # resident center bytes per chip — the replicated-vs-sharded
+            # memory argument in one number
+            "per_device_param_bytes": param_dim * dtype_bytes / model_shards,
+        }
+    if horizon is not None:
+        steps = population * int(horizon) * int(episodes_per_member)
+        out["env_steps_per_generation"] = steps
+        per_gen["eval"] = {
+            "flops": steps * fwd_step,
+            "bytes": steps * param_dim * dtype_bytes,
+        }
+    return out
+
+
+def phase_cost_for(model: dict, phase: str, *, env_steps: int,
+                   n_generations: int) -> dict | None:
+    """Modeled {flops, bytes} for ``phase`` over a whole run, or None
+    when the model has nothing to say about it (dispatch, host_sync,
+    nested children).  ``env_steps`` is the run total (honest for
+    early-terminating envs); fused phases get the sum of every modeled
+    phase."""
+    if not isinstance(model, dict) or "per_generation" not in model:
+        return None
+    per_gen = model["per_generation"]
+
+    def eval_cost() -> dict:
+        return {
+            "flops": env_steps * model.get("flops_per_env_step", 0),
+            "bytes": env_steps * model.get("bytes_per_env_step", 0),
+        }
+
+    def scaled(name: str) -> dict | None:
+        ent = per_gen.get(name)
+        if not isinstance(ent, dict):
+            return None
+        return {"flops": ent.get("flops", 0) * n_generations,
+                "bytes": ent.get("bytes", 0) * n_generations}
+
+    if phase == "eval":
+        return eval_cost()
+    if phase in ("sample", "update"):
+        return scaled(phase)
+    if phase in FUSED_PHASES:
+        total = eval_cost()
+        for name in ("sample", "update"):
+            ent = scaled(name)
+            if ent:
+                total["flops"] += ent["flops"]
+                total["bytes"] += ent["bytes"]
+        return total
+    return None
+
+
+def _probe_cost_analysis(compiled) -> dict:
+    """``compiled.cost_analysis()`` facts, or {} when the object does not
+    provide that (best-effort) API."""
+    try:
+        ca = compiled.cost_analysis()
+        if isinstance(ca, (list, tuple)):
+            ca = ca[0] if ca else None
+        out: dict = {}
+        if isinstance(ca, dict):
+            flops = ca.get("flops")
+            if isinstance(flops, (int, float)) and flops > 0:
+                out["xla_flops"] = float(flops)
+            acc = ca.get("bytes accessed")
+            if isinstance(acc, (int, float)) and acc > 0:
+                out["xla_bytes_accessed"] = float(acc)
+        return out
+    except Exception:  # noqa: BLE001 — absent/changed best-effort API
+        pass
+    return {}
+
+
+def _probe_memory_analysis(compiled) -> dict:
+    """``compiled.memory_analysis()`` peak-bytes fact, same probe shape."""
+    try:
+        ma = compiled.memory_analysis()
+        peak = sum(
+            float(getattr(ma, attr, 0) or 0)
+            for attr in ("argument_size_in_bytes", "output_size_in_bytes",
+                         "temp_size_in_bytes"))
+        return {"peak_bytes": peak} if peak > 0 else {}
+    except Exception:  # noqa: BLE001 — absent/changed best-effort API
+        pass
+    return {}
+
+
+def compiled_cost_facts(compiled) -> dict:
+    """FLOPs/bytes/peak-memory facts from a compiled-program object that
+    has ``cost_analysis()`` / ``memory_analysis()`` (a JAX ``Compiled``),
+    for the compile ledger; an empty dict for any other object, which is
+    everything the port builds (its native libraries have neither).
+    Duck-typed: nothing is imported.
+    """
+    out: dict = {}
+    out.update(_probe_cost_analysis(compiled))
+    out.update(_probe_memory_analysis(compiled))
+    return out

@@ -84,3 +84,9 @@ class MultiSink:
         for w in self.writers:
             if hasattr(w, "close"):
                 w.close()
+
+
+# the JAX package's historical names (``utils/metrics.py``)
+JsonlWriter = JsonlSink
+TensorBoardWriter = TensorBoardSink
+MultiWriter = MultiSink

@@ -21,8 +21,15 @@ emits ``host_sync`` and ``record``, and one shared stack would interleave
 their names.  A disabled hub's ``phase()`` returns a cached no-op context
 manager.  ``ESTORCH_OBS=0`` disables the default-on hub and
 ``ESTORCH_OBS_HEARTBEAT=<path>`` turns the heartbeat file on, as in the
-JAX package.  Its compile ledger and cost model wait for ``obs/profile/``
-(ROADMAP.md port item 6); the port compiles nothing ahead of time.
+JAX package.
+
+The hub also carries the performance-attribution facts of
+``obs/profile/``: the run's analytic cost model (``set_cost_model``; ES
+writes it into its first record) and the compile ledger
+(``compile_event``; flushed into each record's ``compile_events``).  The
+port's compiles are its native libraries' builds and loads at first use
+(``ops/_build.py``, ``envs/native_pool.py``), each recorded once a
+process, by the ES whose engine loaded it.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import time
 
 from .counters import Counters, NullCounters
 from .hist import Histograms, NullHistograms
+from .profile.ledger import CompileLedger, ledger_counters
 from .recorder import HEARTBEAT_ENV, FlightRecorder, Heartbeat
 
 OBS_DISABLE_ENV = "ESTORCH_OBS"  # "0" disables the default-on hub
@@ -60,6 +68,10 @@ class Telemetry:
         self._acc: dict[str, float] = {}
         self._acc_lock = threading.Lock()
         self._tls = threading.local()
+        # obs/profile/: the per-program compile ledger and the run's
+        # analytic cost model, which `obs profile` joins with the spans
+        self.compile_ledger = CompileLedger()
+        self.cost_model: dict | None = None
 
     @classmethod
     def from_env(cls) -> "Telemetry":
@@ -123,6 +135,13 @@ class Telemetry:
         finally:
             self._tls.trace = prev
 
+    def observe(self, name: str, value: float, n: int = 1,
+                exemplar: str | None = None, **ladder) -> None:
+        """Record ``n`` observations into the named histogram (ladder
+        kwargs apply at its first observe; ``exemplar`` attaches a trace id
+        to the value's bucket)."""
+        self.hists.observe(name, value, n, exemplar=exemplar, **ladder)
+
     def take_phases(self) -> dict[str, float]:
         """Flush this generation's spans (into its record) and advance the
         generation counter."""
@@ -149,6 +168,46 @@ class Telemetry:
         """A heartbeat-only marker for long stretches without spans."""
         if self.enabled and self.heartbeat is not None:
             self._beat(phase)
+
+    # ------------------------------------------------------ compile ledger
+
+    def set_cost_model(self, model: dict | None) -> None:
+        """Attach the run's analytic FLOPs/bytes model
+        (``obs/profile/costmodel.py``)."""
+        if self.enabled:
+            self.cost_model = dict(model) if model else None
+
+    def compile_event(self, program: str, dur_s: float, compiled=None,
+                      count_recompiles: int = 1, **extra):
+        """Record one program build: the ledger entry (with the cost facts
+        of ``compiled`` where it has any, and ``extra``), the
+        ``recompiles`` counter (``count_recompiles`` programs), the
+        ``compile_time_s`` gauge (the ledger's sum), the per-program
+        gauges and a flight-recorder event.  Returns the entry, or None
+        when the hub is disabled."""
+        if not self.enabled:
+            return None
+        from .profile.costmodel import compiled_cost_facts
+
+        facts = compiled_cost_facts(compiled) if compiled is not None else {}
+        entry = self.compile_ledger.record(program, dur_s, generation=self.generation,
+                                           **facts, **extra)
+        if count_recompiles:
+            self.counters.inc("recompiles", count_recompiles)
+        self.counters.gauge("compile_time_s", round(sum(
+            e.get("compile_s", 0.0) for e in self.compile_ledger.entries()), 6))
+        for name, value in ledger_counters([entry]).items():
+            self.counters.gauge(name, value)
+        self.recorder.add("event", "compile", generation=self.generation, program=program,
+                          dur_s=dur_s)
+        return entry
+
+    def take_compile_events(self) -> list[dict]:
+        """Ledger entries recorded since the last flush: a record's
+        ``compile_events``."""
+        if not self.enabled:
+            return []
+        return self.compile_ledger.take_new()
 
     def event(self, name: str, **extra) -> None:
         """A non-span event in the ring; the current trace id rides along

@@ -6,6 +6,12 @@ is loaded with ``ctypes``.  The library is cached under
 ``build/estorch_tpu_torch/`` at the repository root, named by a hash of the
 sources and flags, so a changed source is rebuilt and an unchanged one is
 not.  Nothing here runs at import time.
+
+A library's build and load is what the port counts as a compile (torch
+compiles nothing ahead of time): :func:`note_library_load` keeps each first
+load in the process, program ``noise_kernels`` here and ``envpool`` in
+``envs/native_pool.py``, until an ES claims it (:func:`claim_library_loads`)
+into its compile ledger (``obs/profile/ledger.py``).
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -40,6 +47,34 @@ SIGNATURES = {
 # (-Xptxas -v register/spill report) and the library path
 build_info: dict = {}
 _library = None
+
+# first loads of the native libraries in this process, each claimed by at
+# most one ES: {"program", "compile_s", "cached", "library", "t"}
+_loads: list[dict] = []
+_loads_lock = threading.Lock()
+
+
+def note_library_load(program: str, build_s: float, load_s: float, cached: bool,
+                      path: Path) -> None:
+    """Keep one first load of a native library: ``compile_s`` is the build's
+    seconds (0.0 on a hash hit, ``cached``) plus the ``dlopen``'s."""
+    with _loads_lock:
+        _loads.append({"program": program, "compile_s": float(build_s) + float(load_s),
+                       "cached": bool(cached), "library": Path(path).name,
+                       "t": time.monotonic()})
+
+
+def claim_library_loads(since: float) -> list[dict]:
+    """The loads not claimed yet that happened at or after ``since`` (a
+    ``time.monotonic()`` reading), now claimed: the ES that calls this with
+    its construction time records the loads its own engine caused, and no
+    load lands in two ledgers.  A load that happened before any live ES was
+    built (a direct call of ``load_library``) stays unclaimed."""
+    with _loads_lock:
+        mine = [e for e in _loads if not e.get("claimed") and e["t"] >= since]
+        for e in mine:
+            e["claimed"] = True
+    return [{k: e[k] for k in ("program", "compile_s", "cached", "library")} for e in mine]
 
 
 def find_nvcc() -> str:
@@ -67,7 +102,7 @@ def build() -> Path:
     """Compile the sources unless the hashed library already exists."""
     out = library_path()
     if out.exists():
-        build_info.update(seconds=0.0, log="(cached)", path=str(out))
+        build_info.update(seconds=0.0, log="(cached)", path=str(out), cached=True)
         return out
     nvcc = find_nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -84,7 +119,8 @@ def build() -> Path:
         raise RuntimeError(
             f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-    build_info.update(seconds=time.perf_counter() - t0, log=proc.stderr, path=str(out))
+    build_info.update(seconds=time.perf_counter() - t0, log=proc.stderr, path=str(out),
+                      cached=False)
     return out
 
 
@@ -92,10 +128,14 @@ def load_library() -> ctypes.CDLL:
     """The kernels' library, built on first call and kept for the process."""
     global _library
     if _library is None:
-        lib = ctypes.CDLL(str(build()))
+        path = build()
+        t0 = time.perf_counter()
+        lib = ctypes.CDLL(str(path))
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         _library = lib
+        note_library_load("noise_kernels", build_info["seconds"], time.perf_counter() - t0,
+                          build_info["cached"], path)
     return _library

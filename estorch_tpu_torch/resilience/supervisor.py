@@ -30,6 +30,8 @@ final parameters.
 
 from __future__ import annotations
 
+import collections
+import copy
 import importlib
 import json
 import multiprocessing as mp
@@ -39,9 +41,6 @@ import time
 
 from ..obs.recorder import HEARTBEAT_ENV, STALE_AFTER_S, read_heartbeat
 from . import chaos as _chaos
-
-COUNTERS_FILENAME = "counters.json"  # the JAX package's published totals
-COUNTERS_SCHEMA = 1
 
 
 # ---------------------------------------------------------------------
@@ -54,13 +53,17 @@ def _snapshot(es) -> dict:
     and pooled engines' update, ``optim.Adam``, the obs-stats merge, the
     host engine's ``parameters_to_vector`` and deep-copied optimizer state)
     and none writes a state's tensor in place.  Lists are copied, the
-    archive is taken as its stacked BCs."""
+    archive is taken as its stacked BCs.  IW-ES's reuse window (F11) and
+    the novelty family's meta RNG (F12) are taken too: the JAX package's
+    rollback leaves both moved by the aborted attempt."""
     snap = {
         "state": es.state,
         "generation": es.generation,
         "history_len": len(es.history),
         "best_reward": es.best_reward,
         "best_flat": es._best_flat,
+        # a rolled-back first record took the cost model with it
+        "cost_model_emitted": es._cost_model_emitted,
     }
     if hasattr(es, "meta_states"):
         snap["meta_states"] = list(es.meta_states)
@@ -69,6 +72,10 @@ def _snapshot(es) -> dict:
         snap["archive"] = es.archive.state_dict()
     if hasattr(es, "weight"):  # NSRA's schedule
         snap["nsra"] = (es.weight, es._stagnation)
+    if hasattr(es, "_prev"):  # IW-ES: the window is appended before the record's save
+        snap["iwes"] = (list(es._prev), es._dry_gens, es._dry_best_ess)
+    if hasattr(es, "_rng"):  # the novelty family draws the center first
+        snap["meta_rng"] = copy.deepcopy(es._rng.bit_generator.state)
     return snap
 
 
@@ -78,6 +85,7 @@ def _restore(es, snap: dict) -> None:
     del es.history[snap["history_len"]:]
     es.best_reward = snap["best_reward"]
     es._best_flat = snap["best_flat"]
+    es._cost_model_emitted = snap["cost_model_emitted"]
     if "meta_states" in snap:
         es.meta_states = list(snap["meta_states"])
         es._center_bc = list(snap["center_bc"])
@@ -87,6 +95,11 @@ def _restore(es, snap: dict) -> None:
         es.archive = NoveltyArchive.from_state_dict(snap["archive"])
     if "nsra" in snap:
         es.weight, es._stagnation = snap["nsra"]
+    if "iwes" in snap:
+        prev, es._dry_gens, es._dry_best_ess = snap["iwes"]
+        es._prev = collections.deque(prev, maxlen=es._prev.maxlen)
+    if "meta_rng" in snap:
+        es._rng.bit_generator.state = copy.deepcopy(snap["meta_rng"])
     es.obs.discard_phases()  # the aborted generation's partial spans
 
 
@@ -366,25 +379,17 @@ class Supervisor:
         self._publish_counters(through_ts=self._counters_through_ts)
 
     def _publish_counters(self, through_ts: float, completed: bool | None = None) -> None:
-        """Write ``counters.json`` atomically, in the JAX package's schema:
-        the totals, ``through_ts`` (the beat they include), the histograms
-        and ``restart_count`` (and ``completed`` at the end)."""
-        payload = {
-            "schema": COUNTERS_SCHEMA,
-            "through_ts": float(through_ts),
-            "counters": {k: v for k, v in self._counters_total.items()
-                         if isinstance(v, (int, float)) and not isinstance(v, bool)},
-        }
-        if self._hists_total:
-            payload["hists"] = self._hists_total
-        payload["restart_count"] = len(self.restarts)
+        """Publish ``counters.json`` (``obs/export/sidecar.py``): the
+        totals, ``through_ts`` (the beat they include), the histograms and
+        ``restart_count`` (and ``completed`` at the end)."""
+        from ..obs.export.sidecar import publish_counters
+
+        extra: dict = {"restart_count": len(self.restarts)}
         if completed is not None:
-            payload["completed"] = completed
-        path = os.path.join(self.ckpt_root, COUNTERS_FILENAME)
+            extra["completed"] = completed
         try:
-            with open(path + ".tmp", "w") as f:
-                json.dump(payload, f, default=float)
-            os.replace(path + ".tmp", path)
+            publish_counters(self.ckpt_root, self._counters_total, through_ts, extra=extra,
+                             hists=self._hists_total or None)
             self._publish_error = None
         except OSError as e:
             # observability is best effort: a full disk is no supervision

@@ -837,3 +837,58 @@ def test_checkpoint_crosses_devices(cuda, tmp_path, src, dst):
     assert _states_equal_on_cpu(b.state, a.state)
     b.train(1, verbose=False)
     assert b.generation == 3
+
+
+def test_noise_kernels_load_is_the_first_records_compile_event(cuda, tmp_path):
+    """In a fresh process the streamed ES's first generation loads the
+    kernels' library: that record carries the ``noise_kernels`` compile
+    event (``cached`` set, the library's name), ``compile_time_s`` is its
+    seconds, and the first record carries the cost model."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = (
+        "import json, sys\n"
+        f"sys.path.insert(0, {repo!r})\n"
+        "from estorch_tpu_torch import ES, CartPole, DeviceAgent, MLPPolicy, adam\n"
+        "es = ES(MLPPolicy, DeviceAgent(CartPole(), horizon=20), adam, device='cuda',\n"
+        "        population_size=64, table_size=1 << 20, telemetry=True, streamed=True,\n"
+        "        noise_kernel=True, policy_kwargs={'action_dim': 2, 'hidden': (32, 32)},\n"
+        "        optimizer_kwargs={'learning_rate': 1e-2})\n"
+        "es.train(2, verbose=False)\n"
+        "print(json.dumps({'ev': [r.get('compile_events') for r in es.history],\n"
+        "                  'cm': 'cost_model' in es.history[0], 'cs': es.compile_time_s}))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=600, cwd=tmp_path, env=dict(os.environ, ESTORCH_OBS="1"))
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    (ev,), second = got["ev"]
+    assert second is None and got["cm"]
+    assert ev["program"] == "noise_kernels" and isinstance(ev["cached"], bool)
+    assert ev["library"].startswith("libestorch_noise_kernels-") and ev["generation"] == 0
+    assert abs(got["cs"] - ev["compile_s"]) < 1e-6
+
+
+def test_trace_names_both_kernels(cuda, tmp_path):
+    """One streamed generation with the kernel update under
+    ``obs.trace.trace``: the Chrome trace holds 3 matvec launches an env
+    step and one reduction, by the kernels' names."""
+    import json
+
+    from estorch_tpu_torch.obs.trace import trace
+
+    es = _streamed_cartpole(cuda)
+    es.train(1, verbose=False)
+    nk.reset_launch_counts()
+    with trace(str(tmp_path / "tr")):
+        es.train(1, verbose=False)
+    (path,) = list((tmp_path / "tr").glob("*.pt.trace.json"))
+    kernels = [e["name"] for e in json.loads(path.read_text())["traceEvents"]
+               if e.get("cat") == "kernel"]
+    assert sum("weighted_sum_partials" in k for k in kernels) == 1
+    assert sum("noise_matvec" in k for k in kernels) == nk.launch_counts[
+        "population_noise_matvec"] > 0
+    assert nk.launch_counts["weighted_noise_sum"] == 1

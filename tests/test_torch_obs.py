@@ -440,7 +440,8 @@ def test_summarize_equals_jax_on_port_and_jax_runs(tmp_path):
 def test_cli_summarize(tmp_path):
     """``python -m estorch_tpu_torch.obs``: ``summarize --selfcheck``, a run
     with its heartbeat and manifest beside it (found without flags), the
-    JSON form, and the JAX package's other subcommands named as not ported."""
+    JSON form, ``trace``, and the JAX package's fleet subcommands (item 9)
+    named as not ported."""
     import subprocess
     import sys
 
@@ -467,5 +468,7 @@ def test_cli_summarize(tmp_path):
     assert "heartbeat fresh: last phase=eval gen=2" in out.stdout
     out = cli("summarize", str(root / "run.jsonl"), "--json")
     assert json.loads(out.stdout)["generations"] == 2
-    out = cli("trace", str(root / "run.jsonl"))
-    assert out.returncode == 3 and "item 6b" in out.stderr
+    out = cli("trace", str(root / "run.jsonl"))  # ported with item 6b
+    assert out.returncode == 0 and os.path.exists(root / "trace.json")
+    out = cli("collect")
+    assert out.returncode == 3 and "item 9" in out.stderr

@@ -166,6 +166,84 @@ def test_device_path_crash_and_poisoned_update_contained(tmp_path, chaos_plan):
     assert sorted(os.listdir(tmp_path / "cks")) == ["gen_00000003", "gen_00000004"]
 
 
+def test_iwes_reuse_window_rolled_back_with_the_generation(tmp_path, chaos_plan):
+    """F11: IW-ES appends the generation to its reuse window before the
+    record's save runs.  A crash in that save must roll the window back
+    too, or the re-run reuses its own aborted samples at ratio 1: the run
+    is bit-identical to an uninterrupted one, params and each record's
+    ``reused_gens`` and ``ess``."""
+    from estorch_tpu_torch import IW_ES, DeviceAgent, MLPPolicy, Pendulum, adam
+
+    def cell():
+        return IW_ES(MLPPolicy, DeviceAgent(Pendulum(), horizon=20), adam, device="cpu",
+                     population_size=16, sigma=0.1, table_size=1 << 16, reuse_window=2,
+                     ess_min=0.5, optimizer_kwargs={"learning_rate": 1e-3},
+                     policy_kwargs={"action_dim": 1, "hidden": (8, 8), "discrete": False,
+                                    "action_scale": 2.0})
+
+    clean = cell()
+    clean.train(4, verbose=False)
+    chaos_plan({"events": [{"kind": "ckpt_crash", "gen": 2}]})
+    es = cell()
+    run_resilient(es, 4, checkpointer=PeriodicCheckpointer(es, str(tmp_path / "cks"), every=1))
+    assert es.obs.counters.get("generations_skipped") == 1
+    assert torch.equal(es.state.params_flat, clean.state.params_flat)
+    for key in ("generation", "reused_gens", "ess", "reused_prev", "grad_norm"):
+        assert [r[key] for r in es.history] == [r[key] for r in clean.history], key
+    assert len(es._prev) == len(clean._prev) == 2
+    assert (es._dry_gens, es._dry_best_ess) == (clean._dry_gens, clean._dry_best_ess)
+
+
+def test_novelty_meta_rng_rolled_back_with_the_generation(tmp_path, chaos_plan):
+    """F12: the novelty family draws the generation's center from its meta
+    RNG before anything can fail.  Crashes in the saves at generations 2,
+    4 and 6 must not move the draws: NSR-ES over 8 generations gives the
+    clean run's ``meta_index`` and every center's params bit for bit."""
+    from estorch_tpu_torch import NSR_ES, CartPole, DeviceAgent, MLPPolicy, adam
+
+    def cell():
+        return NSR_ES(MLPPolicy, DeviceAgent(CartPole(), horizon=30), adam, device="cpu",
+                      population_size=16, sigma=0.05, table_size=1 << 16,
+                      meta_population_size=3, k=3,
+                      optimizer_kwargs={"learning_rate": 1e-2},
+                      policy_kwargs={"action_dim": 2, "hidden": (8,)})
+
+    clean = cell()
+    clean.train(8, verbose=False)
+    chaos_plan({"events": [{"kind": "ckpt_crash", "gen": g} for g in (2, 4, 6)]})
+    es = cell()
+    run_resilient(es, 8, checkpointer=PeriodicCheckpointer(es, str(tmp_path / "cks"), every=1))
+    assert es.obs.counters.get("generations_skipped") == 3
+    assert [r["meta_index"] for r in es.history] == [r["meta_index"] for r in clean.history]
+    for a, b in zip(es.meta_states, clean.meta_states):
+        assert torch.equal(a.params_flat, b.params_flat)
+    assert es._rng.bit_generator.state == clean._rng.bit_generator.state
+
+
+def test_spawned_child_reads_its_own_peak_rss():
+    """F13: a spawned child's ``peak_rss_mb`` is its own high-water mark
+    (``VmHWM``), not its parent's: ``ru_maxrss`` carries the parent's
+    resident set across the exec.  The parent holds 400 MB it touched;
+    the child, which loads ``obs/counters.py`` alone, reads far less."""
+    code = ("import importlib.util, json\n"
+            "spec = importlib.util.spec_from_file_location('c', {path!r})\n"
+            "m = importlib.util.module_from_spec(spec); spec.loader.exec_module(m)\n"
+            "c = m.Counters(); c.sample_peak_rss()\n"
+            "print(json.dumps(c.snapshot()))\n").format(
+        path=os.path.join(REPO, "estorch_tpu_torch", "obs", "counters.py"))
+    held = np.ones(400 * 2**20 // 8)  # touched: resident in the parent
+    from estorch_tpu_torch.obs.counters import Counters
+
+    parent = Counters()
+    parent.sample_peak_rss()
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=60, check=True)
+    child_mb = json.loads(out.stdout)["peak_rss_mb"]
+    del held
+    assert parent.get("peak_rss_mb") > 400
+    assert 0 < child_mb < parent.get("peak_rss_mb") - 300, (child_mb, parent.snapshot())
+
+
 def test_persistent_failure_reraises():
     """An env that always raises: every member NaN, each attempt rejected
     by ``train``'s guard and skipped, then re-raised, in both packages."""
