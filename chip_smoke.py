@@ -83,7 +83,7 @@ Phases, in order; any failure exits non-zero before the last line:
    generation: (j) PooledAgent("pendulum", horizon=200), MLP 64x64, pop
    4096, the kernel update; (k) the same with ``double_buffer=True``; (l)
    the ``pong84_conv`` recipe (NatureCNN with VBN, pop 256, 84x84x4, action
-   repeat 2, sticky 0.25, horizon 500), with the host-clock shares of the
+   repeat 2, sticky 0.25, horizon 250, cut from 500), with the host-clock shares of the
    four parts of its env step timed apart for one generation;
 9. the host path at full width, (m) host/pendulum/vbn64x64: the
    ``halfcheetah_vbn`` recipe's torch MLP 64x64 with TorchVirtualBatchNorm
@@ -164,10 +164,20 @@ Phases, in order; any failure exits non-zero before the last line:
    1 reduction and 600 matvec launches; (af) ``obs serve-metrics`` scraped
    once, parsed and validated; (ag) ``obs regress --phases`` on two
    3-generation runs of the cell in turns (the verdict printed, not
-   gated) and the profile, regress and hist selfchecks.
+   gated) and the profile, regress and hist selfchecks;
+15. serving on the card (``run_serving``): (ah) the cell's bundle, its
+   predict bit-equal to ``ES.predict``, card against CPU, bf16 within its
+   measured bound, the served forward alone (host wall against the card's
+   busy time); (ai) ``python -m estorch_tpu_torch.serve`` in fresh
+   processes: 64 served rows bit-equal, ``/reload``, the SIGTERM drain,
+   spawn-to-ready and first-request latency cold and with ``--warm``,
+   batch 1 against dynamic batching with the forward's share of each
+   leg; (aj) the same at the JAX serving demo's width (MLP 6144 x 6144).  Neither kernel runs in serving: their
+   launch counts over (ah) stay 0.
 
 Then one JSON line of per-path numbers (with phase 13's under
-``crash_safe`` and phase 14's under ``attribution``), one of per-kernel numbers (launches from phase 3, and of
+``crash_safe``, phase 14's under ``attribution`` and phase 15's under
+``serving``), one of per-kernel numbers (launches from phase 3, and of
 the reduction in (j), (k), (m), phases 10-13),
 the card line, and the last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -226,6 +236,7 @@ ENV_PATHS = [
 ]
 # phase 8's pooled paths: label, how to build it, the timed generations after
 # 1 warm-up, and the reduction's launches a generation
+PONG_CONV_HORIZON = 250  # (l)'s horizon, cut from the pong84_conv recipe's 500
 POOLED_PATHS = [
     ("j pooled/pendulum/standard+nk", lambda tt, cf: tt.ES(
         tt.MLPPolicy, tt.PooledAgent("pendulum", horizon=HORIZON), tt.adam,
@@ -235,8 +246,11 @@ POOLED_PATHS = [
         tt.MLPPolicy, tt.PooledAgent("pendulum", horizon=HORIZON, double_buffer=True), tt.adam,
         population_size=POPULATION, sigma=0.05, policy_kwargs=POLICY,
         optimizer_kwargs={"learning_rate": 1e-2}, noise_kernel=True), 3, 1),
-    # (l) times 1 generation (2 before PR 7) to keep the script within its time
-    ("l pooled/pong84_conv", lambda tt, cf: cf.pong84_conv(), 1, 0),
+    # (l) times 1 generation at horizon 250, half the recipe's 500, to keep
+    # the script within its time
+    ("l pooled/pong84_conv", lambda tt, cf: cf.pong84_conv(
+        agent_kwargs={"env_name": "pong84", "horizon": PONG_CONV_HORIZON, "frame_stack": 4,
+                      "action_repeat": 2, "sticky_prob": 0.25}), 1, 0),
 ]
 PONG_PAIRS, PONG_TABLE = 128, 1 << 23  # the pong84_conv recipe's update shape
 # phase 9, (m): the halfcheetah_vbn recipe's policy and hyperparameters on a
@@ -341,11 +355,12 @@ L2_FLUSH_BYTES = 256 << 20  # written and read before each cold launch: five tim
 # reported as this run's number
 PREV_MATVEC_STEP_MS = 0.0242
 
-# published peaks (NVIDIA data sheets): memory bytes/s, float32 non-tensor FLOP/s
+# published peaks (NVIDIA data sheets): memory bytes/s, float32 and float64
+# non-tensor FLOP/s (weighted_noise_sum accumulates in float64)
 CARD_PEAKS = {
-    "H100 NVL": (3.9e12, 60e12),
-    "H100 PCIe": (2.0e12, 51e12),
-    "H100": (3.35e12, 67e12),  # SXM, the default for any other H100 name
+    "H100 NVL": (3.9e12, 60e12, 30e12),
+    "H100 PCIe": (2.0e12, 51e12, 26e12),
+    "H100": (3.35e12, 67e12, 34e12),  # SXM, the default for any other H100 name
 }
 
 
@@ -371,7 +386,7 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def card_peaks(name: str) -> tuple[float, float]:
+def card_peaks(name: str) -> tuple[float, float, float]:
     for key, peaks in CARD_PEAKS.items():
         if key in name:
             return peaks
@@ -718,7 +733,7 @@ def chunk_invariance(torch, tt) -> list[dict]:
     return out
 
 
-def time_pong_reduction(torch, nk, bw: float, f32: float, flush) -> dict:
+def time_pong_reduction(torch, nk, bw: float, f64: float, flush) -> dict:
     """Phase 2: the reduction at the pong84_conv recipe's update shape, 128
     pair rows of dim 1,685,987 from a 2^23-float table, checked against the
     plain version and timed warm, cold and plain.  The table (33.5 MB) fits
@@ -744,7 +759,7 @@ def time_pong_reduction(torch, nk, bw: float, f32: float, flush) -> dict:
     distinct = 4 * (union_floats(offs, dim) + 2 * PONG_PAIRS + dim)
     read = 4 * (PONG_PAIRS * dim + 2 * PONG_PAIRS + dim)
     flops = 2 * PONG_PAIRS * dim
-    bound = max(distinct / bw, flops / f32) * 1e3
+    bound = max(distinct / bw, flops / f64) * 1e3
 
     def kernel():
         return nk.weighted_noise_sum(table, offs_dev, w, dim)
@@ -1051,7 +1066,7 @@ def host_table(torch):
         np.random.default_rng(0).standard_normal(TABLE_SIZE, dtype=np.float32)).cuda()
 
 
-def time_host_reduction(torch, nk, table, bw: float, f32: float) -> dict:
+def time_host_reduction(torch, nk, table, bw: float, f64: float) -> dict:
     """Phase 2: the reduction at the host path's update shape (m): 500 pair
     rows of dim 4737 from the host path's NumPy-built 2^25-float table, at
     the SeedSequence offsets of generation 0, checked against the plain
@@ -1071,7 +1086,7 @@ def time_host_reduction(torch, nk, table, bw: float, f32: float) -> dict:
         fail(f"weighted_noise_sum host n={HOST_PAIRS} dim={HOST_DIM}: max |err| {err:g}")
     nbytes = 4 * (union_floats(offs, HOST_DIM) + 2 * HOST_PAIRS + HOST_DIM)
     flops = 2 * HOST_PAIRS * HOST_DIM
-    bound = max(nbytes / bw, flops / f32) * 1e3
+    bound = max(nbytes / bw, flops / f64) * 1e3
     ms = time_ms(torch, lambda: nk.weighted_noise_sum(table, offs_dev, w, HOST_DIM))
     plain_ms = time_ms(torch, lambda: nk.weighted_noise_sum_plain(table, offs_dev, w, HOST_DIM))
     print(f"weighted_noise_sum host (m) n={HOST_PAIRS} dim={HOST_DIM}: max |err| {err:.3g} (tol "
@@ -1081,7 +1096,7 @@ def time_host_reduction(torch, nk, table, bw: float, f32: float) -> dict:
             "plain_ms": plain_ms, "bound_ms": bound, "max_abs_err": err}
 
 
-def time_fold_reduction(torch, nk, table, bw: float, f32: float) -> dict:
+def time_fold_reduction(torch, nk, table, bw: float, f64: float) -> dict:
     """Phase 2: the reduction at the async fold's shape on the host path:
     one row a member of a batch of HOST_POPULATION (m) members from 2
     dispatches (the older one's last FOLD_STALE members, the newer one's
@@ -1107,7 +1122,7 @@ def time_fold_reduction(torch, nk, table, bw: float, f32: float) -> dict:
         fail(f"weighted_noise_sum fold n={n} dim={HOST_DIM}: max |err| {err:g}")
     nbytes = 4 * (union_floats(offs, HOST_DIM) + 2 * n + HOST_DIM)
     flops = 2 * n * HOST_DIM
-    bound = max(nbytes / bw, flops / f32) * 1e3
+    bound = max(nbytes / bw, flops / f64) * 1e3
     ms = time_ms(torch, lambda: nk.weighted_noise_sum(table, offs_dev, w, HOST_DIM))
     plain_ms = time_ms(torch, lambda: nk.weighted_noise_sum_plain(table, offs_dev, w, HOST_DIM))
     print(f"weighted_noise_sum fold (z) n={n} member rows from 2 dispatches, dim={HOST_DIM}: max "
@@ -1271,7 +1286,7 @@ def run_host_path(torch, tt, nk, card: str) -> dict:
                                      **side}}
 
 
-def time_recurrent_reduction(torch, nk, table, bw: float, f32: float, flush) -> dict:
+def time_recurrent_reduction(torch, nk, table, bw: float, f64: float, flush) -> dict:
     """Phase 2: the reduction at the recurrent paths' update shape (n), (r):
     2048 pair rows of dim 25,153 (RecurrentPolicy's defaults on Pendulum)
     from the cell's 2^25-float table, checked against the plain version and
@@ -1295,7 +1310,7 @@ def time_recurrent_reduction(torch, nk, table, bw: float, f32: float, flush) -> 
         fail(f"weighted_noise_sum recurrent n={REC_PAIRS} dim={dim}: max |err| {err:g}")
     nbytes = 4 * (union_floats(offs, dim) + 2 * REC_PAIRS + dim)
     flops = 2 * REC_PAIRS * dim
-    bound = max(nbytes / bw, flops / f32) * 1e3
+    bound = max(nbytes / bw, flops / f64) * 1e3
 
     def kernel():
         return nk.weighted_noise_sum(table, offs_dev, w, dim)
@@ -1308,7 +1323,7 @@ def time_recurrent_reduction(torch, nk, table, bw: float, f32: float, flush) -> 
           f"({nbytes / 1e6:.1f} MB distinct)")
     return {"shape": f"recurrent (n), (r): n={REC_PAIRS}, dim={dim}, table 2^25", "ms": ms,
             "cold_ms": cold, "plain_ms": plain_ms, "bound_ms": bound, "max_abs_err": err,
-            "bound_by": "bytes" if nbytes / bw >= flops / f32 else "operations",
+            "bound_by": "bytes" if nbytes / bw >= flops / f64 else "operations",
             "library_ms": None}
 
 
@@ -1731,7 +1746,9 @@ def compare_fold_card_cpu(torch, tt, nk, n_logs: int = 3) -> list[dict]:
     folded late, each run's event log replayed on the card and on the CPU:
     one reduction launch an update on the card, params within 1e-6 of their
     largest entry (the kernel and the plain gather + product sum in other
-    orders; the Adam steps in float32), the async blocks' counts equal.
+    orders, each in float64 and rounded once, so the update is the same
+    float32 vector on both; the Adam steps in float32, on each device's own
+    kernels), the async blocks' counts equal.
     Each live run times its own stragglers, so each log is another batch
     mix: the importance ratios of every mix must agree across devices."""
     small = dict(population_size=32, table_size=1 << 22, horizon=60)
@@ -2549,6 +2566,384 @@ def run_attribution(torch, card: str, name: str) -> dict:
     return out
 
 
+# phase 15, serving on the card: the cell's bundle through the predictor,
+# the batcher and the HTTP server, then the JAX serving demo's width
+# ---------------------------------------------------------------------
+
+SERVE_MAX_BATCH = 64  # the ladder's top, the anchor bucket
+SERVE_LOAD_S = 2.5  # each run_load leg, as the JAX demo's
+DEMO_HIDDEN = 6144  # tests/test_serve.py:775: 37.8 M params, 151 MB of f32 weights
+DEMO_TABLE = 1 << 26
+
+
+def spawn_server(bundle: str, max_batch: int, *extra: str):
+    """``python -m estorch_tpu_torch.serve`` on the card in a new process:
+    (process, its ready line, seconds from spawn to the ready line)."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "estorch_tpu_torch.serve", "--bundle", bundle, "--port", "0",
+         "--max-batch", str(max_batch), "--beat-interval", "0.5", *extra],
+        cwd=HERE, stdout=subprocess.PIPE, text=True)
+    line = proc.stdout.readline()
+    if not line:
+        proc.wait(timeout=30)
+        fail(f"the server exited {proc.returncode} before its ready line")
+    return proc, json.loads(line), time.perf_counter() - t0
+
+
+def stop_server(proc) -> tuple[int, dict]:
+    """SIGTERM, then the exit code and the final counter line."""
+    import signal
+
+    proc.send_signal(signal.SIGTERM)
+    out, _ = proc.communicate(timeout=60)
+    return proc.returncode, json.loads(out.strip().splitlines()[-1])
+
+
+def first_request_ms(url: str, obs: list) -> float:
+    """The first request of a fresh server, alone on one connection."""
+    from estorch_tpu_torch.serve.loadgen import run_load
+
+    res = run_load(url, conns=1, total=1, duration_s=60.0, obs=obs, collect_latencies=True)
+    if res["errors"] or res["shed"]:
+        fail(f"first request failed: {res}")
+    return res["latencies_s"][0] * 1e3
+
+
+def served_rows(url: str, obs) -> tuple:
+    """Each row of ``obs`` as one request (6 connections, mixed buckets):
+    the answers as float32 rows, and the run's errors + shed."""
+    import numpy as np
+
+    from estorch_tpu_torch.serve.loadgen import run_load
+
+    res = run_load(url, conns=6, total=len(obs), duration_s=120.0,
+                   obs_list=[o.tolist() for o in obs], collect_responses=True)
+    rows = np.asarray([r["action"] if r else [np.nan] for r in res["responses"]], np.float32)
+    return rows, res["errors"] + res["shed"]
+
+
+def _loaded_leg(url: str, conns: int, max_batch: int, obs: list, label: str, leg: str) -> dict:
+    """``run_load`` closed loop on a running server for ``SERVE_LOAD_S``:
+    throughput, p50, p99, the leg's own mean batch, and the batched
+    forward's share of the leg's wall time (the batcher's
+    ``predict_time_s_total``: the forward on the card and the answer's
+    copy back), which says how much of a request's time the card's work
+    takes and how much the host's.  Gated on errors and shed only."""
+    from estorch_tpu_torch.serve import ServeClient
+    from estorch_tpu_torch.serve.loadgen import run_load
+
+    keys = ("batches_total", "batched_requests_total", "predict_time_s_total")
+    with ServeClient(url) as c:
+        before = c.stats()["counters"]
+    res = run_load(url, conns=conns, duration_s=SERVE_LOAD_S, obs=obs)
+    with ServeClient(url) as c:
+        after = c.stats()["counters"]
+    n, rows, fwd_s = (after.get(k, 0) - before.get(k, 0) for k in keys)
+    if res["errors"] or res["shed"]:
+        fail(f"({label}) {leg} leg: errors {res['errors']}, shed {res['shed']}")
+    out = {"conns": conns, "max_batch": max_batch, "requests": res["requests"],
+           "throughput_rps": res["throughput_rps"], "p50_ms": res["latency_ms"]["p50"],
+           "p99_ms": res["latency_ms"]["p99"], "mean_batch": round(rows / n, 3) if n else None,
+           "forward_ms_per_batch": round(fwd_s / n * 1e3, 4) if n else None,
+           "forward_share": round(fwd_s / res["duration_s"], 4)}
+    print(f"({label}) {leg}: {out['throughput_rps']} req/s, p50 {out['p50_ms']} ms, p99 "
+          f"{out['p99_ms']} ms over {out['requests']} requests ({conns} conns, max batch "
+          f"{max_batch}, mean batch {out['mean_batch']}); batched forward "
+          f"{out['forward_ms_per_batch']} ms a batch, {out['forward_share']:.1%} of the leg")
+    return out
+
+
+def dynamic_leg(url: str, obs: list, label: str) -> dict:
+    """Dynamic batching on a running ``--max-batch 64`` server: 48
+    connections (:func:`_loaded_leg`)."""
+    return _loaded_leg(url, 48, SERVE_MAX_BATCH, obs, label, "dynamic")
+
+
+def batch1_leg(bundle: str, obs: list, label: str) -> dict:
+    """The batch-size-1 baseline in a fresh ``--max-batch 1`` server, one
+    connection (:func:`_loaded_leg`)."""
+    proc, ready, _ = spawn_server(bundle, 1)
+    try:
+        out = _loaded_leg(ready["url"], 1, 1, obs, label, "batch1")
+        rc, final = stop_server(proc)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    if rc != 0 or not final["clean"]:
+        fail(f"({label}) the batch-1 server exited {rc}")
+    return out
+
+
+def run_serving(torch, tt, nk, card: str, name: str) -> dict:
+    """Phase 15, serving on the card: no kernel of the port runs in serving
+    (the center's standard forward is cuBLAS), so the kernels' launch
+    counts over (ah)-(ai)'s in-process serving must stay 0.
+
+    (ah) the main path's cell trained 1 + 2 generations and exported
+    (``serve_bf16``, with the warm replay of a 64 ladder on the card):
+    ``Bundle.predict`` bit-equal (``tobytes``) to ``ES.predict`` for one
+    observation and an anchor batch of 64; the bundle on the card against
+    the same bundle on the CPU within 1e-6 of the output's scale (float32
+    products in another order); the bf16 batcher's measured divergence per
+    bucket, each kept bucket within ``BF16_DIVERGENCE_BOUND``, and a bf16
+    answer within it; the served forward alone at 1 and 64 rows, host wall
+    against the card's busy time (:func:`served_forward`);
+
+    (ai) ``python -m estorch_tpu_torch.serve`` in a fresh process on the
+    card (``--max-batch 64``): the ready line names the card; the verified
+    and excluded buckets; spawn-to-ready and the first request's latency,
+    cold and with ``--warm``; 64 distinct observations through ``run_load``
+    bit-equal to ``ES.predict`` on the anchor batch; ``/reload`` to the
+    best member's bundle, answering bit-equal to ``ES.predict(use_best=
+    True)``; SIGTERM with 12 requests in flight drains them all (exit 0,
+    nothing shed, real answers); batch 1 against dynamic batching, each
+    leg with the batched forward's share of its wall time;
+
+    (aj) the JAX serving demo's width (MLP 6144 x 6144, table 2^26, pop 4,
+    one generation): the served forward alone, 64 served rows bit-equal to
+    ``ES.predict``, and batch 1 against dynamic batching (gated on errors
+    and shed only).
+    """
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from estorch_tpu_torch import ES, DeviceAgent, MLPPolicy, Pendulum, adam
+    from estorch_tpu_torch.obs.manifest import describe_device
+    from estorch_tpu_torch.serve import BF16_DIVERGENCE_BOUND, ServeClient, load_bundle
+    from estorch_tpu_torch.serve.warm import build_serving_batcher
+
+    t_start = time.perf_counter()
+    out: dict = {"path": "serving (phase 15)", "cell": "streamed (phase 3)"}
+    work = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    rng = np.random.default_rng(15)
+    obs_list = [0.1, 0.2, 0.3]
+    try:
+        # (ah) ----------------------------------------------------------------
+        es = streamed_cell()
+        es.train(3, verbose=False)
+        t0 = time.perf_counter()
+        bundle = es.export_bundle(os.path.join(work, "cell"), version="cell-g3",
+                                  warm=True, warm_max_batch=SERVE_MAX_BATCH, serve_bf16=True)
+        best = es.export_bundle(os.path.join(work, "best"), use_best=True, version="cell-best")
+        out["export_s"] = time.perf_counter() - t0
+        nk.reset_launch_counts()
+        b = load_bundle(bundle)
+        if b.device != es.device or b.params["head"]["kernel"].device.type != es.device.type:
+            fail(f"(ah) load_bundle put the bundle on {b.device}, not {es.device}")
+        one = rng.standard_normal(3).astype(np.float32)
+        anchor = rng.standard_normal((SERVE_MAX_BATCH, 3)).astype(np.float32)
+        for label, x in (("one observation", one), ("anchor batch", anchor)):
+            got, want = b.predict(x).cpu().numpy(), es.predict(x).cpu().numpy()
+            if got.tobytes() != want.tobytes():
+                fail(f"(ah) Bundle.predict != ES.predict for {label}: "
+                     f"max |err| {np.abs(got - want).max():g}")
+        ref = es.predict(anchor).cpu().numpy()
+        if b.batched_predict_fn()(anchor).tobytes() != ref.tobytes():
+            fail("(ah) the batcher's program != ES.predict at the anchor shape")
+        cpu = load_bundle(bundle, device="cpu").predict(anchor).numpy()
+        card_cpu = float(np.abs(cpu - ref).max() / np.abs(ref).max())
+        if not card_cpu <= 1e-6:
+            fail(f"(ah) the bundle on the card vs the CPU: {card_cpu:g} of scale > 1e-6")
+        warm = b.warm_info
+        print(f"(ah) bundle exported in {out['export_s']:.2f} s (warm replay {warm['warm_s']} s "
+              f"on {warm['device_kind']}: buckets {warm['buckets']}, excluded "
+              f"{warm['buckets_excluded']}); Bundle.predict == ES.predict bit for bit (one "
+              f"observation, batch {SERVE_MAX_BATCH}); card vs CPU {card_cpu:.3g} of scale "
+              "(tol 1e-6)")
+        qb = build_serving_batcher(b, max_batch=SERVE_MAX_BATCH, dtype="bf16")
+        try:
+            div = {int(k): v for k, v in qb.quant_divergence.items()}
+            if any(div[k] > BF16_DIVERGENCE_BOUND for k in qb.quant_buckets):
+                fail(f"(ah) a kept bf16 bucket past the bound: {div}")
+            got16 = qb.predict(one, timeout=30.0)
+            ref1 = float(np.abs(ref).max())
+            want16 = _pad_predict(es, one, SERVE_MAX_BATCH)
+            err16 = float(np.abs(got16 - want16).max()) / ref1
+            if not err16 <= BF16_DIVERGENCE_BOUND:
+                fail(f"(ah) a bf16 answer {err16:g} of scale past {BF16_DIVERGENCE_BOUND}")
+        finally:
+            qb.close()
+        print(f"(ah) bf16: divergence by bucket {div}, kept {list(qb.quant_buckets)}, excluded "
+              f"{list(qb.quant_buckets_excluded)}; an answer {err16:.3g} of scale (bound "
+              f"{BF16_DIVERGENCE_BOUND})")
+        out.update(card_vs_cpu=card_cpu, bf16_divergence=div, bf16_answer_err=err16,
+                   warm_block={k: warm[k] for k in ("buckets", "buckets_excluded", "warm_s")})
+        launches = dict(nk.launch_counts)
+        if any(launches.values()):
+            fail(f"(ah) serving launched the port's kernels: {launches}")
+        out["serving_launches"] = launches
+        out["forward_alone"] = served_forward(torch, b, "ah")
+
+        # (ai) ----------------------------------------------------------------
+        proc, ready, spawn_s = spawn_server(bundle, SERVE_MAX_BATCH, "--port-file",
+                                            os.path.join(work, "port.json"))
+        try:
+            dev = ready["device"]
+            if dev != describe_device(es.device) or dev["kind"] != name:
+                fail(f"(ai) the ready line names {dev}, not {name}")
+            cold_first = first_request_ms(ready["url"], obs_list)
+            rows, bad = served_rows(ready["url"], anchor)
+            if bad or rows.tobytes() != ref.tobytes():
+                fail(f"(ai) served rows != ES.predict on the anchor batch ({bad} errors+shed)")
+            dyn = dynamic_leg(ready["url"], obs_list, "ai")
+            with ServeClient(ready["url"]) as c:
+                if c.reload(best)["version"] != "cell-best":
+                    fail("(ai) /reload did not swap the bundle")
+                x = anchor[:1]
+                got = np.asarray(c.predict(x[0]), np.float32)
+                stats = c.stats()
+            want = _pad_predict(es, x[0], max(stats["buckets"]), use_best=True)
+            if got.tobytes() != want.tobytes():
+                fail("(ai) after /reload the answer != ES.predict(use_best=True)")
+            # SIGTERM with 12 requests in flight: each gets a real answer
+            clients = [ServeClient(ready["url"], timeout_s=60) for _ in range(12)]
+            for c in clients:
+                c.health()
+            results, errors = [None] * 12, []
+
+            def client(i):
+                try:
+                    results[i] = clients[i].predict(anchor[i])
+                except Exception as e:  # noqa: BLE001 — failed on below
+                    errors.append((i, repr(e)))
+                finally:
+                    clients[i].close()
+
+            threads = [threading.Thread(target=client, args=(i,)) for i in range(12)]
+            for t in threads:
+                t.start()
+            time.sleep(0.02)
+            rc, final = stop_server(proc)
+            for t in threads:
+                t.join(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+        shed = final["counters"].get("shed_total", 0)
+        want12 = es.predict(np.concatenate(
+            [anchor[:12], np.zeros((SERVE_MAX_BATCH - 12, 3), np.float32)]),
+            use_best=True).cpu().numpy()[:12]
+        if (errors or rc != 0 or not final["clean"] or shed
+                or np.asarray(results, np.float32).tobytes() != want12.tobytes()):
+            fail(f"(ai) SIGTERM drain: exit {rc}, clean {final['clean']}, shed {shed}, "
+                 f"errors {errors}")
+        print(f"(ai) server on {dev['kind']}: ready {spawn_s:.2f} s after spawn (startup_s "
+              f"{ready['cold_start']['startup_s']}, compiles_at_load "
+              f"{ready['cold_start']['compiles_at_load']}), buckets {ready['buckets']}, excluded "
+              f"{ready['buckets_excluded']}; first request {cold_first:.2f} ms; 64 rows bit-equal "
+              "to ES.predict; /reload answered as ES.predict(use_best=True); SIGTERM drained 12 "
+              "in flight (exit 0, 0 shed)")
+        wproc, wready, wspawn_s = spawn_server(bundle, SERVE_MAX_BATCH, "--warm")
+        try:
+            warm_first = first_request_ms(wready["url"], obs_list)
+            wrc, wfinal = stop_server(wproc)
+        finally:
+            if wproc.poll() is None:
+                wproc.kill()
+                wproc.wait(timeout=30)
+        if wrc != 0 or not wfinal["clean"]:
+            fail(f"(ai) the --warm server exited {wrc}")
+        print(f"(ai) --warm: ready {wspawn_s:.2f} s after spawn, first request "
+              f"{warm_first:.2f} ms")
+        out.update(buckets=ready["buckets"], buckets_excluded=ready["buckets_excluded"],
+                   spawn_to_ready_s={"cold": spawn_s, "warm": wspawn_s},
+                   first_request_ms={"cold": cold_first, "warm": warm_first},
+                   compiles_at_load=ready["cold_start"]["compiles_at_load"],
+                   warm_status=ready["cold_start"]["warm"])
+        b1 = batch1_leg(bundle, obs_list, "ai")
+        out["load_cell"] = {"batch1": b1, "dynamic": dyn,
+                            "ratio": dyn["throughput_rps"] / b1["throughput_rps"]}
+        del es, b
+
+        # (aj) ----------------------------------------------------------------
+        big = ES(MLPPolicy, DeviceAgent(Pendulum(), horizon=8), adam, population_size=4,
+                 sigma=0.05, table_size=DEMO_TABLE,
+                 policy_kwargs=dict(POLICY, hidden=(DEMO_HIDDEN, DEMO_HIDDEN)),
+                 optimizer_kwargs={"learning_rate": 1e-2})
+        big.train(1, verbose=False)
+        big_bundle = big.export_bundle(os.path.join(work, "big"), version="demo")
+        big_ref = big.predict(anchor).cpu().numpy()
+        big_forward = served_forward(torch, load_bundle(big_bundle), "aj")
+        proc, ready, big_spawn_s = spawn_server(big_bundle, SERVE_MAX_BATCH)
+        try:
+            big_first = first_request_ms(ready["url"], obs_list)
+            rows, bad = served_rows(ready["url"], anchor)
+            dyn = dynamic_leg(ready["url"], obs_list, "aj")
+            rc, final = stop_server(proc)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+        if bad or rc != 0 or rows.tobytes() != big_ref.tobytes():
+            fail(f"(aj) served rows at width {DEMO_HIDDEN} != ES.predict ({bad} errors+shed, "
+                 f"exit {rc})")
+        print(f"(aj) MLP {DEMO_HIDDEN}x{DEMO_HIDDEN} ({big.spec.dim:,} params): ready "
+              f"{big_spawn_s:.2f} s after spawn, buckets {ready['buckets']}, excluded "
+              f"{ready['buckets_excluded']}, first request {big_first:.2f} ms; 64 rows "
+              "bit-equal to ES.predict")
+        out["big"] = {"params": big.spec.dim, "buckets": ready["buckets"],
+                      "buckets_excluded": ready["buckets_excluded"],
+                      "spawn_to_ready_s": big_spawn_s, "first_request_ms": big_first,
+                      "forward_alone": big_forward, "load": {"dynamic": dyn}}
+        b1 = batch1_leg(big_bundle, obs_list, "aj")
+        out["big"]["load"].update(batch1=b1, ratio=dyn["throughput_rps"] / b1["throughput_rps"])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_start
+    print(f"phase 15: {out['phase_s']:.1f} s on {card}")
+    return out
+
+
+def served_forward(torch, bundle, label: str, reps: int = 50) -> dict:
+    """The served batched forward (``Bundle.batched_predict_fn``: the
+    observations copied to the card, normalize, the policy, the answer
+    copied back) in this process, alone, at the two served shapes, 1 row
+    and ``SERVE_MAX_BATCH`` rows: host wall a call over ``reps`` calls
+    (after 3 warm-up calls), then the card's busy time a call from
+    torch.profiler's device events over ``reps`` more.  Set beside a load
+    leg's ``forward_ms_per_batch``, it says how much of the forward under
+    load is the card's work, how much the host's dispatch, and how much
+    waiting (the GIL, shared with the handler threads)."""
+    import numpy as np
+
+    fn = bundle.batched_predict_fn()
+    out = {}
+    for rows in (1, SERVE_MAX_BATCH):
+        x = np.random.default_rng(rows).standard_normal((rows,) + bundle.obs_shape).astype(
+            np.float32)
+        for _ in range(3):
+            fn(x)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn(x)
+        wall_ms = (time.perf_counter() - t0) / reps * 1e3
+        events = device_events(torch, lambda: [fn(x) for _ in range(reps)])
+        busy_ms = sum(ns for _, ns in events) / reps / 1e6
+        out[rows] = {"wall_ms": wall_ms, "device_ms": busy_ms,
+                     "kernels": kernel_launches(events) / reps}
+        print(f"({label}) forward alone at {rows} rows: {wall_ms:.4f} ms a call on the host's "
+              f"clock, card busy {busy_ms:.4f} ms ({busy_ms / wall_ms:.1%}), "
+              f"{out[rows]['kernels']:.1f} kernels a call")
+    return out
+
+
+def _pad_predict(es, obs, anchor: int, use_best: bool = False):
+    """``ES.predict`` of one observation in row 0 of an ``anchor``-sized
+    zero-padded batch: the reference for a lone served request (the batcher
+    pads into a verified bucket, whose rows equal the anchor's)."""
+    import numpy as np
+
+    pad = np.zeros((anchor,) + np.shape(obs), np.float32)
+    pad[0] = obs
+    return es.predict(pad, use_best=use_best).cpu().numpy()[0]
+
+
 def main() -> None:
     import torch
 
@@ -2572,7 +2967,7 @@ def main() -> None:
     phase("1. identity and build")
     card = card_line()
     name = torch.cuda.get_device_name(0)
-    bw, f32 = card_peaks(name)
+    bw, f32, f64 = card_peaks(name)
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     try:
@@ -2609,8 +3004,9 @@ def main() -> None:
     n_pairs = POPULATION // 2
 
     # weighted_noise_sum: one launch a generation over the pair rows.
-    # Tolerance: float32 sums over up to 2048 rows in another order than the
-    # plain gather + matvec; |weights| <= 1, so |error| well under 1e-3.
+    # Tolerance: float64 sums over up to 2048 rows in another order than the
+    # plain gather + matvec, each rounded to float32 once; |weights| <= 1, so
+    # |error| well under 1e-3 (in practice 0: both round to the same float).
     wns = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0}
     for n in (n_pairs, 0, 1):
         offs = sample_pair_offsets(gen, n, TABLE_SIZE, dim).to(dev)
@@ -2626,13 +3022,13 @@ def main() -> None:
             continue
         nbytes = 4 * (union_floats(offs.cpu(), dim) + 2 * n + dim)
         flops = 2 * n * dim
-        bound = max(nbytes / bw, flops / f32) * 1e3
+        bound = max(nbytes / bw, flops / f64) * 1e3
         ms = time_ms(torch, lambda: nk.weighted_noise_sum(table, offs, w, dim))
         plain_ms = time_ms(torch, lambda: nk.weighted_noise_sum_plain(table, offs, w, dim))
         print(f"  time {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
               f"({nbytes / 1e6:.1f} MB distinct)")
         wns.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, max_abs_err=err,
-                   bound_by="bytes" if nbytes / bw >= flops / f32 else "operations")
+                   bound_by="bytes" if nbytes / bw >= flops / f64 else "operations")
 
     # population_noise_matvec: three launches an env step, one per layer.
     # Tolerance: float32 dot products of d <= 256 terms in another order.
@@ -2747,7 +3143,7 @@ def main() -> None:
         ms = time_ms(torch, lambda: nk.weighted_noise_sum(table, offs, w, env_dim))
         plain_ms = time_ms(torch, lambda: nk.weighted_noise_sum_plain(table, offs, w, env_dim))
         nbytes = 4 * (union_floats(env_pairs, env_dim) + 2 * (pop // 2) + env_dim)
-        bound = max(nbytes / bw, 2 * (pop // 2) * env_dim / f32) * 1e3
+        bound = max(nbytes / bw, 2 * (pop // 2) * env_dim / f64) * 1e3
         print(f"weighted_noise_sum {plabel} n={pop // 2} dim={env_dim}: max |err| {err:.3g} "
               f"(tol atol 1e-3, rtol 1e-4); time {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
               f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB distinct)")
@@ -2756,16 +3152,16 @@ def main() -> None:
                                     "max_abs_err": err})
         wns["max_abs_err"] = max(wns["max_abs_err"], err)
     pnm["max_abs_err"] = max(errs + [e["max_abs_err"] for e in extra])
-    pong_wns = time_pong_reduction(torch, nk, bw, f32, flush)
+    pong_wns = time_pong_reduction(torch, nk, bw, f64, flush)
     wns["other_shapes"].append(pong_wns)
     wns["max_abs_err"] = max(wns["max_abs_err"], pong_wns["max_abs_err"])
     htable = host_table(torch)
-    for host_wns in (time_host_reduction(torch, nk, htable, bw, f32),
-                     time_fold_reduction(torch, nk, htable, bw, f32)):
+    for host_wns in (time_host_reduction(torch, nk, htable, bw, f64),
+                     time_fold_reduction(torch, nk, htable, bw, f64)):
         wns["other_shapes"].append(host_wns)
         wns["max_abs_err"] = max(wns["max_abs_err"], host_wns["max_abs_err"])
     del htable
-    rec_wns = time_recurrent_reduction(torch, nk, table, bw, f32, flush)
+    rec_wns = time_recurrent_reduction(torch, nk, table, bw, f64, flush)
     wns["other_shapes"].append(rec_wns)
     wns["max_abs_err"] = max(wns["max_abs_err"], rec_wns["max_abs_err"])
     del flush
@@ -2873,6 +3269,10 @@ def main() -> None:
     phase("14. attribution")
     attribution = run_attribution(torch, card, name)
 
+    # ---- 15. serving ----------------------------------------------------------
+    phase("15. serving")
+    serving = run_serving(torch, estorch_tpu_torch, nk, card, name)
+
     # ---- report --------------------------------------------------------------
     phase("report")
     kernels = [
@@ -2891,7 +3291,8 @@ def main() -> None:
                               for p in novelty},
          "launches_async": {fold["path"]: fold["launches"]["weighted_noise_sum"]},
          "launches_per_fold_update": fold["launches_per_update"],
-         "launches_resumed": crash_safe["checkpoint"]["resumed_launches"]["weighted_noise_sum"]},
+         "launches_resumed": crash_safe["checkpoint"]["resumed_launches"]["weighted_noise_sum"],
+         "launches_serving": serving["serving_launches"].get("weighted_noise_sum", 0)},
         {"name": "population_noise_matvec", "route": "cuda",
          "source": "estorch_tpu_torch/ops/csrc/noise_kernels.cu",
          "replaces": "estorch_tpu/ops/pallas_noise.py:201",
@@ -2905,11 +3306,12 @@ def main() -> None:
          "launches_novelty": {p["path"]: p["launches"]["population_noise_matvec"]
                               for p in novelty},
          "launches_resumed": crash_safe["checkpoint"]["resumed_launches"][
-             "population_noise_matvec"]},
+             "population_noise_matvec"],
+         "launches_serving": serving["serving_launches"].get("population_noise_matvec", 0)},
     ]
     print(json.dumps({"paths": paths, "eval_chunk": chunking, "card_vs_cpu_envs": env_cmp,
                       "async": async_paths, "crash_safe": crash_safe,
-                      "attribution": attribution}))
+                      "attribution": attribution, "serving": serving}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -26,6 +26,9 @@ clipped importance weights, the overlap of generations on the card, and
 bit-exact replay of a fold's event log); ``obs`` is the span and counter
 hub every record's ``phases`` come from, and ``resilience`` the
 deterministic chaos plans (``ESTORCH_CHAOS``) that drive its faults.
+``ES.predict`` runs the serving forward, ``ES.export_bundle`` writes a
+policy bundle, and ``serve`` (``python -m estorch_tpu_torch.serve``)
+answers requests from it behind a dynamic micro-batcher.
 """
 
 from . import obs, resilience  # noqa: F401

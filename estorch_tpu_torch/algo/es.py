@@ -44,6 +44,9 @@ share its record plumbing (``_base_record``, ``_emit_record``,
 ``_format_record``).  ``device`` is ``"cuda"`` unless
 the caller passes ``"cpu"``.  ``best_policy`` keeps the best member seen, and
 ``evaluate_policy`` rolls out fresh episodes of the center or of it.
+``predict`` runs the serving forward (``serve/predictor.py``) with the
+center's or the best member's params, and ``export_bundle`` writes a
+bundle that ``python -m estorch_tpu_torch.serve`` serves.
 
 ``es.obs`` is the run's telemetry hub (``obs/spans.py``; ``telemetry=None``
 is on unless ``ESTORCH_OBS=0``, a bool forces it, or pass a
@@ -191,6 +194,7 @@ class ES:
         self.best_reward = -np.inf
         self._best_flat: torch.Tensor | None = None  # the best member's params
         self._best_module = None  # best_policy's module, built at first use
+        self._predict_fn = None  # predict's serving program, built at first use
         self.history: list[dict] = []
         self.generation = 0
         self._d2h_stream = None  # the metrics' side stream on CUDA, built at first use
@@ -795,6 +799,60 @@ class ES:
         """Not ported, as ``policy_variables``."""
         raise AttributeError("best_policy_variables is device-path only in the JAX package "
                              "and not ported; use .best_policy")
+
+    def predict(self, obs, use_best: bool = False, carry=None):
+        """Policy forward pass with the current (or best) parameters, on the
+        ES's device.
+
+        Recurrent policies return ``(out, new_carry)``; pass the returned
+        carry back in on the next step (``carry=None`` starts an episode
+        from the policy's ``carry_init``).
+
+        Runs the SAME function the serving stack builds
+        (``serve/predictor.py``): normalization composed inside, params and
+        running obs stats as arguments, under ``torch.inference_mode()``.
+        So an exported bundle's ``predict`` and a server's batched
+        responses are bit-comparable to this method on the same device.
+        Batched ``obs`` (a leading batch axis) is supported and is the
+        server's forward at that batch size.  The host backend returns its
+        torch policy's forward.
+        """
+        from ..serve.predictor import as_obs, make_single_predict
+
+        if self.backend == "host":
+            policy = self.best_policy if use_best else self.policy
+            with torch.no_grad():
+                return policy(torch.as_tensor(np.asarray(obs), dtype=torch.float32)
+                              .to(self.device))
+        flat = self._best_flat if use_best and self._best_flat is not None else None
+        params = self.spec.unravel(self.state.params_flat if flat is None else flat)
+        stats = self.state.obs_stats if self.config.obs_norm else None
+        if self._predict_fn is None:
+            self._predict_fn = make_single_predict(
+                self.module.apply_params, recurrent=self._recurrent,
+                obs_norm=self.config.obs_norm, obs_clip=self.config.obs_clip)
+        obs = as_obs(obs, self.device)
+        if self._recurrent:
+            if carry is None:
+                from ..envs.rollout import episode_carry
+
+                carry = episode_carry(self.module, params, self.device)
+            return self._predict_fn(params, stats, obs, carry)
+        return self._predict_fn(params, stats, obs)
+
+    def export_bundle(self, path: str, use_best: bool = False,
+                      version: str | int | None = None,
+                      extra: dict | None = None, **kwargs) -> str:
+        """Export this policy as a versioned serving bundle
+        (``serve/bundle.py``): params + frozen VBN stats + obs-normalization
+        moments + a manifest (module spec, git sha, torch/CUDA versions, the
+        card, provenance), committed atomically.  Serve it with ``python -m
+        estorch_tpu_torch.serve --bundle <path>``.  The host backend is
+        refused (``NotImplementedError``)."""
+        from ..serve.bundle import export_bundle
+
+        return export_bundle(self, path, use_best=use_best, version=version,
+                             extra=extra, **kwargs)
 
     def evaluate_policy(self, n_episodes: int = 10, use_best: bool = False, seed: int = 0,
                         meta_index: int | None = None, return_details: bool = False) -> dict:

@@ -54,6 +54,14 @@ def map_carry(fn: Callable[..., torch.Tensor], *carries):
     return fn(*carries)
 
 
+def episode_carry(module, params: dict, device):
+    """A recurrent policy's episode-start carry on ``device``: its
+    ``carry_init`` of ``params`` (the learned carry) or of nothing."""
+    ci = module.carry_init
+    h0 = ci(params) if carry_init_takes_params(ci) else ci()
+    return map_carry(lambda t: t.to(device), h0)
+
+
 class RolloutResult(NamedTuple):
     total_reward: torch.Tensor  # (n,) float32 — the episode return (fitness)
     bc: torch.Tensor  # (n, bc_dim) float32 — behavior characterization

@@ -45,6 +45,16 @@ __device__ __forceinline__ int64_t slice_start(int64_t start, int64_t table_size
 // small kernel adds the partials in chunk order.  That fills the SMs
 // (18 column tiles x 32 chunks at the shape above) and keeps the sum
 // deterministic: no atomics, the same order on every run.
+//
+// The sum is carried in float64 and rounded to float32 once, as the plain
+// version's is.  A float32 product is exact in float64, so both sums are
+// within a few float64 ulps of the exact one and round to the same float32
+// but for a tie-near value, whatever their order.  A float32 accumulator
+// would leave the result depending on the order, and Adam's per-coordinate
+// normalisation turns that rounding into parameter differences of up to
+// lr * |rounding| / |g_j| where a coordinate's gradient g_j is small.  The
+// float64 FMAs cost nothing visible: the kernel stays bound by its bytes
+// (2 flops per 4-byte load, against 34 TFLOP/s of float64 on an H100 SXM).
 // ---------------------------------------------------------------------------
 
 constexpr int kSumThreads = 256;
@@ -55,9 +65,9 @@ __global__ void weighted_sum_partials(const float* __restrict__ table,
                                       const int32_t* __restrict__ offsets,
                                       const float* __restrict__ weights,
                                       int n, int dim,
-                                      float* __restrict__ partials) {
+                                      double* __restrict__ partials) {
   __shared__ int64_t s_off[kRowsPerChunk];
-  __shared__ float s_w[kRowsPerChunk];
+  __shared__ double s_w[kRowsPerChunk];
   const int chunk = blockIdx.y;
   const int row0 = chunk * kRowsPerChunk;
   const int rows = min(kRowsPerChunk, n - row0);
@@ -69,23 +79,23 @@ __global__ void weighted_sum_partials(const float* __restrict__ table,
   __syncthreads();
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= dim) return;
-  float acc = 0.0f;
+  double acc = 0.0;
 #pragma unroll 8
   for (int r = 0; r < rows; ++r) {
-    acc = fmaf(s_w[r], __ldg(table + s_off[r] + j), acc);
+    acc = fma(s_w[r], static_cast<double>(__ldg(table + s_off[r] + j)), acc);
   }
   partials[static_cast<int64_t>(chunk) * dim + j] = acc;
 }
 
-__global__ void sum_partials(const float* __restrict__ partials, int n_chunks,
+__global__ void sum_partials(const double* __restrict__ partials, int n_chunks,
                              int dim, float* __restrict__ out) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= dim) return;
-  float acc = 0.0f;
+  double acc = 0.0;
   for (int c = 0; c < n_chunks; ++c) {
     acc += partials[static_cast<int64_t>(c) * dim + j];
   }
-  out[j] = acc;
+  out[j] = static_cast<float>(acc);
 }
 
 // ---------------------------------------------------------------------------
@@ -300,10 +310,10 @@ extern "C" {
 
 int estorch_weighted_sum_rows_per_chunk() { return kRowsPerChunk; }
 
-// partials: (ceil(n / kRowsPerChunk), dim) float32 scratch from the caller.
+// partials: (ceil(n / kRowsPerChunk), dim) float64 scratch from the caller.
 int estorch_weighted_noise_sum(const float* table, int64_t table_size,
                                const int32_t* offsets, const float* weights,
-                               int n, int dim, float* partials, float* out,
+                               int n, int dim, double* partials, float* out,
                                void* stream) {
   if (n <= 0 || dim <= 0 || dim > table_size) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -60,15 +60,18 @@ def _raise_on_error(err: int, what: str) -> None:
 
 def weighted_noise_sum_plain(table_data: torch.Tensor, offsets: torch.Tensor,
                              weights: torch.Tensor, dim: int) -> torch.Tensor:
-    """Gather the n rows, then ``weights @ rows``.  Zeros when n = 0."""
+    """Gather the n rows, then ``weights @ rows`` in float64, rounded to
+    float32 once: the kernel's sum, in another order.  Zeros when n = 0."""
     if offsets.shape[0] == 0:
         return torch.zeros((dim,), dtype=table_data.dtype, device=table_data.device)
-    return weights.to(table_data.dtype) @ gather_rows(table_data, offsets, dim)
+    rows = gather_rows(table_data, offsets, dim).double()
+    return (weights.double() @ rows).to(table_data.dtype)
 
 
 def weighted_noise_sum(table_data: torch.Tensor, offsets: torch.Tensor,
                        weights: torch.Tensor, dim: int) -> torch.Tensor:
-    """Σ_k weights_k · table[offsets_k : offsets_k + dim] → (dim,) float32.
+    """Σ_k weights_k · table[offsets_k : offsets_k + dim] → (dim,) float32,
+    summed in float64 and rounded once, so the card and the CPU agree.
 
     ``table_data`` (size,) float32, ``offsets`` (n,) int32, ``weights`` (n,)
     float32.  CUDA tensors launch the kernel; CPU tensors take the plain
@@ -95,7 +98,7 @@ def weighted_noise_sum(table_data: torch.Tensor, offsets: torch.Tensor,
     n_chunks = -(-n // rows_per_chunk)
     if n_chunks > 65535:
         raise ValueError(f"n = {n} rows exceeds the kernel's grid ({65535 * rows_per_chunk})")
-    partials = torch.empty((n_chunks, dim), dtype=torch.float32, device=dev)
+    partials = torch.empty((n_chunks, dim), dtype=torch.float64, device=dev)
     out = torch.empty((dim,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.estorch_weighted_noise_sum(

@@ -45,6 +45,16 @@ def test_weighted_noise_sum_matches_plain(table, cuda, n, dim):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
 
 
+@pytest.mark.parametrize("n,dim", [(64, 128), (2048, 4481), (1000, 4737)])
+def test_weighted_noise_sum_equals_plain_bit_for_bit(table, cuda, n, dim):
+    # both sum in float64 and round once: the same float32 vector
+    rng = np.random.default_rng(7 * n + dim)
+    offs = torch.from_numpy(rng.integers(0, table.numel() - dim + 1, n).astype(np.int32)).to(cuda)
+    w = torch.from_numpy(rng.uniform(-1, 1, n).astype(np.float32)).to(cuda)
+    got = nk.weighted_noise_sum(table, offs, w, dim)
+    assert torch.equal(got.cpu(), nk.weighted_noise_sum_plain(table.cpu(), offs.cpu(), w.cpu(), dim))
+
+
 def test_weighted_noise_sum_empty_is_zero(table, cuda):
     got = nk.weighted_noise_sum(table, torch.zeros(0, dtype=torch.int32, device=cuda),
                                 torch.zeros(0, device=cuda), 16)
@@ -892,3 +902,67 @@ def test_trace_names_both_kernels(cuda, tmp_path):
     assert sum("noise_matvec" in k for k in kernels) == nk.launch_counts[
         "population_noise_matvec"] > 0
     assert nk.launch_counts["weighted_noise_sum"] == 1
+
+
+def _serving_es(cuda):
+    from estorch_tpu_torch import ES, DeviceAgent, MLPPolicy, Pendulum, adam
+
+    es = ES(MLPPolicy, DeviceAgent(Pendulum(), horizon=20), adam, population_size=16,
+            sigma=0.05, table_size=1 << 14, obs_norm=True, telemetry=False,
+            policy_kwargs={"action_dim": 1, "hidden": (24, 24), "discrete": False,
+                           "action_scale": 2.0},
+            optimizer_kwargs={"learning_rate": 1e-2})
+    assert es.device.type == "cuda"
+    es.train(1, verbose=False)
+    return es
+
+
+def test_load_bundle_defaults_to_the_card(cuda, tmp_path):
+    """``load_bundle`` with no device puts every tensor on the card, and
+    its predict is ES.predict's bits, one observation and a batch."""
+    from estorch_tpu_torch.serve import load_bundle
+
+    es = _serving_es(cuda)
+    b = load_bundle(es.export_bundle(str(tmp_path / "b")))
+    assert b.device.type == "cuda"
+    assert all(t.device.type == "cuda" for t in b.obs_stats)
+    assert b.params["head"]["kernel"].device.type == "cuda"
+    rng = np.random.default_rng(0)
+    for obs in (rng.standard_normal(3), rng.standard_normal((16, 3))):
+        obs = obs.astype(np.float32)
+        got = b.predict(obs)
+        assert got.device.type == "cuda"
+        assert got.cpu().numpy().tobytes() == es.predict(obs).cpu().numpy().tobytes()
+
+
+def test_server_on_the_card_answers_as_es_predict(cuda, tmp_path):
+    """A server on the card (the default device) answers 16 distinct
+    observations, coalesced into mixed buckets, with ES.predict's bits on
+    the anchor batch, and a lone request as row 0 of a padded anchor."""
+    from estorch_tpu_torch.obs.spans import Telemetry
+    from estorch_tpu_torch.serve import PolicyServer, ServeClient
+    from estorch_tpu_torch.serve.loadgen import run_load
+
+    es = _serving_es(cuda)
+    srv = PolicyServer(es.export_bundle(str(tmp_path / "b")), port=0, max_batch=16,
+                       max_wait_ms=2.0, telemetry=Telemetry(enabled=True))
+    srv.start_background()
+    try:
+        rng = np.random.default_rng(1)
+        anchor = rng.standard_normal((16, 3)).astype(np.float32)
+        ref = es.predict(anchor).cpu().numpy()
+        res = run_load(f"{srv.host}:{srv.port}", conns=4, total=16, duration_s=60.0,
+                       obs_list=[o.tolist() for o in anchor], collect_responses=True)
+        assert res["errors"] == 0 and res["shed"] == 0
+        got = np.asarray([r["action"] for r in res["responses"]], np.float32)
+        assert got.tobytes() == ref.tobytes()
+        with ServeClient(f"{srv.host}:{srv.port}") as c:
+            one = np.asarray(c.predict(anchor[3]), np.float32)
+            stats = c.stats()
+        pad = np.zeros((max(stats["buckets"]), 3), np.float32)
+        pad[0] = anchor[3]
+        assert one.tobytes() == es.predict(pad).cpu().numpy()[0].tobytes()
+        assert stats["device"]["platform"] == "gpu"
+        assert stats["cold_start"]["compiles_at_load"] == 0
+    finally:
+        srv.shutdown(drain=True)

@@ -357,7 +357,10 @@ def test_import_loads_no_jax_and_no_reference_package():
         "import estorch_tpu_torch.utils.checkpoint, estorch_tpu_torch.resilience.supervisor\n"
         "import estorch_tpu_torch.resilience.interleave, estorch_tpu_torch.obs.sinks\n"
         "import estorch_tpu_torch.obs.manifest, estorch_tpu_torch.obs.summarize\n"
-        "import estorch_tpu_torch.obs.__main__\n"
+        "import estorch_tpu_torch.obs.__main__, estorch_tpu_torch.obs.tracing\n"
+        "import estorch_tpu_torch.serve.server, estorch_tpu_torch.serve.__main__\n"
+        "import estorch_tpu_torch.serve.warm, estorch_tpu_torch.serve.client\n"
+        "import estorch_tpu_torch.serve.loadgen\n"
         "bad = sorted(m for m in sys.modules if m.startswith(('jax', 'flax', 'optax', 'chex'))"
         " or m == 'estorch_tpu' or m.startswith('estorch_tpu.'))\n"
         "print(bad)\n"

@@ -6,8 +6,9 @@ master policy (torch's generator seeded by ``ES``), the same NumPy noise
 table (``default_rng(seed)``) and the same ``SeedSequence`` offsets, so a
 member's θ and its rollout are the same in both.  The update differs in its
 summation order only: the JAX package adds the pair rows one by one in
-float32, the port's ``weighted_noise_sum`` takes ``weights @ rows``.  Each
-case names the JAX test in ``tests/test_host_backend.py`` it mirrors.
+float32, the port's ``weighted_noise_sum`` takes ``weights @ rows`` in
+float64 and rounds once.  Each case names the JAX test in
+``tests/test_host_backend.py`` it mirrors.
 
 Tolerances: fitness of the first generation ≤ 1e-6 relative (measured:
 bit-equal); params after 3 Adam generations ≤ 2e-6 absolute (measured at

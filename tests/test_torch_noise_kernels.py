@@ -35,8 +35,20 @@ class TestWeightedNoiseSum:
         want = jpn.weighted_noise_sum(JDATA, jnp.asarray(offs), jnp.asarray(w), dim=dim,
                                       interpret=True)
         got = nk.weighted_noise_sum(TDATA, torch.from_numpy(offs), torch.from_numpy(w), dim)
-        # f32 sums in another order
+        # a float64 sum rounded once against the Pallas kernel's float32 sum
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+
+    @pytest.mark.parametrize("n,dim", [(33, 257), (64, 4481), (500, 4737)])
+    def test_sum_does_not_depend_on_row_order(self, n, dim):
+        # the sum is carried in float64 and rounded once, so the card's
+        # kernel (another order) and the CPU give the same float32 vector;
+        # a float32 accumulator fails this at every shape here
+        rng = np.random.default_rng(n * 1000 + dim)
+        offs = torch.from_numpy(rng.integers(0, SIZE - dim, n).astype(np.int32))
+        w = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+        perm = torch.from_numpy(rng.permutation(n))
+        got = nk.weighted_noise_sum(TDATA, offs[perm], w[perm], dim)
+        assert torch.equal(got, nk.weighted_noise_sum(TDATA, offs, w, dim))
 
     def test_zero_weights_zero_sum(self):
         got = nk.weighted_noise_sum(TDATA, torch.tensor([5, 10, 15], dtype=torch.int32),
