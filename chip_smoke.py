@@ -173,12 +173,25 @@ Phases, in order; any failure exits non-zero before the last line:
    spawn-to-ready and first-request latency cold and with ``--warm``,
    batch 1 against dynamic batching with the forward's share of each
    leg; (aj) the same at the JAX serving demo's width (MLP 6144 x 6144).  Neither kernel runs in serving: their
-   launch counts over (ah) stay 0.
+   launch counts over (ah) stay 0;
+16. scenarios on the card (``run_scenarios``): (ak) the main path's cell
+   under ``default_distribution(Pendulum(), n_variants=10, spread=0.3,
+   obs_noise=0.05, seed=1)`` (docs/scenarios.md's recipe), 1 warm-up and 3
+   timed generations beside phase 3's cell: env-steps/s, busy share, both
+   kernels' exact launches, every variant covered, the twins' variants
+   equal, and the kernel launches an env step equal at n_variants 1, 10
+   and 1000; (al) (g)'s Cheetah2D streamed configuration under drawn chain
+   scales, 1 + 1 generations, its launches an env step beside (g)'s; (am)
+   ``PBTController(n_centers=3, explore_every=2, seed=7)`` with a
+   ``tunable_optimizer`` on the cell, 4 generations a center, replayed bit
+   for bit.  Phase 4 also holds a randomized generation with observation
+   noise, and Cheetah2D under drawn scales, on the card against the CPU.
 
 Then one JSON line of per-path numbers (with phase 13's under
-``crash_safe``, phase 14's under ``attribution`` and phase 15's under
-``serving``), one of per-kernel numbers (launches from phase 3, and of
-the reduction in (j), (k), (m), phases 10-13),
+``crash_safe``, phase 14's under ``attribution``, phase 15's under
+``serving`` and phase 16's under ``scenarios``), one of per-kernel numbers
+(launches from phase 3, and of the reduction in (j), (k), (m), phases
+10-13, and of both kernels in phase 16),
 the card line, and the last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -2944,6 +2957,302 @@ def _pad_predict(es, obs, anchor: int, use_best: bool = False):
     return es.predict(pad, use_best=use_best).cpu().numpy()[0]
 
 
+# ---------------------------------------------------------------------
+# phase 16, scenarios on the card: the cell under docs/scenarios.md's own
+# recipe, (g) under drawn chain scales, and PBT on the cell
+# ---------------------------------------------------------------------
+
+SCENARIO_VARIANTS = 10  # docs/scenarios.md's recipe
+SCENARIO_SWEEP = (1, 10, 1000)  # n_variants whose launches an env step must be equal
+
+
+def scenario_cell(tt, n_variants: int = SCENARIO_VARIANTS, **over):
+    """The main path's cell under ``default_distribution(Pendulum(),
+    n_variants, spread=0.3, obs_noise=0.05, seed=1)``, on the card."""
+    from estorch_tpu_torch.scenarios import default_distribution
+
+    kw = dict(population_size=POPULATION, sigma=0.05, policy_kwargs=POLICY,
+              optimizer_kwargs={"learning_rate": 1e-2}, **STREAMED)
+    kw.update(over)
+    dist = default_distribution(tt.Pendulum(), n_variants=n_variants, spread=0.3,
+                                obs_noise=0.05, seed=1)
+    optimizer = kw.pop("optimizer", tt.adam)
+    if not isinstance(optimizer, type) and hasattr(optimizer, "init"):
+        kw.pop("optimizer_kwargs")
+    return tt.ES(tt.MLPPolicy, tt.DeviceAgent(tt.Pendulum(), horizon=HORIZON), optimizer,
+                 scenarios=dist, **kw)
+
+
+def _check_records(label: str, es) -> None:
+    for r in es.history:
+        if r["n_failed"] or not all(math.isfinite(r[k])
+                                    for k in ("reward_mean", "reward_max", "grad_norm")):
+            fail(f"{label}, generation {r['generation']}: non-finite result {r}")
+        blk = r.get("scenarios")
+        if not blk or sum(blk["counts"]) != es.population_size:
+            fail(f"{label}, generation {r['generation']}: scenarios block {blk}")
+
+
+def launches_per_env_step(torch, es) -> float:
+    """Kernel launches an env step of one engine generation (1 chunk), from
+    torch.profiler's device events, after ``es``'s warm-up generation.  The
+    engine's generation alone: ``ES.train``'s record keeps a new best's
+    params, a data-dependent handful of launches outside it."""
+    events = device_events(torch, lambda: es.engine.generation_step(es.state))
+    return kernel_launches(events) / es.config.horizon
+
+
+def compare_scenarios_card_cpu(torch, tt) -> list[dict]:
+    """Phase 4, scenarios: a randomized generation on the card against the
+    CPU, at the bound phase 4 holds the device path to.  (1) The cell's
+    recipe with observation noise (streamed + kernel update, population 64,
+    horizon 50, Adam, 2 generations): reward_mean within 1e-4 relative and
+    params within 1e-4, as the float32 paths of ``compare_card_cpu``.  The
+    noise is an integer hash of the state, equal on both devices, then
+    Box-Muller's log, sqrt and cos, which each device rounds its own way
+    (a few ulps: the normals are compared at 1e-5).  (2) Cheetah2D under
+    drawn chain scales at population 64, horizon 20, SGD, held as
+    ``compare_envs_card_cpu`` holds the envs (reward means within 1e-4 of
+    max(|mean|, 1), update cosine 0.999)."""
+    from estorch_tpu_torch.scenarios import default_distribution
+    from estorch_tpu_torch.scenarios.env import obs_noise_normals
+
+    out = []
+    g = torch.Generator().manual_seed(0)
+    ids = torch.stack([torch.randint(0, 1 << 24, (4096,), generator=g),
+                       torch.randint(0, 1000, (4096,), generator=g)], 1).to(torch.float32)
+    z_cpu = obs_noise_normals(ids, 17)
+    z_gpu = obs_noise_normals(ids.cuda(), 17).cpu()
+    z_err = float((z_gpu - z_cpu).abs().max())
+    print(f"card vs CPU, observation-noise normals (4096 rows x 17): max |err| {z_err:.3g} "
+          "(tol 1e-5)")
+    if not z_err <= 1e-5:
+        fail(f"card vs CPU, observation-noise normals: max |err| {z_err:g}")
+    dist = default_distribution(tt.Pendulum(), n_variants=SCENARIO_VARIANTS, spread=0.3,
+                                obs_noise=0.05, seed=1)
+    small = dict(population_size=64, sigma=0.05, policy_kwargs=POLICY, scenarios=dist,
+                 optimizer_kwargs={"learning_rate": 1e-2}, table_size=1 << 22, **STREAMED)
+    es_gpu = tt.ES(tt.MLPPolicy, tt.DeviceAgent(tt.Pendulum(), horizon=50), tt.adam, **small)
+    es_cpu = tt.ES(tt.MLPPolicy, tt.DeviceAgent(tt.Pendulum(), horizon=50), tt.adam,
+                   device="cpu", **small)
+    es_gpu.train(2, verbose=False)
+    es_cpu.train(2, verbose=False)
+    fit_err = max(abs(a["reward_mean"] - b["reward_mean"]) / abs(b["reward_mean"])
+                  for a, b in zip(es_gpu.history, es_cpu.history))
+    p_err = float((es_gpu.state.params_flat.cpu() - es_cpu.state.params_flat).abs().max())
+    same_blocks = all(a["scenarios"]["counts"] == b["scenarios"]["counts"]
+                      for a, b in zip(es_gpu.history, es_cpu.history))
+    rec = {"env": "scenarios: cell recipe with obs noise", "reward_mean_rel_err": fit_err,
+           "params_max_abs_err": p_err, "same_variant_counts": same_blocks,
+           "noise_normals_max_abs_err": z_err}
+    print(f"card vs CPU, scenarios (cell recipe, obs noise, pop 64, horizon 50, 2 generations): "
+          f"reward_mean rel err {fit_err:.3g} (tol 1e-4), params max |err| {p_err:.3g} "
+          f"(tol 1e-4), variant counts equal {same_blocks}")
+    if not (fit_err <= 1e-4 and p_err <= 1e-4 and same_blocks):
+        fail(f"card vs CPU, scenarios: {rec}")
+    out.append(rec)
+    env = tt.Cheetah2D()
+    kw = dict(population_size=64, sigma=0.05, table_size=1 << 22,
+              scenarios=default_distribution(env, n_variants=SCENARIO_VARIANTS, spread=0.3,
+                                             seed=1),
+              optimizer_kwargs={"learning_rate": 1e-2},
+              policy_kwargs={"action_dim": env.action_dim, "hidden": (64, 64),
+                             "discrete": False, "action_scale": 1.0})
+    es_gpu = tt.ES(tt.MLPPolicy, tt.DeviceAgent(env, horizon=20), tt.sgd, **kw)
+    es_cpu = tt.ES(tt.MLPPolicy, tt.DeviceAgent(env, horizon=20), tt.sgd, device="cpu", **kw)
+    p0 = es_cpu.state.params_flat.clone()
+    es_gpu.train(2, verbose=False)
+    es_cpu.train(2, verbose=False)
+    fit_err = max(abs(a["reward_mean"] - b["reward_mean"]) / max(abs(b["reward_mean"]), 1.0)
+                  for a, b in zip(es_gpu.history, es_cpu.history))
+    dg, dc = es_gpu.state.params_flat.cpu() - p0, es_cpu.state.params_flat - p0
+    cos = float(dg @ dc / (dg.norm() * dc.norm()))
+    rec = {"env": "scenarios: Cheetah2D chain scales", "reward_mean_rel_err": fit_err,
+           "cosine": cos, "params_max_abs_err": float((dg - dc).abs().max())}
+    print(f"card vs CPU, scenarios Cheetah2D (pop 64, horizon 20, 2 generations, SGD): "
+          f"reward_mean err {fit_err:.3g} (tol 1e-4), param change cosine {cos:.7f} "
+          "(tol 0.999)")
+    if not (fit_err <= 1e-4 and cos >= 0.999):
+        fail(f"card vs CPU, scenarios Cheetah2D: {rec}")
+    out.append(rec)
+    return out
+
+
+def run_scenarios(torch, tt, nk, card: str, cell: dict, g_path: dict) -> dict:
+    """Phase 16: (ak) the cell under the docs' recipe, 1 warm-up and 3 timed
+    generations: env-steps/s and busy share beside phase 3's unrandomized
+    cell (``cell``) in this run, both kernels' exact launches (600 matvec
+    and 1 reduction a generation), every variant covered, the twins'
+    variants equal, and the launches an env step from a profiled generation
+    at n_variants 1, 10 and 1000 (equal); (al) (g)'s Cheetah2D streamed
+    configuration under ``default_distribution(Cheetah2D(), 10, spread=0.3,
+    seed=1)``, 1 + 1 generations, launches exact, then the launches an env
+    step beside (g)'s (``g_path``) from its profiled generation, and exactly
+    from one generation of each at horizon 20; (am) ``PBTController(n_centers=3, explore_every=2,
+    seed=7)`` with a ``tunable_optimizer`` on the cell, 4 generations a
+    center, replayed bit for bit on a fresh ES."""
+    import numpy as np
+
+    from estorch_tpu_torch import configs
+    from estorch_tpu_torch.scenarios import (PBTController, default_distribution,
+                                             tunable_optimizer, variant_of_bc)
+
+    t_phase = time.perf_counter()
+    out: dict = {"path": "scenarios (phase 16)", "cell": "streamed (phase 3)"}
+
+    # (ak) the cell under scenarios
+    torch.cuda.empty_cache()
+    es = scenario_cell(tt)
+    if es.device.type != "cuda":
+        fail(f"(ak) ran on {es.device}")
+    p0 = es.state.params_flat.clone()
+    torch.cuda.synchronize()
+    nk.reset_launch_counts()
+    es.train(1, verbose=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    es.train(GENERATIONS - 1, verbose=False)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(nk.launch_counts)
+    want = {"population_noise_matvec": 3 * HORIZON * GENERATIONS,
+            "weighted_noise_sum": GENERATIONS}
+    if counts != want:
+        fail(f"(ak) launch counts {counts}, expected {want}")
+    _check_records("(ak)", es)
+    if torch.equal(p0, es.state.params_flat):
+        fail("(ak) params did not change")
+    covered = sorted({v for r in es.history for v, c in enumerate(r["scenarios"]["counts"]) if c})
+    if covered != list(range(SCENARIO_VARIANTS)):
+        fail(f"(ak) variants covered {covered}")
+    steps = sum(r["env_steps"] for r in es.history[1:])
+    gen_s = dt / (GENERATIONS - 1)
+    ev = es.engine.evaluate(es.state)  # after the counts: not part of them
+    v = variant_of_bc(ev.bc)
+    if not np.array_equal(v[0::2], v[1::2]):
+        fail("(ak) the twins of a pair ran different variants")
+    busy, _ = profile_generation(torch, es, top=8)
+    per_step = {SCENARIO_VARIANTS: launches_per_env_step(torch, es)}
+    ak = {"launches": counts, "env_steps_per_s": steps / dt, "s_per_generation": gen_s,
+          "device_busy_s": busy, "busy_share": busy / gen_s, "variants_covered": len(covered),
+          "twins_share_variants": True,
+          "vs_cell": {"env_steps_per_s": cell["env_steps_per_s"],
+                      "busy_share": cell["busy_share"],
+                      "kernel_launches_per_env_step_profiled": cell[
+                          "kernel_launches_per_env_step"]},
+          "reward_mean": [r["reward_mean"] for r in es.history]}
+    print(f"(ak) scenarios cell: {steps / dt:.0f} env-steps/s over 3 generations ({gen_s:.4f} s a "
+          f"generation) on {card}, busy share {busy / gen_s:.3f}; phase 3's cell "
+          f"{cell['env_steps_per_s']:.0f} env-steps/s, busy {cell['busy_share']:.3f}; launches "
+          f"{counts}; {len(covered)} variants covered; twins share variants")
+    del es
+    for nv in SCENARIO_SWEEP + (0,):  # 0: the cell without scenarios
+        if nv == SCENARIO_VARIANTS:
+            continue
+        torch.cuda.empty_cache()
+        es = (scenario_cell(tt, n_variants=nv) if nv else tt.ES(
+            tt.MLPPolicy, tt.DeviceAgent(tt.Pendulum(), horizon=HORIZON), tt.adam,
+            population_size=POPULATION, sigma=0.05, policy_kwargs=POLICY,
+            optimizer_kwargs={"learning_rate": 1e-2}, **STREAMED))
+        es.train(1, verbose=False)
+        torch.cuda.synchronize()
+        per_step[nv] = launches_per_env_step(torch, es)
+        del es
+    ak["kernel_launches_per_env_step"] = {str(k): per_step[k] for k in SCENARIO_SWEEP}
+    ak["cell_kernel_launches_per_env_step"] = per_step[0]
+    print(f"(ak) kernel launches an env step of an engine generation at n_variants "
+          f"{SCENARIO_SWEEP}: {[per_step[k] for k in SCENARIO_SWEEP]}; the cell without "
+          f"scenarios {per_step[0]}")
+    if len({per_step[k] for k in SCENARIO_SWEEP}) != 1:
+        fail(f"(ak) launches an env step depend on the variant count: {per_step}")
+    out["ak"] = ak
+
+    # (al) (g) under drawn chain scales
+    torch.cuda.empty_cache()
+    env = tt.Cheetah2D()
+    es = configs.cheetah2d_device(
+        agent_kwargs={"env": env, "horizon": LOCO_HORIZON},
+        scenarios=default_distribution(env, n_variants=SCENARIO_VARIANTS, spread=0.3, seed=1),
+        **STREAMED)
+    nk.reset_launch_counts()
+    es.train(1, verbose=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    es.train(1, verbose=False)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(nk.launch_counts)
+    want = {"population_noise_matvec": 3 * LOCO_HORIZON * 2, "weighted_noise_sum": 2}
+    if counts != want:
+        fail(f"(al) launch counts {counts}, expected {want}")
+    _check_records("(al)", es)
+    es_steps = es.history[1]["env_steps"]
+    busy, launched = profile_generation(torch, es, top=6)
+    al_step = launched / LOCO_HORIZON
+    del es
+    # the launches an env step exactly: at horizon 200 a generation's ~150,000
+    # launches overflow what the profiler keeps; at 20 it keeps every one
+    exact = {}
+    for label, dist in (("g", None), ("al", default_distribution(
+            env, n_variants=SCENARIO_VARIANTS, spread=0.3, seed=1))):
+        es = configs.cheetah2d_device(agent_kwargs={"env": env, "horizon": 20},
+                                      scenarios=dist, **STREAMED)
+        es.train(1, verbose=False)
+        torch.cuda.synchronize()
+        exact[label] = launches_per_env_step(torch, es)
+        del es
+    out["al"] = {"launches": counts, "env_steps_per_s": es_steps / dt,
+                 "s_per_generation": dt, "busy_share": busy / dt,
+                 "kernel_launches_per_env_step_profiled_h200": al_step,
+                 "kernel_launches_per_env_step_h20": exact["al"],
+                 "g_kernel_launches_per_env_step_h20": exact["g"],
+                 "vs_g": {k: g_path[k] for k in ("env_steps_per_s", "s_per_generation",
+                                                 "busy_share", "kernel_launches_per_env_step")}}
+    print(f"(al) Cheetah2D streamed under chain scales: {es_steps / dt:.0f} env-steps/s (alive), "
+          f"{dt:.4f} s a generation; launches {counts}; kernel launches an env step at horizon "
+          f"20 {exact['al']:.2f} against (g)'s {exact['g']:.2f} (profiled at 200: "
+          f"{al_step:.1f} against (g)'s {g_path['kernel_launches_per_env_step']:.1f})")
+
+    # (am) PBT on the cell, replayed
+    def pbt_es():
+        return scenario_cell(tt, optimizer=tunable_optimizer(learning_rate=1e-2))
+
+    torch.cuda.empty_cache()
+    es = pbt_es()
+    nk.reset_launch_counts()
+    t0 = time.perf_counter()
+    log = PBTController(es, n_centers=3, explore_every=2, seed=7).run(4, verbose=False)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(nk.launch_counts)
+    want = {"population_noise_matvec": 3 * HORIZON * 12, "weighted_noise_sum": 12}
+    if counts != want:
+        fail(f"(am) launch counts {counts}, expected {want}")
+    _check_records("(am)", es)
+    live = [s.params_flat.clone() for s in es.meta_states]
+    del es
+    es = pbt_es()
+    t1 = time.perf_counter()
+    PBTController(es, n_centers=3, explore_every=2, seed=7).run(
+        4, verbose=False, replay=json.loads(json.dumps(log)))
+    torch.cuda.synchronize()
+    dt_replay = time.perf_counter() - t1
+    same = all(torch.equal(a, b.params_flat) for a, b in zip(live, es.meta_states))
+    if not same:
+        fail("(am) the PBT replay is not bit-identical to the live run")
+    exploits = [e for e in log["events"] if e["type"] == "exploit"]
+    out["am"] = {"launches": counts, "s_live": dt, "s_replay": dt_replay,
+                 "exploits": len(exploits), "best_center": log["final"]["best_center"],
+                 "hypers": log["final"]["hypers"], "replay_bit_identical": True}
+    print(f"(am) PBT 3 centers x 4 generations on the cell: {dt:.2f} s live, {dt_replay:.2f} s "
+          f"replayed bit-identical; {len(exploits)} exploits, best center "
+          f"{log['final']['best_center']}, hypers {log['final']['hypers']}; launches {counts}")
+    del es
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 16: {out['phase_s']:.1f} s on {card}")
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -3206,7 +3515,8 @@ def main() -> None:
     print(f"  kernels' share of a generation: {kernel_s / gen_s:.3f} "
           f"({HORIZON} x matvec step {pnm['ms']:.4f} ms + reduction {wns['ms']:.4f} ms)")
 
-    busy3, _ = profile_generation(torch, es)  # after the counts are read: not part of them
+    busy3, launched3 = profile_generation(torch, es)  # after the counts: not part of them
+    print(f"  {launched3 / HORIZON:.1f} kernel launches an env step")
     del es
 
     # ---- 4. the card against the CPU's plain versions at a small size -----
@@ -3219,12 +3529,14 @@ def main() -> None:
     env_cmp += compare_novelty_card_cpu(torch, estorch_tpu_torch)
     env_cmp += compare_fold_card_cpu(torch, estorch_tpu_torch, nk)
     env_cmp.append(compare_checkpoint_card_cpu(torch, estorch_tpu_torch))
+    env_cmp += compare_scenarios_card_cpu(torch, estorch_tpu_torch)
 
     # ---- 5. the slice's other paths at full width ----------------------------
     phase("5. the other paths")
     paths = [{"path": "streamed (phase 3)", "options": STREAMED, "launches": launches,
               "env_steps_per_s": steps / dt, "s_per_generation": gen_s,
-              "device_busy_s": busy3, "busy_share": busy3 / gen_s}]
+              "device_busy_s": busy3, "busy_share": busy3 / gen_s,
+              "kernel_launches_per_env_step": launched3 / HORIZON}]
     paths += run_paths(torch, estorch_tpu_torch, nk, card)
 
     # ---- 6. eval_chunk against the whole population ----------------------------
@@ -3273,6 +3585,11 @@ def main() -> None:
     phase("15. serving")
     serving = run_serving(torch, estorch_tpu_torch, nk, card, name)
 
+    # ---- 16. scenarios ----------------------------------------------------------
+    phase("16. scenarios")
+    g_path = next(p for p in paths if p["path"].startswith("g "))
+    scenarios = run_scenarios(torch, estorch_tpu_torch, nk, card, paths[0], g_path)
+
     # ---- report --------------------------------------------------------------
     phase("report")
     kernels = [
@@ -3292,7 +3609,9 @@ def main() -> None:
          "launches_async": {fold["path"]: fold["launches"]["weighted_noise_sum"]},
          "launches_per_fold_update": fold["launches_per_update"],
          "launches_resumed": crash_safe["checkpoint"]["resumed_launches"]["weighted_noise_sum"],
-         "launches_serving": serving["serving_launches"].get("weighted_noise_sum", 0)},
+         "launches_serving": serving["serving_launches"].get("weighted_noise_sum", 0),
+         "launches_scenarios": {k: scenarios[k]["launches"]["weighted_noise_sum"]
+                                for k in ("ak", "al", "am")}},
         {"name": "population_noise_matvec", "route": "cuda",
          "source": "estorch_tpu_torch/ops/csrc/noise_kernels.cu",
          "replaces": "estorch_tpu/ops/pallas_noise.py:201",
@@ -3307,11 +3626,14 @@ def main() -> None:
                               for p in novelty},
          "launches_resumed": crash_safe["checkpoint"]["resumed_launches"][
              "population_noise_matvec"],
-         "launches_serving": serving["serving_launches"].get("population_noise_matvec", 0)},
+         "launches_serving": serving["serving_launches"].get("population_noise_matvec", 0),
+         "launches_scenarios": {k: scenarios[k]["launches"]["population_noise_matvec"]
+                                for k in ("ak", "al", "am")}},
     ]
     print(json.dumps({"paths": paths, "eval_chunk": chunking, "card_vs_cpu_envs": env_cmp,
                       "async": async_paths, "crash_safe": crash_safe,
-                      "attribution": attribution, "serving": serving}))
+                      "attribution": attribution, "serving": serving,
+                      "scenarios": scenarios}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

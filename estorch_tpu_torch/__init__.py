@@ -28,10 +28,14 @@ hub every record's ``phases`` come from, and ``resilience`` the
 deterministic chaos plans (``ESTORCH_CHAOS``) that drive its faults.
 ``ES.predict`` runs the serving forward, ``ES.export_bundle`` writes a
 policy bundle, and ``serve`` (``python -m estorch_tpu_torch.serve``)
-answers requests from it behind a dynamic micro-batcher.
+answers requests from it behind a dynamic micro-batcher.  ``scenarios``
+randomizes the physics of every parameterized env family per episode
+(``ES(scenarios=default_distribution(env, n_variants=10))``), accounts
+fitness per variant, and tunes σ and the learning rate of several centers
+by population-based training (``PBTController``).
 """
 
-from . import obs, resilience  # noqa: F401
+from . import obs, resilience, scenarios  # noqa: F401
 from .algo import ES, IW_ES, NS_ES, NSR_ES, NSRA_ES, NoveltyArchive
 from .envs import (
     Acrobot,
@@ -66,5 +70,5 @@ __all__ = [
     "PooledEngine", "PositionOnly", "RecallEnv", "RecurrentNatureCNN", "RecurrentPolicy",
     "Swimmer2D", "SyntheticEnv", "VirtualBatchNorm", "Walker2D", "adam",
     "collect_reference_batch", "make_noise_table", "obs", "resilience", "resolve_device",
-    "sgd",
+    "scenarios", "sgd",
 ]

@@ -36,8 +36,12 @@ combinations with the same ``ValueError``s.  A recurrent policy
 with its carry threaded through the rollouts, or with ``low_rank`` the
 low-rank tree form, on the device and pooled backends; ``MLPPolicy`` with
 VBN on the device path freezes its statistics from
-``collect_reference_batch`` of the agent's env.  The options not ported yet
-(``mesh``/``shard_params`` and the sharding options, ``scenarios``) raise
+``collect_reference_batch`` of the agent's env.  ``scenarios`` (a
+``scenarios.ScenarioDistribution``) wraps the device env in a
+``ScenarioEnv``: every episode runs under a drawn variant of the physics,
+and every record carries the per-variant fitness block ``scenarios``
+(``_attach_scenarios``, shared with the overlap scheduler).  The options
+not ported yet (``mesh``/``shard_params`` and the sharding options) raise
 ``NotImplementedError`` naming their ``ROADMAP.md`` item.  The novelty
 family (``algo/nses.py``) and IW-ES (``algo/iwes.py``) subclass ``ES`` and
 share its record plumbing (``_base_record``, ``_emit_record``,
@@ -135,6 +139,8 @@ def _unsupported(what: str, item: str):
 class ES:
     """Vanilla OpenAI-ES (Salimans et al. 2017) on the one-device engine."""
 
+    _scenarios = None  # the ScenarioDistribution, when domain randomization is on
+
     def __init__(
         self,
         policy,
@@ -188,6 +194,19 @@ class ES:
             raise ValueError(
                 "obs_warmup_episodes warm-starts the running obs stats; "
                 "it requires obs_norm=True")
+        # domain randomization over the native env families: the device env
+        # is wrapped in a ScenarioEnv below; the host and pooled backends
+        # refuse it (their envs step host-side with their own constants)
+        self._scenarios = scenarios
+        if scenarios is not None:
+            from ..scenarios import ScenarioDistribution
+
+            if not isinstance(scenarios, ScenarioDistribution):
+                raise TypeError(
+                    "scenarios must be a ScenarioDistribution "
+                    "(estorch_tpu_torch.scenarios; e.g. "
+                    "default_distribution(env, n_variants=10)), got "
+                    f"{scenarios!r}")
         self.population_size = int(population_size)
         self.sigma = float(sigma)
         self.seed = int(seed)
@@ -242,8 +261,6 @@ class ES:
                             "PooledAgent naming a pool env")
         if shard_params or mesh is not None:
             _unsupported("shard_params / mesh", _MULTI_GPU)
-        if scenarios is not None:
-            _unsupported("scenarios", "8, scenarios")
         policy_kwargs = dict(policy_kwargs or {})
         if pooled and (getattr(policy, "learned_carry", False)
                        or policy_kwargs.get("learned_carry")):
@@ -263,6 +280,10 @@ class ES:
             obs_shape, horizon = tuple(spec_info["obs_shape"]), int(self.agent.horizon)
         else:
             self.env = self.agent.env
+            if scenarios is not None:
+                from ..scenarios import ScenarioEnv
+
+                self.env = ScenarioEnv(self.env, scenarios)
             obs_shape, horizon = self.env.obs_dim, self.agent.rollout_horizon
             for option, on, where in (("decomposed", decomposed, "models/decomposed.py"),
                                       ("streamed", streamed, "ops/noise_kernels.py"),
@@ -557,14 +578,27 @@ class ES:
             rejected_streak = 0
             record = self._base_record(prev_state, metrics["fitness"], metrics["steps"],
                                        metrics["grad_norm"], dt, sigma=metrics["sigma"])
+            self._attach_scenarios(record, metrics["fitness"], metrics)
             self._emit_record(record, log_fn, verbose)
             done += 1
         return self
 
+    def _attach_scenarios(self, record: dict, fitness, metrics: dict) -> None:
+        """The per-variant fitness block onto a generation's record: the
+        variant id is the BC's last column (``ScenarioEnv.behavior``).  One
+        definition for the sync loop and the overlap scheduler."""
+        if self._scenarios is None or "bc" not in (metrics or {}):
+            return
+        from ..scenarios import scenario_fitness_block, variant_of_bc
+
+        record["scenarios"] = scenario_fitness_block(
+            fitness, variant_of_bc(metrics["bc"]), self._scenarios.n_variants)
+
     def _metrics_on_host(self, metrics: dict, queued, prev_state) -> dict:
         """A generation's metrics as host values, with the σ it sampled
         under: ``fitness`` (NumPy), ``steps``, ``grad_norm``, ``n_valid``,
-        ``update_finite``, ``sigma``.
+        ``update_finite``, ``sigma``; under scenarios also ``bc`` (NumPy),
+        whose last column is each member's variant.
 
         Tensors on the card are copied into pinned buffers on a side stream
         that waits on ``queued`` (a CUDA event recorded after the
@@ -574,6 +608,8 @@ class ES:
         generation.
         """
         keys = ("fitness", "steps", "grad_norm", "n_valid", "update_finite")
+        if self._scenarios is not None and "bc" in metrics:
+            keys += ("bc",)
         vals = {k: metrics[k] for k in keys}
         vals["sigma"] = prev_state.sigma if prev_state.sigma is not None else self.sigma
         on_card = [k for k, v in vals.items()
@@ -592,9 +628,12 @@ class ES:
                 copied.record(side)
             copied.synchronize()
         vals = {k: v.numpy() if isinstance(v, torch.Tensor) else v for k, v in vals.items()}
-        return {"fitness": np.asarray(vals["fitness"]), "steps": int(vals["steps"]),
-                "grad_norm": float(vals["grad_norm"]), "n_valid": int(vals["n_valid"]),
-                "update_finite": bool(vals["update_finite"]), "sigma": float(vals["sigma"])}
+        out = {"fitness": np.asarray(vals["fitness"]), "steps": int(vals["steps"]),
+               "grad_norm": float(vals["grad_norm"]), "n_valid": int(vals["n_valid"]),
+               "update_finite": bool(vals["update_finite"]), "sigma": float(vals["sigma"])}
+        if "bc" in vals:
+            out["bc"] = np.asarray(vals["bc"])
+        return out
 
     def _count_rejection(self, reason: str, metrics: dict) -> None:
         obs = self.obs
@@ -754,6 +793,10 @@ class ES:
             "streamed": bool(cfg and cfg.streamed),
             "shard_params": False,
         }
+        if self._scenarios is not None:
+            # the spec and its draw seed are the scenarios: the manifest
+            # names exactly what this run trained under
+            config["scenarios"] = self._scenarios.spec_json()
         return collect_manifest(config=config, devices=[self.device], extra=extra)
 
     def write_manifest(self, path: str, extra: dict | None = None) -> str:

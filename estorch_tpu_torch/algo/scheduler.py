@@ -844,6 +844,7 @@ def train_overlap(es, n_steps: int, log_fn=None, verbose: bool = True,
             es.state = new_state
             record = es._base_record(prev_state, metrics["fitness"], metrics["steps"],
                                      metrics["grad_norm"], dt, sigma=metrics["sigma"])
+            es._attach_scenarios(record, metrics["fitness"], metrics)
             es._emit_record(record, log_fn, verbose)
             done += 1
             prev_state = new_state

@@ -14,6 +14,8 @@ import math
 
 import torch
 
+from .base import scenario_value as sv
+
 
 def _wrap(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     # floored modulo, as jnp's %: torch.remainder, not torch.fmod
@@ -39,6 +41,13 @@ class Acrobot:
     default_horizon: int = 500
     bc_dim: int = 2
 
+    # the constants a scenario distribution may randomize (scenarios/)
+    SCENARIO_FIELDS = ("link_mass_1", "link_mass_2", "link_length_1", "link_com_1",
+                       "link_com_2", "g")
+
+    def scenario_defaults(self) -> dict:
+        return {n: float(getattr(self, n)) for n in self.SCENARIO_FIELDS}
+
     def observe(self, states: torch.Tensor) -> torch.Tensor:
         t1, t2, dt1, dt2 = states.unbind(dim=1)
         return torch.stack([torch.cos(t1), torch.sin(t1), torch.cos(t2), torch.sin(t2),
@@ -51,11 +60,14 @@ class Acrobot:
         states = u * 0.2 - 0.1
         return states, self.observe(states)
 
-    def _dsdt(self, s: torch.Tensor, torque: torch.Tensor) -> torch.Tensor:
-        m1, m2 = self.link_mass_1, self.link_mass_2
-        l1, lc1, lc2 = self.link_length_1, self.link_com_1, self.link_com_2
+    def _dsdt(self, s: torch.Tensor, torque: torch.Tensor, params=None) -> torch.Tensor:
+        m1 = sv(params, "link_mass_1", self.link_mass_1)
+        m2 = sv(params, "link_mass_2", self.link_mass_2)
+        l1 = sv(params, "link_length_1", self.link_length_1)
+        lc1 = sv(params, "link_com_1", self.link_com_1)
+        lc2 = sv(params, "link_com_2", self.link_com_2)
         I1 = I2 = self.link_moi  # noqa: N806 (the Gym names)
-        g = self.g
+        g = sv(params, "g", self.g)
         t1, t2, dt1, dt2 = s.unbind(dim=1)
 
         d1 = (
@@ -80,15 +92,19 @@ class Acrobot:
         return torch.stack([dt1, dt2, ddt1, ddt2], dim=1)
 
     def step(self, states: torch.Tensor, actions: torch.Tensor):
+        return self.step_p(None, states, actions)
+
+    def step_p(self, params, states: torch.Tensor, actions: torch.Tensor):
+        """One dynamics definition for both forms (see ``Pendulum.step_p``)."""
         torque = (actions.reshape(-1) - 1).to(torch.float32)  # {0,1,2} -> {-1,0,+1}
 
         # RK4 over one dt with constant torque (gymnasium's rk4)
         s = states
         h = self.dt
-        k1 = self._dsdt(s, torque)
-        k2 = self._dsdt(s + h / 2.0 * k1, torque)
-        k3 = self._dsdt(s + h / 2.0 * k2, torque)
-        k4 = self._dsdt(s + h * k3, torque)
+        k1 = self._dsdt(s, torque, params)
+        k2 = self._dsdt(s + h / 2.0 * k1, torque, params)
+        k3 = self._dsdt(s + h / 2.0 * k2, torque, params)
+        k4 = self._dsdt(s + h * k3, torque, params)
         ns = s + h / 6.0 * (k1 + 2 * k2 + 2 * k3 + k4)
 
         t1 = _wrap(ns[:, 0], -math.pi, math.pi)

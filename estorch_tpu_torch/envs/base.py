@@ -10,7 +10,11 @@ leading axis is the member:
     obs = env.observe(states)
     bc = env.behavior(states, obs)
 
-Envs are frozen dataclasses of Python scalars.
+Envs are frozen dataclasses of Python scalars.  The parameterized families
+(Pendulum, CartPole, Acrobot, both MountainCars, the planar chains) also
+declare ``SCENARIO_FIELDS``, ``scenario_defaults()`` and ``step_p(params,
+states, actions)``, with ``step = step_p(None, ...)``: ``params`` maps a
+field to one value per member, shape (n,) (``scenarios/params.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +22,17 @@ from __future__ import annotations
 from typing import Protocol
 
 import torch
+
+
+def scenario_value(params, name: str, default: float):
+    """The lookup rule of every parameterized env family: the members'
+    drawn values (n,) when the draw includes ``name``, else the env's
+    constant.  ``params is None`` (the plain ``step``) returns the Python
+    float, so the plain path computes and launches exactly what it did
+    before scenarios existed."""
+    if params is None:
+        return default
+    return params.get(name, default)
 
 
 class DeviceEnv(Protocol):

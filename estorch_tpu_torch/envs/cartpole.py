@@ -11,6 +11,8 @@ import math
 
 import torch
 
+from .base import scenario_value as sv
+
 
 @dataclasses.dataclass(frozen=True)
 class CartPole:
@@ -29,6 +31,12 @@ class CartPole:
     default_horizon: int = 500
     bc_dim: int = 2
 
+    # the constants a scenario distribution may randomize (scenarios/)
+    SCENARIO_FIELDS = ("gravity", "masscart", "masspole", "length", "force_mag")
+
+    def scenario_defaults(self) -> dict:
+        return {n: float(getattr(self, n)) for n in self.SCENARIO_FIELDS}
+
     def observe(self, states: torch.Tensor) -> torch.Tensor:
         return states
 
@@ -40,17 +48,25 @@ class CartPole:
         return states, states
 
     def step(self, states: torch.Tensor, actions: torch.Tensor):
+        return self.step_p(None, states, actions)
+
+    def step_p(self, params, states: torch.Tensor, actions: torch.Tensor):
+        """One dynamics definition for both forms (see ``Pendulum.step_p``)."""
+        gravity = sv(params, "gravity", self.gravity)
+        masscart = sv(params, "masscart", self.masscart)
+        masspole = sv(params, "masspole", self.masspole)
+        length = sv(params, "length", self.length)
+        force_mag = sv(params, "force_mag", self.force_mag)
         x, x_dot, theta, theta_dot = states.unbind(dim=1)
-        force = torch.where(actions.reshape(-1) == 1, self.force_mag, -self.force_mag).to(
-            states.dtype)
+        force = torch.where(actions.reshape(-1) == 1, force_mag, -force_mag).to(states.dtype)
         costheta = torch.cos(theta)
         sintheta = torch.sin(theta)
-        total_mass = self.masscart + self.masspole
-        polemass_length = self.masspole * self.length
+        total_mass = masscart + masspole
+        polemass_length = masspole * length
 
         temp = (force + polemass_length * theta_dot**2 * sintheta) / total_mass
-        thetaacc = (self.gravity * sintheta - costheta * temp) / (
-            self.length * (4.0 / 3.0 - self.masspole * costheta**2 / total_mass)
+        thetaacc = (gravity * sintheta - costheta * temp) / (
+            length * (4.0 / 3.0 - masspole * costheta**2 / total_mass)
         )
         xacc = temp - polemass_length * thetaacc * costheta / total_mass
 

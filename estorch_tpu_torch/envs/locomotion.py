@@ -29,7 +29,15 @@ which is the order a serial scatter-add applies them in.  There are no
 atomics, so a step gives the same bits on every run (``index_add_`` on a
 CUDA tensor would not: its atomic sums land in any order).
 
-``PositionOnly`` and ``DeceptiveValley`` wrap the runners as in JAX.
+Under a scenario draw (``step_p``), the chain's mass, gravity, friction
+and gear constants are scaled per member: the constants that depend on
+them (``m_eff``, ``i_red`` from the scaled masses' inertias, ``acc0``,
+``div``, ``mass2``, ``gear``) are built as ``(n, ·)`` tensors once an env
+step, outside the ``frame_skip`` loop, and the physics step broadcasts them
+as it broadcasts the cached ``(·)`` ones of the plain ``step``.
+
+``PositionOnly`` and ``DeceptiveValley`` wrap the runners as in JAX (and,
+as there, have no ``step_p``).
 """
 
 from __future__ import annotations
@@ -204,12 +212,48 @@ def _make_consts(ch: _Chain, device: torch.device) -> _Consts:
     return _Consts(*(t.to(device) for t in consts))
 
 
+def _scaled_consts(ch: _Chain, k: _Consts, params) -> tuple[_Consts, object]:
+    """``k`` with the members' drawn scales applied, and the friction
+    coefficient's negation: each constant that a drawn scale reaches
+    becomes an ``(n, ·)`` tensor, computed as the JAX package's
+    ``_scenario_chain`` + ``_physics_step`` compute it (the inertia from
+    the scaled masses: it is not linear in the scale)."""
+    mass_s = params.get("mass_scale")
+    grav_s = params.get("gravity_scale")
+    fric_s = params.get("friction_scale")
+    gear_s = params.get("gear_scale")
+    mass = k.div[:, 0]
+    if mass_s is not None:
+        mass = mass * mass_s[:, None]
+        inertia = mass * k.two_half**2 / 12.0 + 1e-6  # rod about its center
+        ip, ic = inertia[:, k.pj], inertia[:, k.cj]
+        k = k._replace(m_eff=torch.minimum(mass[:, k.pj], mass[:, k.cj]),
+                       i_red=ip * ic / (ip + ic),
+                       div=torch.stack([mass, mass, inertia], dim=-1),
+                       mass2=torch.cat([mass, mass], dim=-1))
+    if mass_s is not None or grav_s is not None:
+        gravity = ch.gravity if grav_s is None else (ch.gravity * grav_s)[:, None]
+        weight = mass * gravity
+        zeros = torch.zeros_like(weight)
+        k = k._replace(acc0=torch.stack([zeros, weight, zeros], dim=-1))
+    if gear_s is not None:
+        k = k._replace(gear=k.gear * gear_s[:, None])
+    neg_friction = -ch.friction if fric_s is None else -(ch.friction * fric_s)[:, None]
+    return k, neg_friction
+
+
 def _physics_step(ch: _Chain, k: _Consts, q: torch.Tensor, qd: torch.Tensor,
-                  t_act: torch.Tensor):
+                  t_act: torch.Tensor, neg_friction=None):
     """One semi-implicit Euler step of every member's chain: q, qd (n, B, 3),
-    the joints' motor torques ``t_act`` (n, J).  Returns the new (q, qd)."""
+    the joints' motor torques ``t_act`` (n, J), ``neg_friction`` the
+    friction coefficient negated (a Python float, by default the chain's, or
+    (n, 1) per member).
+    The constants in ``k`` are the chain's ``(·)`` tensors or, under a
+    scenario draw, ``(n, ·)`` ones.  Returns the new (q, qd)."""
     n_j = k.pj.shape[0]
     n_b = q.shape[1]
+    if neg_friction is None:
+        neg_friction = -ch.friction
     theta, omega = q[..., 2], qd[..., 2]
     cs = torch.stack([torch.cos(theta), torch.sin(theta)], dim=-1)  # (n, B, 2)
 
@@ -240,7 +284,7 @@ def _physics_step(ch: _Chain, k: _Consts, q: torch.Tensor, qd: torch.Tensor,
     a_w, b_w = w[:, :n_j], w[:, n_j:2 * n_j]
     a_r, b_r = r[:, :n_j], r[:, n_j:2 * n_j]
     f_j = (-ch.k_joint * (a_w - b_w) - ch.c_joint * (v[:, :n_j] - v[:, n_j:2 * n_j])) \
-        * k.m_eff[:, None]
+        * k.m_eff[..., None]
     qj = qa[:, n_j:2 * n_j, 2] - qa[:, :n_j, 2] - k.rest
     qdot = qda[:, n_j:2 * n_j, 2] - qda[:, :n_j, 2]
     t_lim = (
@@ -267,7 +311,7 @@ def _physics_step(ch: _Chain, k: _Consts, q: torch.Tensor, qd: torch.Tensor,
         pen = depth < 0
         fn = (-ch.k_contact * depth - ch.c_contact * v_g[..., 1] * pen) * k.mass2
         fn = torch.clamp(fn, min=0.0) * pen
-        ft = -ch.friction * fn * torch.tanh(v_g[..., 0] / 0.1)
+        ft = neg_friction * fn * torch.tanh(v_g[..., 0] / 0.1)
         # force += (ft, fn); torque += r_x·fn, then −= r_y·ft
         plus = torch.stack([ft, fn, r_g[..., 0] * fn], dim=-1)
         minus = r_g[..., 1] * ft
@@ -301,6 +345,14 @@ class _PlanarBase:
     max_lean = None
     # stricter than max_lean: ~20° of lean is a standing or walking posture
     upright_lean: float = 0.35
+
+    # the chain's constants are per-body and per-joint tuples tuned together
+    # for the integrator's stability, so a scenario draws multiplicative
+    # scales of them (default 1.0), as in the JAX package
+    SCENARIO_FIELDS = ("gravity_scale", "mass_scale", "friction_scale", "gear_scale")
+
+    def scenario_defaults(self) -> dict:
+        return {n: 1.0 for n in self.SCENARIO_FIELDS}
 
     def _finalize_chain(self, chain: _Chain):
         """Snap init positions to the joint graph and install the chain."""
@@ -348,14 +400,23 @@ class _PlanarBase:
         return states, self.observe(states)
 
     def step(self, states: torch.Tensor, actions: torch.Tensor):
+        return self.step_p(None, states, actions)
+
+    def step_p(self, params, states: torch.Tensor, actions: torch.Tensor):
+        """One dynamics definition for both forms: ``params`` None (the
+        chain's cached constants) or each member's drawn scales, applied
+        once here, outside the ``frame_skip`` loop."""
         ch, lay = self.chain, self.layout
         k = self._consts(states.device)
+        neg_friction = -ch.friction
+        if params is not None and any(name in params for name in self.SCENARIO_FIELDS):
+            k, neg_friction = _scaled_consts(ch, k, params)
         act = torch.clamp(actions.reshape(states.shape[0], -1), -1.0, 1.0)
         t_act = k.gear * act * k.i_red  # the same in every physics step
         q0, qd0 = lay.q(states), lay.qd(states)
         q, qd = q0, qd0
         for _ in range(ch.frame_skip):
-            q, qd = _physics_step(ch, k, q, qd, t_act)
+            q, qd = _physics_step(ch, k, q, qd, t_act, neg_friction)
         new_states = lay.pack(q, qd, lay.t(states) + 1.0)
         reward, done = self._reward_done(q0, q, act)
         return new_states, self._obs(q, qd), reward, done

@@ -10,6 +10,8 @@ import dataclasses
 
 import torch
 
+from .base import scenario_value as sv
+
 
 @dataclasses.dataclass(frozen=True)
 class MountainCarContinuous:
@@ -27,6 +29,12 @@ class MountainCarContinuous:
     bc_dim: int = 1
     action_bound: float = 1.0  # force clipped to ±1
 
+    # the constants a scenario distribution may randomize (scenarios/)
+    SCENARIO_FIELDS = ("power", "max_speed")
+
+    def scenario_defaults(self) -> dict:
+        return {n: float(getattr(self, n)) for n in self.SCENARIO_FIELDS}
+
     def observe(self, states: torch.Tensor) -> torch.Tensor:
         return states
 
@@ -35,11 +43,17 @@ class MountainCarContinuous:
         return _reset_on_the_valley_floor(generator, n)
 
     def step(self, states: torch.Tensor, actions: torch.Tensor):
+        return self.step_p(None, states, actions)
+
+    def step_p(self, params, states: torch.Tensor, actions: torch.Tensor):
+        """One dynamics definition for both forms (see ``Pendulum.step_p``)."""
+        power = sv(params, "power", self.power)
+        max_speed = sv(params, "max_speed", self.max_speed)
         position, velocity = states[:, 0], states[:, 1]
         force = torch.clamp(actions.reshape(-1), -1.0, 1.0)
 
-        velocity = velocity + force * self.power - 0.0025 * torch.cos(3 * position)
-        velocity = torch.clamp(velocity, -self.max_speed, self.max_speed)
+        velocity = velocity + force * power - 0.0025 * torch.cos(3 * position)
+        velocity = torch.clamp(velocity, -max_speed, max_speed)
         position = position + velocity
         position = torch.clamp(position, self.min_position, self.max_position)
         velocity = _left_wall(position, velocity, self.min_position)

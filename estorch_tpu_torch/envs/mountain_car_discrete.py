@@ -11,6 +11,7 @@ import dataclasses
 
 import torch
 
+from .base import scenario_value as sv
 from .mountain_car import _left_wall, _reset_on_the_valley_floor
 
 
@@ -30,6 +31,12 @@ class MountainCar:
     default_horizon: int = 200
     bc_dim: int = 1
 
+    # the constants a scenario distribution may randomize (scenarios/)
+    SCENARIO_FIELDS = ("force", "gravity", "max_speed")
+
+    def scenario_defaults(self) -> dict:
+        return {n: float(getattr(self, n)) for n in self.SCENARIO_FIELDS}
+
     def observe(self, states: torch.Tensor) -> torch.Tensor:
         return states
 
@@ -38,11 +45,18 @@ class MountainCar:
         return _reset_on_the_valley_floor(generator, n)
 
     def step(self, states: torch.Tensor, actions: torch.Tensor):
+        return self.step_p(None, states, actions)
+
+    def step_p(self, params, states: torch.Tensor, actions: torch.Tensor):
+        """One dynamics definition for both forms (see ``Pendulum.step_p``)."""
+        force_c = sv(params, "force", self.force)
+        gravity = sv(params, "gravity", self.gravity)
+        max_speed = sv(params, "max_speed", self.max_speed)
         position, velocity = states[:, 0], states[:, 1]
-        velocity = velocity + (actions.reshape(-1) - 1) * self.force + torch.cos(
+        velocity = velocity + (actions.reshape(-1) - 1) * force_c + torch.cos(
             3 * position
-        ) * (-self.gravity)
-        velocity = torch.clamp(velocity, -self.max_speed, self.max_speed)
+        ) * (-gravity)
+        velocity = torch.clamp(velocity, -max_speed, max_speed)
         position = torch.clamp(position + velocity, self.min_position, self.max_position)
         velocity = _left_wall(position, velocity, self.min_position)
         done = (position >= self.goal_position) & (velocity >= self.goal_velocity)

@@ -11,6 +11,8 @@ import math
 
 import torch
 
+from .base import scenario_value as sv
+
 
 def _angle_normalize(x: torch.Tensor) -> torch.Tensor:
     # floored modulo, as jnp's %: torch.remainder, not torch.fmod
@@ -33,6 +35,12 @@ class Pendulum:
     bc_dim: int = 2
     action_bound: float = 2.0  # |torque| ≤ max_torque
 
+    # the constants a scenario distribution may randomize (scenarios/)
+    SCENARIO_FIELDS = ("g", "m", "l", "max_torque")
+
+    def scenario_defaults(self) -> dict:
+        return {n: float(getattr(self, n)) for n in self.SCENARIO_FIELDS}
+
     def observe(self, states: torch.Tensor) -> torch.Tensor:
         th, thdot = states[:, 0], states[:, 1]
         return torch.stack([torch.cos(th), torch.sin(th), thdot], dim=1)
@@ -46,12 +54,21 @@ class Pendulum:
         return states, self.observe(states)
 
     def step(self, states: torch.Tensor, actions: torch.Tensor):
+        return self.step_p(None, states, actions)
+
+    def step_p(self, params, states: torch.Tensor, actions: torch.Tensor):
+        """One dynamics definition for both forms: ``params`` None (the
+        constants stay Python floats) or each member's drawn values."""
+        g = sv(params, "g", self.g)
+        m = sv(params, "m", self.m)
+        l = sv(params, "l", self.l)  # noqa: E741 (the Gym name)
+        max_torque = sv(params, "max_torque", self.max_torque)
         th, thdot = states[:, 0], states[:, 1]
-        u = torch.clamp(actions.reshape(-1), -self.max_torque, self.max_torque)
+        u = torch.clamp(actions.reshape(-1), -max_torque, max_torque)
         cost = _angle_normalize(th) ** 2 + 0.1 * thdot**2 + 0.001 * u**2
 
         newthdot = thdot + (
-            3 * self.g / (2 * self.l) * torch.sin(th) + 3.0 / (self.m * self.l**2) * u
+            3 * g / (2 * l) * torch.sin(th) + 3.0 / (m * l**2) * u
         ) * self.dt
         newthdot = torch.clamp(newthdot, -self.max_speed, self.max_speed)
         newth = th + newthdot * self.dt

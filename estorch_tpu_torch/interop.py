@@ -6,8 +6,11 @@ JAX param tree (the MLP's, or NatureCNN's with its conv kernels in HWIO and
 its VBN ``scale``/``bias``) or its flat ``params_flat``, a policy's frozen
 ``vbn_stats`` and the JAX noise table can be handed to the port and both
 compute the same thing; batched JAX env states
-are packed into the port's ``(n, state_dim)`` rows, and a JAX checkpoint's
-content restores a port ES in place (:func:`restore_from_jax`).  Only numpy
+are packed into the port's ``(n, state_dim)`` rows (a ``ScenarioEnv``'s
+too), a JAX scenario distribution's drawn table becomes a port
+distribution (:func:`scenario_distribution_from_jax`), and a JAX
+checkpoint's content restores a port ES in place
+(:func:`restore_from_jax`).  Only numpy
 crosses the boundary; nothing here imports JAX.
 """
 
@@ -68,7 +71,28 @@ def env_states_from_jax(env: Any, states: Any, device: str | torch.device = "cpu
     """The port's ``(..., state_dim)`` states from batched JAX env states
     (as numpy): an array ``(..., state_dim)``, or the planar envs' dict of
     ``pos``, ``theta``, ``vel``, ``omega``, ``t`` with any leading shape,
-    packed in ``env.layout`` (the wrappers forward their base's)."""
+    packed in ``env.layout`` (the wrappers forward their base's).
+
+    For a ``ScenarioEnv`` the JAX state is ``(base_state, params, variant,
+    key)``: the base state packed as above, then the params in the
+    distribution's sorted-name order, the variant, and a noise stream id
+    taken from the key's last raw uint32 word (its low 24 bits; pass
+    ``jax.random.key_data`` of a typed key), at step count 0.  The JAX
+    package's threefry observation noise does not cross; the port's noise
+    follows its own stream (``scenarios/env.py``)."""
+    if isinstance(states, (tuple, list)) and hasattr(env, "distribution"):
+        from .scenarios.env import _STREAMS
+
+        base, params, variant, key = states
+        packed = env_states_from_jax(env.base, base)
+        lead = packed.shape[:-1]
+        cols = [np.array(params[n], dtype=np.float32).reshape(lead)
+                for n in env.distribution.names]
+        stream = np.array(key, dtype=np.uint32).reshape(lead + (-1,))[..., -1] % _STREAMS
+        cols += [np.array(variant, dtype=np.float32).reshape(lead),
+                 stream.astype(np.float32), np.zeros(lead, np.float32)]
+        tail = torch.from_numpy(np.stack(cols, axis=-1))
+        return torch.cat([packed.cpu(), tail], dim=-1).to(device)
     if not (isinstance(states, dict) or hasattr(states, "items")):
         return torch.as_tensor(np.array(states, dtype=np.float32)).to(device)
     fields = {k: np.array(v, dtype=np.float32) for k, v in states.items()}
@@ -77,6 +101,24 @@ def env_states_from_jax(env: Any, states: Any, device: str | torch.device = "cpu
             for k in ("pos", "theta", "vel", "omega", "t")]
     packed = env.layout.pack_fields(*flat)
     return packed.reshape(lead + (packed.shape[-1],)).to(device)
+
+
+def scenario_distribution_from_jax(spec: dict, drawn: Any):
+    """A port ``ScenarioDistribution`` that draws the JAX package's
+    constants: ``spec`` is the JAX distribution's ``spec_json()`` and
+    ``drawn`` its ``draw_all()`` as numpy (``{name: (n_variants,)}``).  The
+    packages' streams differ (``ops/noise.py``), so without this the same
+    spec names other constants in each."""
+    from .scenarios import ScenarioDistribution
+
+    dist = ScenarioDistribution.from_json(spec)
+    table = np.stack([np.array(drawn[n], dtype=np.float32).reshape(-1) for n in dist.names],
+                     axis=1)
+    if table.shape != (dist.n_variants, len(dist.names)):
+        raise ValueError(f"drawn table of shape {table.shape} does not match the spec's "
+                         f"({dist.n_variants}, {len(dist.names)})")
+    dist._table = torch.from_numpy(table)
+    return dist
 
 
 def _find_adam(node: Any):

@@ -15,11 +15,16 @@ answers:
 4. what it survived: the resilience counters, and the supervisor's
    restarts from the manifest's ``resilience`` section;
 5. the barrier-free scheduler's accounting (records with an ``async``
-   block, ``algo/scheduler.py``).
+   block, ``algo/scheduler.py``);
+6. how each scenario variant fares (records with a ``scenarios`` block,
+   ``scenarios/fitness.py``): count-weighted per-variant means, run-best
+   bests, coverage, and a WORST-VARIANT callout for a variant whose mean
+   lags the family median by more than ``SCENARIO_MAD_FACTOR`` times the
+   cross-variant MAD.
 
-For the same records it gives the JAX package's summary dict.  The JAX
-package's scenario and serving sections come with the port's scenarios
-and serving (ROADMAP.md port items 8 and 9).  ``--selfcheck`` holds the
+For the same records it gives the JAX package's summary dict, but for the
+JAX package's serving section (a policy server's request counters read
+from its heartbeat), not ported yet (ROADMAP.md port item 9c).  ``--selfcheck`` holds the
 golden record against the schema and the pipeline against synthetic runs.
 """
 
@@ -83,6 +88,11 @@ STALL_FACTOR = 5.0  # a generation this many times the median wall time stalls
 TAIL_RATIO_THRESHOLD = 10.0
 TAIL_P99_FLOOR_S = 0.05
 
+# the WORST-VARIANT callout: a variant whose run-level mean lags the
+# family median by more than this many cross-variant MADs (one scenario
+# systematically losing inside a healthy-looking family mean)
+SCENARIO_MAD_FACTOR = 2.0
+
 # counters surfaced when nonzero: the evidence that a run survived faults
 RESILIENCE_COUNTERS = (
     "generations_rejected",
@@ -132,6 +142,21 @@ def validate_record(rec: dict) -> list[str]:
                 and a["consumed"] != a["fresh"] + a["folded"]):
             problems.append(f"async accounting broken: consumed {a['consumed']} != "
                             f"fresh {a['fresh']} + folded {a['folded']}")
+    sc = rec.get("scenarios")
+    if isinstance(sc, dict):
+        nv = sc.get("n_variants")
+        if not isinstance(nv, int) or isinstance(nv, bool) or nv < 1:
+            problems.append(f"scenarios.n_variants {nv!r} is not a positive int")
+        else:
+            for key in ("counts", "mean", "best"):
+                v = sc.get(key)
+                if not isinstance(v, list) or len(v) != nv:
+                    problems.append(f"scenarios.{key} is not a length-{nv} list")
+                elif key == "counts" and any(
+                        not isinstance(c, int) or isinstance(c, bool) or c < 0 for c in v):
+                    problems.append("scenarios.counts has a negative or non-int entry")
+                elif key != "counts" and any(not (x is None or _is_num(x)) for x in v):
+                    problems.append(f"scenarios.{key} has a non-numeric entry")
     for i, e in enumerate(rec.get("compile_events") or []):
         if not isinstance(e, dict) or not isinstance(e.get("program"), str):
             problems.append(f"compile_events[{i}] lacks a program name")
@@ -233,6 +258,69 @@ def _async_section(records: list[dict]) -> dict | None:
     return block
 
 
+def _scenarios_section(records: list[dict]) -> tuple[dict | None, str | None]:
+    """(scenarios summary, diagnosis clause) over the run's per-generation
+    blocks, or (None, None) for a run without scenarios.  Count-weighted
+    per-variant means, run-best bests, summed counts: the stdlib twin of
+    ``scenarios/fitness.py``'s NumPy merge (this module stays stdlib)."""
+    blocks = [r["scenarios"] for r in records
+              if isinstance(r.get("scenarios"), dict)
+              and isinstance(r["scenarios"].get("n_variants"), int)]
+    if not blocks:
+        return None, None
+    width = max(int(b["n_variants"]) for b in blocks)
+    counts = [0] * width
+    wsum = [0.0] * width
+    wcnt = [0.0] * width
+    best: list[float | None] = [None] * width
+
+    def num(x):
+        return float(x) if _is_num(x) and math.isfinite(x) else None
+
+    for b in blocks:
+        cs = b.get("counts") or []
+        ms = b.get("mean") or []
+        bs = b.get("best") or []
+        for v in range(min(width, len(cs))):
+            c = int(cs[v]) if isinstance(cs[v], int) else 0
+            counts[v] += c
+            m = num(ms[v]) if v < len(ms) else None
+            if m is not None and c > 0:
+                wsum[v] += m * c
+                wcnt[v] += c
+            bb = num(bs[v]) if v < len(bs) else None
+            if bb is not None:
+                best[v] = bb if best[v] is None else max(best[v], bb)
+    means = [wsum[v] / wcnt[v] if wcnt[v] else None for v in range(width)]
+    section = {
+        "n_variants": width,
+        "coverage": round(sum(1 for c in counts if c) / width, 4),
+        "counts": counts,
+        "mean": [round(m, 4) if m is not None else None for m in means],
+        "best": [round(b, 4) if b is not None else None for b in best],
+    }
+    clause = None
+    finite = [m for m in means if m is not None]
+    if len(finite) >= 3:
+        med = _median(finite)
+        mad = _median([abs(m - med) for m in finite])
+        worst_v = min((v for v in range(width) if means[v] is not None), key=lambda v: means[v])
+        lag = med - means[worst_v]
+        if mad > 0 and lag > SCENARIO_MAD_FACTOR * mad:
+            section["worst_variant"] = {
+                "variant": worst_v,
+                "mean": round(means[worst_v], 4),
+                "family_median": round(med, 4),
+                "cross_variant_mad": round(mad, 4),
+                "lag_in_mads": round(lag / mad, 2),
+            }
+            clause = (f"WORST-VARIANT: scenario variant {worst_v} mean {means[worst_v]:.4g} "
+                      f"lags the family median {med:.4g} by {lag / mad:.1f}x the "
+                      "cross-variant MAD — one scenario is systematically losing; inspect "
+                      "its drawn constants (manifest config.scenarios)")
+    return section, clause
+
+
 def summarize(records: list[dict], heartbeat_path: str | None = None,
               manifest_path: str | None = None) -> dict:
     """Aggregate a run's records into the summary dict the CLI prints."""
@@ -278,6 +366,7 @@ def summarize(records: list[dict], heartbeat_path: str | None = None,
               for i, (r, w) in enumerate(zip(records, walls))
               if med > 0 and w > STALL_FACTOR * med]
     async_block = _async_section(records)
+    scenarios_section, scenario_clause = _scenarios_section(records)
 
     diagnosis = []
     if stalls:
@@ -345,6 +434,11 @@ def summarize(records: list[dict], heartbeat_path: str | None = None,
                 f"TAIL-HEAVY async queue wait: p99 {qw['p99']}s is {ratio}x p50 "
                 f"{qw['p50']}s — a few results wait far longer than typical (stragglers "
                 "or a starved fold loop); check async/eval_s and stale discards")
+    if scenarios_section is not None:
+        diagnosis.append(f"scenarios: {scenarios_section['n_variants']} variants, "
+                         f"{scenarios_section['coverage']:.0%} covered")
+        if scenario_clause:
+            diagnosis.append(scenario_clause)
     if not diagnosis:
         diagnosis.append("steady: no stalls, no throughput decay")
 
@@ -368,6 +462,8 @@ def summarize(records: list[dict], heartbeat_path: str | None = None,
         out["restarts"] = restarts
     if async_block is not None:
         out["async"] = async_block
+    if scenarios_section is not None:
+        out["scenarios"] = scenarios_section
     return out
 
 
@@ -416,6 +512,17 @@ def format_summary(s: dict) -> str:
             if st:
                 tail += f"  staleness p50={st['p50']} p99={st['p99']}"
             lines.append(tail)
+    sc = s.get("scenarios")
+    if sc:
+        means = [m for m in sc["mean"] if m is not None]
+        line = f"scenarios        {sc['n_variants']} variants  coverage {sc['coverage']:.0%}"
+        if means:
+            line += f"  mean {min(means):.4g}..{max(means):.4g}"
+        lines.append(line)
+        wv = sc.get("worst_variant")
+        if wv:
+            lines.append(f"  └ worst v{wv['variant']:<3} mean {wv['mean']:.4g}  "
+                         f"({wv['lag_in_mads']}x MAD below median {wv['family_median']:.4g})")
     if s.get("restarts") and s["restarts"]["count"]:
         lines.append(f"restarts         {s['restarts']['count']} "
                      f"(completed={s['restarts']['completed']})")
@@ -427,8 +534,9 @@ def selfcheck() -> list[str]:
     """The schema and pipeline's self-validation ([] when healthy): the
     golden record validates and a broken one does not, a synthetic run
     summarizes with every promised key and its stall found, the async
-    accounting and tails surface, and the resilience counters and restarts
-    come through from a heartbeat and a manifest."""
+    accounting and tails surface, the scenarios section aggregates and calls
+    out a laggard, and the resilience counters and restarts come through
+    from a heartbeat and a manifest."""
     import os
     import tempfile
     import time
@@ -489,6 +597,44 @@ def selfcheck() -> list[str]:
         problems.append("tail-heavy callout fired on a sub-millisecond p99")
     if summarize(recs).get("async"):
         problems.append("sync run grew an async section")
+
+    # scenarios: per-variant blocks validate, fold count-weighted into the
+    # section, and a 2x-MAD laggard is called out while a balanced family
+    # stays quiet
+    def scen_rec(gen, means):
+        return dict(GOLDEN_RECORD, generation=gen, scenarios={
+            "n_variants": len(means), "counts": [4] * len(means),
+            "mean": means, "best": [m + 5.0 for m in means]})
+
+    lag = [-100.0, -102.0, -98.0, -101.0, -99.0, -400.0]
+    sr = [via_json(scen_rec(g, lag)) for g in range(3)]
+    problems += [f"scenario golden: {p}" for p in validate_record(sr[0])]
+    broken_sc = dict(GOLDEN_RECORD, scenarios={
+        "n_variants": 4, "counts": [1, 2], "mean": [0.0], "best": "big"})
+    if not validate_record(broken_sc):
+        problems.append("validator accepted a malformed scenarios block")
+    ssc = summarize(recs + sr)
+    blk = ssc.get("scenarios")
+    if not blk or blk.get("n_variants") != 6:
+        problems.append("summary missed the scenarios section")
+    if blk and blk.get("coverage") != 1.0:
+        problems.append("scenario coverage mis-derived")
+    if blk and blk.get("mean", [None])[0] != -100.0:
+        problems.append("per-variant mean not count-weighted across generations")
+    if blk and blk.get("best", [None])[0] != -95.0:
+        problems.append("per-variant best not aggregated as run max")
+    if not blk or blk.get("worst_variant", {}).get("variant") != 5:
+        problems.append("worst-variant callout missed a 2x-MAD laggard")
+    if "WORST-VARIANT" not in ssc.get("diagnosis", ""):
+        problems.append("diagnosis missed the worst-variant callout")
+    if "scenarios" not in format_summary(ssc):
+        problems.append("format_summary dropped the scenarios block")
+    balanced = [via_json(scen_rec(g, [-100.0, -102.0, -98.0, -101.0, -99.0, -103.0]))
+                for g in range(3)]
+    if "WORST-VARIANT" in summarize(recs + balanced).get("diagnosis", ""):
+        problems.append("worst-variant callout fired on a balanced family")
+    if summarize(recs).get("scenarios"):
+        problems.append("un-randomized run grew a scenarios section")
 
     with tempfile.TemporaryDirectory() as d:
         hb_path = os.path.join(d, "heartbeat.json")

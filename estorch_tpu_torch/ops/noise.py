@@ -65,6 +65,28 @@ def make_noise_table(size: int = DEFAULT_TABLE_SIZE, seed: int = 0,
     return NoiseTable(data=data.to(dev), seed=seed, size=size)
 
 
+# scenario parameter streams (``scenarios/distribution.py``): a seed of
+# their own, salted as the JAX package salts its scenario key, so a user who
+# gives ES and the distribution one seed integer still gets disjoint streams
+SCENARIO_STREAM_SALT = 0x5CE7A2
+
+
+def scenario_variant_seed(seed: int, variant: int) -> int:
+    """The generator seed of variant ``variant``'s scenario draws: a hash
+    of ``(seed, salt, variant)`` (``np.random.SeedSequence``, as the
+    engine's ``_seed_of`` derives its streams), deterministic in ``(seed,
+    variant)`` alone."""
+    return int(np.random.SeedSequence(
+        [int(seed), SCENARIO_STREAM_SALT, int(variant)]).generate_state(
+            1, np.uint64)[0] >> np.uint64(1))
+
+
+def scenario_variant_generator(seed: int, variant: int) -> torch.Generator:
+    """THE ``(seed, variant)`` stream of scenario-parameter draws: a CPU
+    generator, so every device draws the same constants."""
+    return torch.Generator().manual_seed(scenario_variant_seed(seed, variant))
+
+
 def sample_pair_offsets(generator: torch.Generator, n_pairs: int,
                         table_size: int, dim: int) -> torch.Tensor:
     """Uniform int32 offsets for ``n_pairs`` rows, each in [0, size - dim]."""

@@ -4,13 +4,15 @@ The JAX package's ES takes an optax factory; these are the port's
 counterparts of ``optax.adam`` (the same moments, bias correction and
 epsilon placement, outside the square root) and ``optax.sgd``, as pure
 ``init``/``update`` pairs so that a generation's state can be kept and
-restored whole.
+restored whole.  :func:`tunable_optimizer` is the counterpart of
+``optax.inject_hyperparams``: the learning rate rides the optimizer state,
+where population-based training (``scenarios/pbt.py``) tunes it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import torch
 
@@ -66,3 +68,37 @@ class SGD:
 def sgd(learning_rate: float) -> SGD:
     """Factory with ``optax.sgd``'s first argument (no momentum)."""
     return SGD(float(learning_rate))
+
+
+class TunableState(NamedTuple):
+    """A tunable optimizer's state: ``hyperparams`` holds the learning rate
+    as a () float32 tensor on the params' device, ``inner_state`` the
+    wrapped optimizer's own state."""
+
+    hyperparams: dict
+    inner_state: Any
+
+
+@dataclasses.dataclass(frozen=True)
+class Tunable:
+    """An optimizer (``Adam`` or ``SGD``) whose learning rate is read from
+    its state at each update, as ``optax.inject_hyperparams`` reads it: the
+    update is the wrapped optimizer's at the state's rate, bit for bit (the
+    rate's float32 value multiplies as the Python float's would)."""
+
+    inner: Any
+
+    def init(self, params: torch.Tensor) -> TunableState:
+        lr = torch.tensor(self.inner.learning_rate, dtype=torch.float32, device=params.device)
+        return TunableState({"learning_rate": lr}, self.inner.init(params))
+
+    def update(self, grad: torch.Tensor, state: TunableState) -> tuple[torch.Tensor, TunableState]:
+        opt = dataclasses.replace(self.inner, learning_rate=state.hyperparams["learning_rate"])
+        updates, inner_state = opt.update(grad, state.inner_state)
+        return updates, TunableState(state.hyperparams, inner_state)
+
+
+def tunable_optimizer(factory=None, **kwargs) -> Tunable:
+    """``factory(**kwargs)`` (``adam`` by default) with its learning rate in
+    the optimizer state: ``tunable_optimizer(learning_rate=0.01)``."""
+    return Tunable((adam if factory is None else factory)(**kwargs))

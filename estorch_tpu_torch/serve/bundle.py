@@ -16,7 +16,9 @@ the same device.  Contents:
 - ``MANIFEST.json``— schema + bundle version, the module import spec
                      (``"pkg.mod:Class"`` + JSON kwargs) that rebuilds the
                      policy, obs shape, provenance (algorithm, backend,
-                     generation, best reward), the runtime facts a
+                     generation, best reward, and the scenario
+                     distribution's spec when the run trained under one),
+                     the runtime facts a
                      regression hunt needs (git sha, torch/CUDA/numpy
                      versions, the card: ``obs/manifest.py``), and the
                      sha256 of ``arrays.npz``.
@@ -321,6 +323,10 @@ def export_bundle(
         "runtime": collect_manifest(devices=[es.device]),
         "sha256": {ARRAYS_NAME: _sha256_file(arrays_path)},
     }
+    if getattr(es, "_scenarios", None) is not None:
+        # the bundle names the scenarios its policy was trained under: the
+        # spec and its draw seed reproduce every variant's constants
+        manifest["source"]["scenarios"] = es._scenarios.spec_json()
     if extra:
         manifest["extra"] = extra
     _commit_manifest(path, manifest)

@@ -81,10 +81,27 @@ def _pack_state(es, st) -> dict:
         return d
     d["sigma"] = st.sigma
     d["seed"] = int(st.seed)
-    d["opt_state"] = None if st.opt_state is None else dict(st.opt_state._asdict())
+    d["opt_state"] = None if st.opt_state is None else _pack_opt(st.opt_state)
     if st.obs_stats is not None:
         d["obs_stats"] = list(st.obs_stats)
     return d
+
+
+def _pack_opt(opt: Any) -> Any:
+    """An optimizer state's named tuples (``AdamState``, a tunable
+    optimizer's ``TunableState`` around one) as dicts, recursively."""
+    if hasattr(opt, "_asdict"):
+        return {k: _pack_opt(v) for k, v in opt._asdict().items()}
+    return opt
+
+
+def _unpack_opt(packed: Any, template: Any, to_dev) -> Any:
+    """:func:`_pack_opt`'s inverse, the types read from ``template`` (the
+    fresh object's optimizer state); tensors moved with ``to_dev``."""
+    if hasattr(template, "_asdict"):
+        return type(template)(**{k: _unpack_opt(packed[k], getattr(template, k), to_dev)
+                                 for k in template._fields})
+    return _map_tensors(packed, to_dev)
 
 
 def _state_tree(es) -> dict:
@@ -373,7 +390,7 @@ def _unpack_state(es, packed: dict, template, host_opt, to_dev):
 
     opt = packed["opt_state"]
     if opt is not None:
-        opt = type(template.opt_state)(**_map_tensors(opt, to_dev))
+        opt = _unpack_opt(opt, template.opt_state, to_dev)
     obs_stats = packed.get("obs_stats")
     return ESState(params_flat=to_dev(packed["params_flat"]), opt_state=opt,
                    seed=int(packed["seed"]), generation=int(packed["generation"]),

@@ -966,3 +966,104 @@ def test_server_on_the_card_answers_as_es_predict(cuda, tmp_path):
         assert stats["cold_start"]["compiles_at_load"] == 0
     finally:
         srv.shutdown(drain=True)
+
+
+# --------------------------------------------------------------- scenarios
+
+SCENARIO_FAMILIES = ["Pendulum", "CartPole", "Acrobot", "MountainCar", "MountainCarContinuous",
+                     "Hopper2D", "Walker2D", "Humanoid2D", "Cheetah2D", "Swimmer2D"]
+
+
+@pytest.mark.parametrize("name", SCENARIO_FAMILIES)
+def test_step_p_on_card_matches_cpu(cuda, name):
+    """One env step of 64 members, each under its own draw in ±30 % of every
+    declared constant, on the card and on the CPU from the same states and
+    actions: within rtol 1e-5 and the first step's atol of
+    ``test_env_on_card_matches_cpu`` (5e-5 on the state, 1e-5 on obs and
+    reward); done flags equal."""
+    from estorch_tpu_torch.scenarios import ScenarioParams
+
+    env = _env(name)
+    n = 64
+    states, _ = env.reset(torch.Generator().manual_seed(5), n)
+    rng = np.random.default_rng(5)
+    draw = {k: torch.from_numpy(rng.uniform(0.7 * v, 1.3 * v, n).astype(np.float32))
+            for k, v in env.scenario_defaults().items()}
+    a = _actions(env, rng, n)
+    out_cpu = env.step_p(ScenarioParams(draw), states, a)
+    out_card = [t.cpu() for t in env.step_p(ScenarioParams({k: v.to(cuda) for k, v in
+                                                            draw.items()}),
+                                            states.to(cuda), a.to(cuda))]
+    for k, (got, want) in enumerate(zip(out_card[:3], out_cpu[:3])):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=5e-5 if k == 0 else 1e-5)
+    assert torch.equal(out_card[3], out_cpu[3])
+
+
+def _scenario_es(device, n_variants=10, obs_noise=0.05, optimizer=None, **over):
+    from estorch_tpu_torch import ES, DeviceAgent, MLPPolicy, Pendulum, adam
+    from estorch_tpu_torch.scenarios import default_distribution
+
+    kw = dict(population_size=64, sigma=0.05, table_size=1 << 16, telemetry=False,
+              streamed=True, noise_kernel=True,
+              scenarios=default_distribution(Pendulum(), n_variants=n_variants, spread=0.3,
+                                             obs_noise=obs_noise, seed=1),
+              policy_kwargs={"action_dim": 1, "hidden": (16, 16), "discrete": False,
+                             "action_scale": 2.0})
+    kw.update(over)
+    if optimizer is None:
+        optimizer, kw["optimizer_kwargs"] = adam, {"learning_rate": 1e-2}
+    return ES(MLPPolicy, DeviceAgent(Pendulum(), horizon=20), optimizer, device=device, **kw)
+
+
+def _card_kernel_launches(fn) -> int:
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.profiler.kineto_results.events()
+               if str(e.device_type()).endswith("CUDA")
+               and not e.name().startswith(("Memcpy", "Memset")))
+
+
+def test_scenario_launches_do_not_depend_on_the_variant_count(cuda):
+    """One engine generation's kernel launches on the card at n_variants 1,
+    10 and 1000: equal, with 3 matvec launches an env step and 1 reduction."""
+    counts = []
+    for nv in (1, 10, 1000):
+        es = _scenario_es(cuda, n_variants=nv)
+        es.train(1, verbose=False)
+        nk.reset_launch_counts()
+        counts.append(_card_kernel_launches(lambda es=es: es.engine.generation_step(es.state)))
+        assert dict(nk.launch_counts) == {"population_noise_matvec": 60, "weighted_noise_sum": 1}
+    assert counts[0] == counts[1] == counts[2] > 0
+
+
+def test_scenario_generation_on_card_matches_cpu(cuda):
+    """Two randomized generations with observation noise (streamed + kernel
+    update) on the card and on the CPU: the same variants, reward means
+    within 1e-4 relative and params within 1e-4 (phase 4's float32 bound)."""
+    es_card, es_cpu = _scenario_es(cuda), _scenario_es("cpu")
+    es_card.train(2, verbose=False)
+    es_cpu.train(2, verbose=False)
+    for a, b in zip(es_card.history, es_cpu.history):
+        assert a["scenarios"]["counts"] == b["scenarios"]["counts"]
+        assert abs(a["reward_mean"] - b["reward_mean"]) <= 1e-4 * abs(b["reward_mean"])
+    torch.testing.assert_close(es_card.state.params_flat.cpu(), es_cpu.state.params_flat,
+                               rtol=0, atol=1e-4)
+
+
+def test_pbt_replay_is_bitwise_its_live_run_on_card(cuda):
+    from estorch_tpu_torch.scenarios import PBTController, tunable_optimizer
+
+    def build():
+        return _scenario_es(cuda, optimizer=tunable_optimizer(learning_rate=1e-2))
+
+    es = build()
+    log = PBTController(es, n_centers=3, explore_every=1, seed=3).run(3, verbose=False)
+    es2 = build()
+    PBTController(es2, n_centers=3, explore_every=1, seed=3).run(3, verbose=False, replay=log)
+    for a, b in zip(es.meta_states, es2.meta_states):
+        assert torch.equal(a.params_flat, b.params_flat)
+        assert a.opt_state.hyperparams["learning_rate"].device.type == "cuda"

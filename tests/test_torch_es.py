@@ -268,7 +268,9 @@ class _HostAgent:
 
 
 # each case names an option that still waits for its ROADMAP.md item; the
-# two telemetry cases (the hub came with port item 5) hold it live instead
+# two telemetry cases (the hub came with port item 5) hold it live instead,
+# and the scenarios case (port item 8) holds the JAX package's TypeError for
+# anything but a ScenarioDistribution
 @pytest.mark.parametrize("option", [
     {"mesh": object()},
     {"telemetry": True},  # live on the device path
@@ -290,6 +292,10 @@ def test_unported_options_raise(option):
     kw.update(option)
     if "telemetry" in option:
         _check_telemetry_live(policy, agent, kw)
+        return
+    if "scenarios" in option:
+        with pytest.raises(TypeError, match="scenarios must be a ScenarioDistribution"):
+            ES(policy, agent, adam, **kw)
         return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ES(policy, agent, adam, **kw)
@@ -360,7 +366,7 @@ def test_import_loads_no_jax_and_no_reference_package():
         "import estorch_tpu_torch.obs.__main__, estorch_tpu_torch.obs.tracing\n"
         "import estorch_tpu_torch.serve.server, estorch_tpu_torch.serve.__main__\n"
         "import estorch_tpu_torch.serve.warm, estorch_tpu_torch.serve.client\n"
-        "import estorch_tpu_torch.serve.loadgen\n"
+        "import estorch_tpu_torch.serve.loadgen, estorch_tpu_torch.scenarios\n"
         "bad = sorted(m for m in sys.modules if m.startswith(('jax', 'flax', 'optax', 'chex'))"
         " or m == 'estorch_tpu' or m.startswith('estorch_tpu.'))\n"
         "print(bad)\n"

@@ -489,17 +489,29 @@ def test_best_policy_and_evaluate_policy():
 
 DEVICE_ONLY = [("shard_params", True), ("compute_dtype", "bfloat16"),
                ("episodes_per_member", 2), ("decomposed", True), ("noise_kernel", True),
-               ("streamed", True), ("low_rank", 1), ("obs_norm", True), ("scenarios", object())]
+               ("streamed", True), ("low_rank", 1), ("obs_norm", True),
+               ("scenarios", "a distribution")]
 
 
 @pytest.mark.parametrize("option,value", DEVICE_ONLY, ids=[o for o, _ in DEVICE_ONLY])
 def test_device_only_options_raise_on_host(option, value):
-    """The JAX package's ValueErrors for device-path options on a host agent."""
+    """The JAX package's ValueErrors for device-path options on a host agent.
+    Both packages type-check ``scenarios`` before the dispatch, so each is
+    handed a distribution of its own."""
     cls, kw = _kw("quadratic", 8)
     kw[option] = value
-    if option != "scenarios":  # JAX type-checks scenarios before the dispatch
-        with pytest.raises(ValueError, match=f"{option} is a device"):
-            JES(TorchMLP, cls, torch.optim.Adam, telemetry=False, **kw)
+    jkw = dict(kw)
+    if option == "scenarios":
+        import estorch_tpu.envs as jenvs
+        from estorch_tpu.scenarios import default_distribution as jdefault
+
+        from estorch_tpu_torch import Pendulum
+        from estorch_tpu_torch.scenarios import default_distribution
+
+        jkw["scenarios"] = jdefault(jenvs.Pendulum(), n_variants=2)
+        kw["scenarios"] = default_distribution(Pendulum(), n_variants=2)
+    with pytest.raises(ValueError, match=f"{option} is a device"):
+        JES(TorchMLP, cls, torch.optim.Adam, telemetry=False, **jkw)
     with pytest.raises(ValueError, match=f"{option} is a device"):
         ES(TorchMLP, cls, torch.optim.Adam, device="cpu", **kw)
 

@@ -430,14 +430,19 @@ _PIXELS = {"env_name": "pong84", "frame_stack": 2}
 def test_pooled_options_raise_as_in_jax(agent_kw, option, message):
     agent = {"env_name": "cartpole", "horizon": 10, **agent_kw}
     kw = dict(BASE, **option)
-    if "scenarios" in kw:  # the JAX package checks the type first
+    jkw = dict(kw)
+    if "scenarios" in kw:  # both packages check the type first: each gets its own
         import estorch_tpu.envs as jenvs
-        from estorch_tpu.scenarios import default_distribution
+        from estorch_tpu.scenarios import default_distribution as jdefault
 
-        kw["scenarios"] = default_distribution(jenvs.CartPole(), n_variants=2)
+        from estorch_tpu_torch import CartPole
+        from estorch_tpu_torch.scenarios import default_distribution
+
+        jkw["scenarios"] = jdefault(jenvs.CartPole(), n_variants=2)
+        kw["scenarios"] = default_distribution(CartPole(), n_variants=2)
     with pytest.raises(ValueError, match=message):
         JES(JMLPPolicy, JPooledAgent(**agent), optax.adam,
-            mesh=population_mesh(jax.devices()[:1]), telemetry=False, **kw)
+            mesh=population_mesh(jax.devices()[:1]), telemetry=False, **jkw)
     with pytest.raises(ValueError, match=message):
         ES(MLPPolicy, PooledAgent(**agent), adam, device="cpu", **kw)
 
