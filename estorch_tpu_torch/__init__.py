@@ -35,32 +35,31 @@ fitness per variant, and tunes σ and the learning rate of several centers
 by population-based training (``PBTController``).
 """
 
-from . import obs, resilience, scenarios  # noqa: F401
-from .algo import ES, IW_ES, NS_ES, NSR_ES, NSRA_ES, NoveltyArchive
-from .envs import (
-    Acrobot,
-    CartPole,
-    Cheetah2D,
-    DeceptiveValley,
-    DeviceAgent,
-    Hopper2D,
-    Humanoid2D,
-    MountainCar,
-    MountainCarContinuous,
-    Pendulum,
-    PooledAgent,
-    PositionOnly,
-    RecallEnv,
-    Swimmer2D,
-    SyntheticEnv,
-    Walker2D,
-    collect_reference_batch,
-)
-from .models import MLPPolicy, NatureCNN, RecurrentNatureCNN, RecurrentPolicy, VirtualBatchNorm
-from .ops import NoiseTable, make_noise_table
-from .optim import adam, sgd
-from .parallel import EngineConfig, ESEngine, ESState, PooledEngine
-from .utils import resolve_device
+# The names below load lazily (PEP 562): importing the package imports no
+# torch, so the stdlib-only entry points under it (``python -m
+# estorch_tpu_torch.serve route``, the fleet supervisor and router, ``obs
+# collect``/``dash``/``autoscale``) start without torch and outlive a
+# replica whose CUDA context hangs.  The first use of a name imports its
+# subpackage.
+from ._lazy import lazy_names
+
+_LAZY_FROM = {
+    "algo": ("ES", "IW_ES", "NS_ES", "NSR_ES", "NSRA_ES", "NoveltyArchive"),
+    "envs": ("Acrobot", "CartPole", "Cheetah2D", "DeceptiveValley", "DeviceAgent",
+             "Hopper2D", "Humanoid2D", "MountainCar", "MountainCarContinuous", "Pendulum",
+             "PooledAgent", "PositionOnly", "RecallEnv", "Swimmer2D", "SyntheticEnv",
+             "Walker2D", "collect_reference_batch"),
+    "models": ("MLPPolicy", "NatureCNN", "RecurrentNatureCNN", "RecurrentPolicy",
+               "VirtualBatchNorm"),
+    "ops": ("NoiseTable", "make_noise_table"),
+    "optim": ("adam", "sgd"),
+    "parallel": ("EngineConfig", "ESEngine", "ESState", "PooledEngine"),
+    "utils": ("resolve_device",),
+}
+_SUBMODULES = ("algo", "configs", "envs", "host", "interop", "models", "obs", "ops", "optim",
+               "parallel", "resilience", "scenarios", "serve", "utils")
+__getattr__, __dir__ = lazy_names(
+    __name__, globals(), {n: m for m, ns in _LAZY_FROM.items() for n in ns}, _SUBMODULES)
 
 __all__ = [
     "Acrobot", "CartPole", "Cheetah2D", "DeceptiveValley", "DeviceAgent", "ES", "ESEngine",

@@ -15,29 +15,42 @@
 - export (``export/``): Prometheus exposition and the ``serve-metrics``
   sidecar, the Perfetto export (``obs trace``) and the ``obs regress``
   gate;
-- device traces (``trace.py``): ``torch.profiler`` around a block.
+- device traces (``trace.py``): ``torch.profiler`` around a block;
+- fleet aggregation (``agg/``): the collector, its time-series store and
+  SLO rules, the dash, distributed-trace assembly and the autoscaler
+  (stdlib-only, each runnable as a file without this package).
 
 The submodules ``summarize`` and ``trace`` keep their names here: their
 functions are ``obs.summarize.summarize`` and ``obs.trace.trace`` (also
 ``utils.trace``).
 
-``python -m estorch_tpu_torch.obs`` runs ``summarize``, ``trace``,
-``profile``, ``regress``, ``hist`` and ``serve-metrics``.  The JAX
-package's fleet subcommands wait for ROADMAP.md port item 9.
+``python -m estorch_tpu_torch.obs`` runs ``summarize``, ``trace`` (and
+``trace --fleet/--store``), ``profile``, ``regress``, ``hist``,
+``serve-metrics``, ``collect``, ``dash``, ``slow`` and ``autoscale``.
 """
 
-from . import export  # noqa: F401  (prometheus/sidecar/trace/regress)
-from .counters import Counters, NullCounters
-from .export import (MetricsSidecar, export_trace, parse_exposition, render_exposition,
-                     validate_trace)
-from .hist import Histogram, Histograms, NullHistograms
-from .manifest import collect_manifest, load_manifest, write_manifest
-from .recorder import (HEARTBEAT_ENV, STALE_AFTER_S, FlightRecorder, Heartbeat,
-                       describe_heartbeat, read_heartbeat)
-from .sinks import (JsonlSink, JsonlWriter, MultiSink, MultiWriter, TensorBoardSink,
-                    TensorBoardWriter)
-from .spans import NULL_TELEMETRY, OBS_DISABLE_ENV, Telemetry, resolve_telemetry
-from .trace import annotate, timed_generations
+# PEP 562: importing the package imports no torch (the hub, the manifest
+# and the device traces do, and load at first use), so the stdlib-only
+# fleet layers under it start without torch
+from .._lazy import lazy_names
+
+_LAZY_FROM = {
+    "counters": ("Counters", "NullCounters"),
+    "export": ("MetricsSidecar", "export_trace", "parse_exposition", "render_exposition",
+               "validate_trace"),
+    "hist": ("Histogram", "Histograms", "NullHistograms"),
+    "manifest": ("collect_manifest", "load_manifest", "write_manifest"),
+    "recorder": ("HEARTBEAT_ENV", "STALE_AFTER_S", "FlightRecorder", "Heartbeat",
+                 "describe_heartbeat", "read_heartbeat"),
+    "sinks": ("JsonlSink", "JsonlWriter", "MultiSink", "MultiWriter", "TensorBoardSink",
+              "TensorBoardWriter"),
+    "spans": ("NULL_TELEMETRY", "OBS_DISABLE_ENV", "Telemetry", "resolve_telemetry"),
+    "trace": ("annotate", "timed_generations"),
+}
+_SUBMODULES = ("agg", "counters", "export", "hist", "manifest", "profile", "recorder", "sinks",
+               "spans", "summarize", "trace", "tracing")
+__getattr__, __dir__ = lazy_names(
+    __name__, globals(), {n: m for m, ns in _LAZY_FROM.items() for n in ns}, _SUBMODULES)
 
 __all__ = [
     "Counters", "FlightRecorder", "HEARTBEAT_ENV", "Heartbeat", "Histogram", "Histograms",

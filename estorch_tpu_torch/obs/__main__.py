@@ -53,12 +53,36 @@ codes).
       supervisor-published counter totals).  Without the package, run it
       as a file: ``python estorch_tpu_torch/obs/export/sidecar.py``.
 
-The JAX package's fleet subcommands (``collect``, ``dash``, ``slow``,
-``autoscale`` and the distributed ``trace --fleet/--store``) wait for
-ROADMAP.md port item 9.
+  trace --fleet DIR... | --store DIR [-o fleet_trace.json] [--print]
+      Distributed-trace assembly (obs/agg/traces.py): join the fleet's
+      sampled per-hop segments (the router's ``route``/``upstream`` legs,
+      a replica's ``request`` and batcher children) by trace id into one
+      Perfetto timeline with per-process lanes and cross-process flow
+      arrows.  ``--store`` assembles from the collector's scraped
+      ``traces-<target>.jsonl``; ``trace --selfcheck`` proves the join.
+
+  slow --store DIR [--quantile Q] [--limit N]
+      Name the worst stored traces from the request histograms'
+      per-bucket trace-id exemplars, each with its per-hop breakdown.
+
+  collect --targets targets.json --store DIR [--rules rules.json]
+      Fleet metrics collector (obs/agg/): scrape every Prometheus endpoint
+      and heartbeat run dir each tick into the local time-series store,
+      evaluate the SLO/alert rules, serve its own /metrics and /alerts.
+      File form: ``python estorch_tpu_torch/obs/agg/collector.py``.
+
+  dash --store DIR [--once | --watch SECS] [--window S] [--json]
+      Terminal fleet console over a collector store.  File form:
+      ``python estorch_tpu_torch/obs/agg/dash.py``.
+
+  autoscale --store DIR --capacity capacity.json --fleet-admin H:P
+      Autoscaler daemon (obs/agg/autoscale.py): store + capacity model ->
+      the fleet's ``POST /scale``, every decision logged append-only;
+      ``--replay LOG`` re-derives the decisions bit for bit.  File form:
+      ``python estorch_tpu_torch/obs/agg/autoscale.py``.
 
 Exit codes: 0 ok; 1 selfcheck problems / unreadable input / regression;
-2 bad run dir; 3 bad usage.
+2 bad run dir / bad targets or rules file; 3 bad usage.
 """
 
 from __future__ import annotations
@@ -69,11 +93,6 @@ import os
 import sys
 
 from .summarize import format_summary, load_records_tolerant, selfcheck, summarize
-
-# the JAX package's other subcommands, and the port's queue item each waits for
-NOT_PORTED = {"collect": "9", "dash": "9", "slow": "9", "autoscale": "9"}
-# the flags of the JAX package's distributed ``trace`` form (item 9 too)
-_FLEET_TRACE_FLAGS = ("--fleet", "--store", "--selfcheck")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -156,6 +175,23 @@ def build_parser() -> argparse.ArgumentParser:
     m.add_argument("--port", type=int, default=9321)
     m.add_argument("--port-file", default=None, metavar="PATH")
     m.add_argument("--stale-after-s", type=float, default=None)
+
+    # the fleet subcommands own their argparse surfaces (obs/agg/): the
+    # rest of the line is handed through, so the module and file forms
+    # accept the same flags
+    sub.add_parser("collect", add_help=False,
+                   help="fleet metrics collector over targets.json "
+                        "(obs/agg/collector.py owns the flags)")
+    sub.add_parser("dash", add_help=False,
+                   help="terminal fleet console over a collector store "
+                        "(obs/agg/dash.py owns the flags)")
+    sub.add_parser("autoscale", add_help=False,
+                   help="autoscaler daemon: store + capacity model -> "
+                        "fleet POST /scale (obs/agg/autoscale.py owns "
+                        "the flags)")
+    sub.add_parser("slow", add_help=False,
+                   help="worst stored traces via histogram exemplars "
+                        "(obs/agg/traces.py owns the flags)")
     return p
 
 
@@ -458,18 +494,30 @@ def _cmd_serve_metrics(args) -> int:
     return _sidecar.main(argv)
 
 
-def _not_ported(what: str, item: str) -> int:
-    print(f"obs {what} is not ported yet (ROADMAP.md, port queue item {item}); the port "
-          "has: summarize, trace, profile, regress, hist, serve-metrics", file=sys.stderr)
-    return 3
-
-
 def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
-    if argv[:1] and argv[0] in NOT_PORTED:
-        return _not_ported(argv[0], NOT_PORTED[argv[0]])
-    if argv[:1] == ["trace"] and any(f in argv for f in _FLEET_TRACE_FLAGS):
-        return _not_ported("trace --fleet/--store/--selfcheck (distributed traces)", "9")
+    # the fleet subcommands delegate whole (obs/agg owns their flags)
+    if argv[:1] == ["collect"]:
+        from .agg import collector as _collector
+
+        return _collector.main(argv[1:])
+    if argv[:1] == ["dash"]:
+        from .agg import dash as _dash
+
+        return _dash.main(argv[1:])
+    if argv[:1] == ["autoscale"]:
+        from .agg import autoscale as _autoscale
+
+        return _autoscale.main(argv[1:])
+    if argv[:1] == ["slow"]:
+        from .agg import traces as _traces
+
+        return _traces.main_slow(argv[1:])
+    if argv[:1] == ["trace"] and any(f in argv for f in ("--fleet", "--store", "--selfcheck")):
+        # the distributed form; the run-JSONL export below keeps its flags
+        from .agg import traces as _traces
+
+        return _traces.main(argv[1:])
     args = build_parser().parse_args(argv)
     if args.cmd == "summarize":
         return _cmd_summarize(args)

@@ -20,12 +20,14 @@ answers:
    ``scenarios/fitness.py``): count-weighted per-variant means, run-best
    bests, coverage, and a WORST-VARIANT callout for a variant whose mean
    lags the family median by more than ``SCENARIO_MAD_FACTOR`` times the
-   cross-variant MAD.
+   cross-variant MAD;
+7. what a policy server did (a counter snapshot carrying
+   ``requests_total``, the server's heartbeat): requests, batches, mean
+   batch, shed and errors — ``summarize --heartbeat`` on a replica.
 
-For the same records it gives the JAX package's summary dict, but for the
-JAX package's serving section (a policy server's request counters read
-from its heartbeat), not ported yet (ROADMAP.md port item 9c).  ``--selfcheck`` holds the
-golden record against the schema and the pipeline against synthetic runs.
+For the same inputs it gives the JAX package's summary dict.
+``--selfcheck`` holds the golden record against the schema and the
+pipeline against synthetic runs.
 """
 
 from __future__ import annotations
@@ -102,6 +104,19 @@ RESILIENCE_COUNTERS = (
     "rollout_failures",
     "supervisor_resumes",
     "chaos_worker_kills",
+)
+
+
+# a policy server's counters (serve/server.py), read from its heartbeat:
+# ``requests_total`` marks a process that serves rather than trains
+SERVE_COUNTERS = (
+    "requests_total",
+    "batches_total",
+    "batched_requests_total",
+    "shed_total",
+    "recompiles",
+    "batch_errors_total",
+    "reloads_total",
 )
 
 
@@ -321,9 +336,40 @@ def _scenarios_section(records: list[dict]) -> tuple[dict | None, str | None]:
     return section, clause
 
 
+def _serving_block(counter_src: dict | None) -> tuple[dict | None, str | None]:
+    """(serving summary, diagnosis clause) from a counter snapshot, or
+    (None, None) when the counters are not a policy server's."""
+    if not counter_src or not counter_src.get("requests_total"):
+        return None, None
+    c = {k: counter_src.get(k, 0) for k in SERVE_COUNTERS}
+    batches = c["batches_total"]
+    mean_batch = round(c["batched_requests_total"] / batches, 2) if batches else None
+    serving = {
+        "requests": int(c["requests_total"]),
+        "batches": int(batches),
+        "mean_batch": mean_batch,
+        "shed": int(c["shed_total"]),
+        "recompiles": int(c["recompiles"]),
+    }
+    if c["batch_errors_total"]:
+        serving["batch_errors"] = int(c["batch_errors_total"])
+    if c["reloads_total"]:
+        serving["reloads"] = int(c["reloads_total"])
+    clause = (f"serving: {serving['requests']} requests in {serving['batches']} batches"
+              + (f" (mean batch {mean_batch})" if mean_batch else ""))
+    if serving["shed"]:
+        clause += f", {serving['shed']} SHED — the server is saturated"
+    if serving.get("batch_errors"):
+        clause += f", {serving['batch_errors']} batch errors"
+    return serving, clause
+
+
 def summarize(records: list[dict], heartbeat_path: str | None = None,
               manifest_path: str | None = None) -> dict:
-    """Aggregate a run's records into the summary dict the CLI prints."""
+    """Aggregate a run's records into the summary dict the CLI prints.
+
+    With no records but a heartbeat (a policy server writes no generation
+    records), the summary is the liveness and the serving counters."""
     if not records:
         out: dict = {"generations": 0}
         hb = read_heartbeat(heartbeat_path) if heartbeat_path else None
@@ -331,10 +377,16 @@ def summarize(records: list[dict], heartbeat_path: str | None = None,
         if hb is not None:
             out["heartbeat"] = hb
             state = f"last phase={hb.get('phase')} beat {hb['age_s']:.0f}s ago"
-            if hb["age_s"] > STALE_AFTER_S:
+            if hb.get("phase") == "drained":
+                diagnosis.append(f"server drained cleanly; {state}")
+            elif hb["age_s"] > STALE_AFTER_S:
                 diagnosis.append(f"STALE heartbeat: {state} — the process is wedged or dead")
             else:
                 diagnosis.append(f"heartbeat fresh: {state}")
+            serving, clause = _serving_block(hb.get("counters"))
+            if serving is not None:
+                out["serving"] = serving
+                diagnosis.append(clause)
         out["diagnosis"] = "; ".join(diagnosis) or "no records"
         return out
     # a supervisor's replayed generations (between the last checkpoint and
@@ -408,6 +460,9 @@ def summarize(records: list[dict], heartbeat_path: str | None = None,
         if counters:
             diagnosis.append("resilience: " + ", ".join(f"{int(v)} {k}"
                                                         for k, v in counters.items()))
+    serving, serve_clause = _serving_block(counter_src)
+    if serve_clause:
+        diagnosis.append(serve_clause)
     restarts = None
     if manifest_res is not None:
         n_restarts = int(manifest_res.get("restart_count", 0))
@@ -458,6 +513,8 @@ def summarize(records: list[dict], heartbeat_path: str | None = None,
         out["heartbeat"] = hb
     if counters:
         out["counters"] = counters
+    if serving is not None:
+        out["serving"] = serving
     if restarts is not None:
         out["restarts"] = restarts
     if async_block is not None:
@@ -467,10 +524,22 @@ def summarize(records: list[dict], heartbeat_path: str | None = None,
     return out
 
 
+def _format_serving(s: dict) -> list[str]:
+    sv = s.get("serving")
+    if not sv:
+        return []
+    line = f"serving          {sv['requests']:,} requests  {sv['batches']:,} batches"
+    if sv.get("mean_batch"):
+        line += f"  mean batch {sv['mean_batch']}"
+    return [line + f"  shed={sv['shed']}  recompiles={sv['recompiles']}"]
+
+
 def format_summary(s: dict) -> str:
     """Human rendering of :func:`summarize`'s dict."""
     if not s.get("generations"):
-        return f"diagnosis        {s['diagnosis']}" if s.get("heartbeat") else "no records"
+        if s.get("serving") or s.get("heartbeat"):
+            return "\n".join(_format_serving(s) + [f"diagnosis        {s['diagnosis']}"])
+        return "no records"
     lines = [
         f"generations      {s['generations']}",
         f"wall time        {s['wall_time_s']:.3f}s",
@@ -523,6 +592,7 @@ def format_summary(s: dict) -> str:
         if wv:
             lines.append(f"  └ worst v{wv['variant']:<3} mean {wv['mean']:.4g}  "
                          f"({wv['lag_in_mads']}x MAD below median {wv['family_median']:.4g})")
+    lines.extend(_format_serving(s))
     if s.get("restarts") and s["restarts"]["count"]:
         lines.append(f"restarts         {s['restarts']['count']} "
                      f"(completed={s['restarts']['completed']})")
@@ -535,8 +605,9 @@ def selfcheck() -> list[str]:
     golden record validates and a broken one does not, a synthetic run
     summarizes with every promised key and its stall found, the async
     accounting and tails surface, the scenarios section aggregates and calls
-    out a laggard, and the resilience counters and restarts come through
-    from a heartbeat and a manifest."""
+    out a laggard, the resilience counters and restarts come through from a
+    heartbeat and a manifest, and a server's heartbeat gives the serving
+    section."""
     import os
     import tempfile
     import time
@@ -659,4 +730,26 @@ def selfcheck() -> list[str]:
         sh = summarize(recs, heartbeat_path=hb_path)
         if sh.get("counters", {}).get("workers_respawned") != 1:
             problems.append("heartbeat counters not surfaced sans manifest")
+
+        # a policy server: no generation records, its counters in the
+        # heartbeat (serve/server.py writes this shape)
+        serve_hb = os.path.join(d, "serve_heartbeat.json")
+        with open(serve_hb, "w") as f:
+            json.dump({"ts": time.time(), "pid": 2, "phase": "serving", "generation": 0,
+                       "counters": {"requests_total": 640, "batches_total": 40,
+                                    "batched_requests_total": 640, "shed_total": 3,
+                                    "recompiles": 5}}, f)
+        ss = summarize([], heartbeat_path=serve_hb)
+        sv = ss.get("serving")
+        if not sv or sv.get("requests") != 640 or sv.get("mean_batch") != 16:
+            problems.append("serving counters not aggregated from a server heartbeat")
+        if "serving" not in ss.get("diagnosis", ""):
+            problems.append("diagnosis missed the serving section")
+        if "SHED" not in ss["diagnosis"]:
+            problems.append("diagnosis missed serving shed (saturation)")
+        if "serving" not in format_summary(ss):
+            problems.append("format_summary dropped the serving block")
+        # resilience counters alone do not make a training run a server
+        if summarize(recs, heartbeat_path=hb_path).get("serving"):
+            problems.append("non-serving run grew a serving section")
     return problems

@@ -33,11 +33,23 @@ die             SIGKILL of this whole process before the generation
                 (``run_resilient``)
 wedge           a silent ``sleep_s`` before the generation, no beats
                 (``run_resilient``; the supervisor's watchdog kills it)
+kill_replica    SIGKILL of serving replica ``replica`` (the fleet's
+                monitor, serve/fleet.py): router failover and respawn
+wedge_replica   SIGSTOP of serving replica ``replica``: an alive process
+                holding its CUDA context, a silent socket; the breaker
+                opens on timeouts and the fleet escalates to SIGKILL
 ==============  ====================================================
 
+Training events key on ``gen``; the two serving events on ``at_s``,
+seconds since the fleet armed the plan (a server has no generation
+clock).  :func:`serve_faults` claims the due ones through the same
+once-semantics ledger, so a respawned fleet does not replay a kill.
 The hooks of ``straggle_host``/``kill_host`` come with the elastic
-scheduler (ROADMAP.md port item 7), those of ``kill_replica``/
-``wedge_replica`` with serving (item 9).
+scheduler (ROADMAP.md port item 7).
+
+The module imports only the standard library at load (NumPy inside the
+two functions that need it), so the fleet supervisor loads it by path
+without the package.
 
 Events fire once: an in-memory set, and across processes the plan's
 optional ``ledger`` file of fired ids, appended.  With ``ESTORCH_CHAOS``
@@ -52,8 +64,6 @@ import random
 import signal
 import threading
 import time
-
-import numpy as np
 
 CHAOS_ENV = "ESTORCH_CHAOS"
 
@@ -76,6 +86,7 @@ class ChaosPlan:
     def __init__(self, events, ledger: str | None = None):
         self._events: list[dict] = []
         self._by_gen: dict[int, list[dict]] = {}
+        self._serve_events: list[dict] = []
         for i, ev in enumerate(events):
             kind = ev.get("kind")
             if kind not in KINDS:
@@ -86,6 +97,7 @@ class ChaosPlan:
                 if "at_s" not in ev:
                     raise ValueError(f"chaos event {i} ({kind}) has no 'at_s' — serve "
                                      "events are wall-clock scheduled")
+                self._serve_events.append(ev)
             else:
                 if "gen" not in ev:
                     raise ValueError(f"chaos event {i} ({kind}) has no 'gen'")
@@ -117,6 +129,8 @@ class ChaosPlan:
                  straggle_host_jitter_s: float = 0.0) -> "ChaosPlan":
         """A seeded random plan, the JAX package's draw for draw: the same
         seed gives the same plan JSON in both packages."""
+        import numpy as np
+
         rng = np.random.default_rng(seed)
         events: list[dict] = []
         for g in range(1, n_generations + 1):
@@ -158,6 +172,17 @@ class ChaosPlan:
     def events_at(self, generation: int, kind: str | None = None) -> list[dict]:
         evs = self._by_gen.get(int(generation), [])
         return [ev for ev in evs if kind is None or ev["kind"] == kind]
+
+    def serve_events_due(self, elapsed_s: float) -> list[dict]:
+        """The serve events (``kill_replica``/``wedge_replica``) whose
+        ``at_s`` has passed, each claimed through :meth:`fire` (once per
+        id across every process sharing the ledger).  The caller (the
+        fleet's monitor) delivers the SIGKILL or SIGSTOP itself."""
+        due = []
+        for ev in self._serve_events:
+            if float(ev["at_s"]) <= float(elapsed_s) and self.fire(ev):
+                due.append(dict(ev))
+        return due
 
     def fire(self, event: dict) -> bool:
         """Claim ``event``: True once per event id across every process
@@ -246,6 +271,8 @@ def mutate_fitness(generation, fitness):
     plan = active_plan()
     if plan is None:
         return fitness
+    import numpy as np
+
     out = fitness
     for ev in plan.events_at(int(generation), "nan_fitness"):
         if plan.fire(ev):
@@ -301,6 +328,17 @@ def process_kill(generation) -> None:
     for ev in plan.events_at(int(generation), "die"):
         if plan.fire(ev):
             os.kill(os.getpid(), signal.SIGKILL)
+
+
+def serve_faults(elapsed_s: float) -> list[dict]:
+    """The serving fleet's due faults (one environment lookup when
+    ``ESTORCH_CHAOS`` is unset): the claimed ``kill_replica`` /
+    ``wedge_replica`` events, which the fleet's monitor maps to its
+    replicas' processes."""
+    plan = active_plan()
+    if plan is None:
+        return []
+    return plan.serve_events_due(elapsed_s)
 
 
 def process_wedge(generation) -> None:

@@ -7,20 +7,34 @@ micro-batcher (serve/batcher.py, serve/server.py:
 ``python -m estorch_tpu_torch.serve --bundle dir``), drive it
 (serve/client.py, serve/loadgen.py).  Everything runs on ``cuda`` unless
 the caller asks for ``device="cpu"`` (``--device cpu``).  The fleet
-(router, fleet supervisor) waits for ROADMAP.md port item 9c.
+(serve/router.py, serve/fleet.py: ``python -m estorch_tpu_torch.serve
+route --fleet fleet.json``) runs N replica servers behind one router.
 
-The bundle, predictor, server and warm modules load lazily (PEP 562), as
-in the JAX package; the loadgen also runs as a file, with no package
+Every name loads lazily (PEP 562), so importing this package imports no
+torch; the loadgen, router and fleet also run as files, with no package
 import at all.
 """
 
 from __future__ import annotations
 
-from .batcher import (BatchError, BatcherClosed, BatcherSaturated,
-                      DynamicBatcher, bucket_sizes)
-from .client import ServeClient, ServeError
+from .._lazy import lazy_names
 
 _LAZY = {
+    # every name loads at first use, so ``python -m estorch_tpu_torch.serve
+    # route`` (the router and the fleet) starts without torch
+    "BatchError": "batcher",
+    "BatcherClosed": "batcher",
+    "BatcherSaturated": "batcher",
+    "DynamicBatcher": "batcher",
+    "bucket_sizes": "batcher",
+    "ServeClient": "client",
+    "ServeError": "client",
+    # the fleet's front door (stdlib, torch-free)
+    "Router": "router",
+    "CircuitBreaker": "router",
+    "Fleet": "fleet",
+    "FleetError": "fleet",
+    "load_fleet_config": "fleet",
     "Bundle": "bundle",
     "BundleError": "bundle",
     "export_bundle": "bundle",
@@ -38,22 +52,7 @@ _LAZY = {
     "install_warmth": "warm",
 }
 
-__all__ = [
-    "BatchError",
-    "BatcherClosed",
-    "BatcherSaturated",
-    "DynamicBatcher",
-    "bucket_sizes",
-    "ServeClient",
-    "ServeError",
-    *sorted(_LAZY),
-]
-
-
-def __getattr__(name: str):
-    mod = _LAZY.get(name)
-    if mod is None:
-        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-    import importlib
-
-    return getattr(importlib.import_module(f".{mod}", __name__), name)
+__all__ = sorted(_LAZY)
+_SUBMODULES = ("batcher", "bundle", "client", "fleet", "loadgen", "predictor", "router",
+               "server", "warm")
+__getattr__, __dir__ = lazy_names(__name__, globals(), _LAZY, _SUBMODULES)

@@ -3,8 +3,13 @@
 Counterpart of ``python -m estorch_tpu.serve``, with its flags, except
 that ``--cpu-devices`` (which pins XLA's CPU layout) becomes ``--device``:
 the server runs on ``cuda`` unless ``--device cpu`` is given, and a
-missing card is an error, never a silent fallback.  The fleet router
-(``serve route``) waits for ROADMAP.md port item 9c.
+missing card is an error, never a silent fallback.
+
+``serve route --fleet fleet.json`` runs the fleet instead: the front
+router (serve/router.py) and the supervisor of its replicas
+(serve/fleet.py); ``serve route --replicas name=host:port,...`` routes
+over replicas run elsewhere.  Both are stdlib-only and dispatch before
+any torch-importing module of this package loads.
 
 ``--supervised`` wraps the server in the watchdog
 (resilience/supervisor.py): heartbeat-staleness + exit-status restarts
@@ -24,7 +29,8 @@ import sys
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m estorch_tpu_torch.serve",
-        description="serve a policy bundle over HTTP")
+        description="serve a policy bundle over HTTP; `route --fleet "
+                    "fleet.json` runs the fleet's front router instead")
     p.add_argument("--bundle", required=True, metavar="DIR",
                    help="bundle directory written by export_bundle")
     p.add_argument("--host", default="127.0.0.1")
@@ -73,9 +79,11 @@ def main(argv=None) -> int:
     t0 = time.monotonic()  # startup_s covers the torch import + load
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] == "route":
-        print("serve: the fleet router is not ported yet (ROADMAP.md, port "
-              "queue item: 9c)", file=sys.stderr)
-        return 2
+        # the fleet's front door: router + optional fleet supervisor,
+        # dispatched before the bundle-serving machinery loads
+        from .router import main as route_main
+
+        return route_main(argv[1:])
     args = build_parser().parse_args(argv)
     args._t0_monotonic = t0
     # config validation BEFORE anything heavy (and before --supervised

@@ -330,6 +330,22 @@ class PolicyServer:
 
         return describe_device(self.device)
 
+    def memory_facts(self) -> dict | None:
+        """The card's memory as this process sees it (None on the CPU):
+        what torch's allocator holds for this process, and the whole
+        card's free and total bytes (``torch.cuda.mem_get_info``, which
+        counts every process's CUDA context)."""
+        if self.device.type != "cuda":
+            return None
+        import torch
+
+        free, total = torch.cuda.mem_get_info(self.device)
+        mib = 1 << 20
+        return {"allocated_mib": round(torch.cuda.memory_allocated(self.device) / mib, 3),
+                "reserved_mib": round(torch.cuda.memory_reserved(self.device) / mib, 3),
+                "card_free_mib": round(free / mib, 3),
+                "card_total_mib": round(total / mib, 3)}
+
     def cold_start(self) -> dict:
         """The replica's cold-start facts (docs/serving.md): how long to
         come up, how long to first answer, and the warm-bundle proof —
@@ -410,6 +426,13 @@ class _Httpd(ThreadingHTTPServer):
     # the in-flight tracking in PolicyServer.shutdown, not thread joins
     daemon_threads = True
     allow_reuse_address = True
+    # the listen backlog: a fleet's router opens a new connection for every
+    # request, so a batch's answers return a burst of connects at once.
+    # socketserver's default of 5 overflowed under it, and Linux drops an
+    # overflowing SYN, which the client resends a second later: 1 s stalls,
+    # and a health poll timing out on one took a live replica out of
+    # rotation (the JAX package's server keeps the default)
+    request_queue_size = 1024
 
 
 def _make_handler(server: PolicyServer):
@@ -632,6 +655,7 @@ def run_server(args) -> int:
         "buckets_excluded": list(server._engine.batcher.buckets_excluded),
         "dtype": server.dtype,
         "device": server.device_facts(),
+        "memory": server.memory_facts(),
         "cold_start": server.cold_start(),
     }
     print(json.dumps(ready), flush=True)
@@ -640,7 +664,17 @@ def run_server(args) -> int:
 
     server.start_background()
     beat_s = max(0.2, float(args.beat_interval))
+    # a fleet replica (serve/fleet.py names its pid in the environment)
+    # drains and exits once its supervisor is gone, as a reparented
+    # process: nothing else would ever stop it.  Only the supervisor's
+    # own child watches (a server under ``--supervised`` inside a fleet
+    # has another parent)
+    supervisor = os.environ.get("ESTORCH_FLEET_SUPERVISOR")
+    supervisor = int(supervisor) if supervisor == str(os.getppid()) else None
     while not stop.wait(beat_s):
+        if supervisor is not None and os.getppid() != supervisor:
+            print(json.dumps({"orphaned": True, "supervisor": supervisor}), flush=True)
+            break
         # periodic heartbeat so the staleness watchdog sees an IDLE
         # server as alive, not wedged (batcher phases beat under load)
         telemetry.note("serving")

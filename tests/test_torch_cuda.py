@@ -10,6 +10,9 @@ Tolerances: the kernels sum in another order than the plain versions'
 gather + matmul, in float32.
 """
 
+import json
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -966,6 +969,69 @@ def test_server_on_the_card_answers_as_es_predict(cuda, tmp_path):
         assert stats["cold_start"]["compiles_at_load"] == 0
     finally:
         srv.shutdown(drain=True)
+
+
+def test_fleet_replicas_on_the_card_answer_bit_equal(cuda, tmp_path):
+    """Two replica processes on the card (``serve.device`` defaults to
+    ``cuda``), each with its own CUDA context, behind the router: 16
+    distinct observations through the router and through each replica
+    alone answer with ES.predict's bits on the anchor batch."""
+    from estorch_tpu_torch.serve.fleet import Fleet
+    from estorch_tpu_torch.serve.loadgen import run_load
+
+    es = _serving_es(cuda)
+    fleet = Fleet({"schema": 1, "bundle": es.export_bundle(str(tmp_path / "b")),
+                   "replicas": 2, "serve": {"max_batch": 16}}, str(tmp_path / "run"), port=0)
+    fleet.start()
+    try:
+        assert fleet.wait_ready(300), fleet.status()
+        rng = np.random.default_rng(2)
+        anchor = rng.standard_normal((16, 3)).astype(np.float32)
+        ref = es.predict(anchor).cpu().numpy()
+        addrs = [f"{fleet.router.host}:{fleet.router.port}"] + [s.address for s in fleet.slots]
+        for addr in addrs:
+            res = run_load(addr, conns=4, total=16, duration_s=60.0,
+                           obs_list=[o.tolist() for o in anchor], collect_responses=True)
+            assert res["errors"] == 0 and res["shed"] == 0
+            got = np.asarray([r["action"] for r in res["responses"]], np.float32)
+            assert got.tobytes() == ref.tobytes(), addr
+        for slot in fleet.slots:
+            assert slot.cold_start["compiles_at_load"] == 0
+            with open(slot.log_path) as f:
+                ready = json.loads(f.readline())
+            assert ready["device"]["platform"] == "gpu" and ready["memory"]["reserved_mib"] > 0
+    finally:
+        final = fleet.shutdown()
+    assert final["clean"], final
+
+
+def test_fleet_start_fails_without_a_card(tmp_path):
+    """Where there is no card, a fleet whose replicas serve on ``cuda`` (the
+    default) fails its start with exit 2: each replica refuses once, none
+    is respawned, and none comes back on the CPU."""
+    import subprocess
+    import sys
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    from estorch_tpu_torch import ES, DeviceAgent, MLPPolicy, Pendulum, adam
+
+    es = ES(MLPPolicy, DeviceAgent(Pendulum(), horizon=10), adam, population_size=8,
+            policy_kwargs={"action_dim": 1, "hidden": (8,), "discrete": False},
+            optimizer_kwargs={"learning_rate": 1e-2}, table_size=1 << 12, seed=0,
+            device="cpu", telemetry=False)
+    cfg = tmp_path / "fleet.json"
+    cfg.write_text(json.dumps({"schema": 1, "bundle": es.export_bundle(str(tmp_path / "b")),
+                               "replicas": 2, "respawn": {"backoff_s": 0.1}}))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-m", "estorch_tpu_torch.serve", "route", "--fleet",
+                        str(cfg), "--port", "0", "--workdir", str(tmp_path / "run")],
+                       capture_output=True, text=True, timeout=180, cwd=repo)
+    assert r.returncode == 2, (r.stdout[-2000:], r.stderr[-2000:])
+    assert "refused to start (exit 2)" in r.stderr and "cuda" in r.stderr
+    for i in range(2):
+        log = (tmp_path / "run" / f"r{i}.log").read_text()
+        assert '"ready"' not in log and log.count("serve:") <= 1, log
 
 
 # --------------------------------------------------------------- scenarios

@@ -367,6 +367,9 @@ def test_import_loads_no_jax_and_no_reference_package():
         "import estorch_tpu_torch.serve.server, estorch_tpu_torch.serve.__main__\n"
         "import estorch_tpu_torch.serve.warm, estorch_tpu_torch.serve.client\n"
         "import estorch_tpu_torch.serve.loadgen, estorch_tpu_torch.scenarios\n"
+        "import estorch_tpu_torch.serve.fleet, estorch_tpu_torch.serve.router\n"
+        "import estorch_tpu_torch.obs.agg\n"
+        "from estorch_tpu_torch import *  # the package's lazy names load their modules\n"
         "bad = sorted(m for m in sys.modules if m.startswith(('jax', 'flax', 'optax', 'chex'))"
         " or m == 'estorch_tpu' or m.startswith('estorch_tpu.'))\n"
         "print(bad)\n"

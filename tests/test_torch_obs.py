@@ -440,8 +440,8 @@ def test_summarize_equals_jax_on_port_and_jax_runs(tmp_path):
 def test_cli_summarize(tmp_path):
     """``python -m estorch_tpu_torch.obs``: ``summarize --selfcheck``, a run
     with its heartbeat and manifest beside it (found without flags), the
-    JSON form, ``trace``, and the JAX package's fleet subcommands (item 9)
-    named as not ported."""
+    JSON form, ``trace``, and the fleet subcommands (``collect``'s usage
+    error, ``collect``/``autoscale``/``trace --selfcheck``)."""
     import subprocess
     import sys
 
@@ -471,4 +471,7 @@ def test_cli_summarize(tmp_path):
     out = cli("trace", str(root / "run.jsonl"))  # ported with item 6b
     assert out.returncode == 0 and os.path.exists(root / "trace.json")
     out = cli("collect")
-    assert out.returncode == 3 and "item 9" in out.stderr
+    assert out.returncode == 3 and "collect needs --targets and --store" in out.stderr
+    for cmd in ("collect", "autoscale", "trace"):
+        out = cli(cmd, "--selfcheck")
+        assert out.returncode == 0, (cmd, out.stdout[-500:], out.stderr[-2000:])

@@ -354,11 +354,16 @@ def test_trace_hist_serve_metrics_cli_exit_codes(tmp_path, capsys):
 
 
 def test_not_ported_names_only_item_9(capsys):
-    assert tcli.NOT_PORTED == {"collect": "9", "dash": "9", "slow": "9", "autoscale": "9"}
-    for cmd in tcli.NOT_PORTED:
-        assert tcli.main([cmd]) == 3
-        assert "item 9" in capsys.readouterr().err
-    assert tcli.main(["trace", "--fleet", "d"]) == 3
-    assert "item 9" in capsys.readouterr().err
-    for cmd in ("trace", "profile", "regress", "hist", "serve-metrics", "summarize"):
-        assert cmd not in tcli.NOT_PORTED
+    """Item 9's fleet subcommands, once refused as not ported, now run: each
+    answers ``--help`` or ``--selfcheck`` with exit 0, and the refusal list
+    is gone."""
+    assert not hasattr(tcli, "NOT_PORTED") and not hasattr(tcli, "_FLEET_TRACE_FLAGS")
+    for argv in (["collect", "--selfcheck"], ["autoscale", "--selfcheck"],
+                 ["trace", "--selfcheck"]):
+        assert tcli.main(argv) == 0, argv
+        assert "not ported" not in capsys.readouterr().err
+    for cmd in ("dash", "slow"):
+        with pytest.raises(SystemExit) as e:
+            tcli.main([cmd, "--help"])
+        assert e.value.code == 0
+        assert f"obs {cmd}" in capsys.readouterr().out

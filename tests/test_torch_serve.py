@@ -1004,11 +1004,12 @@ def test_supervised_cli_drains_on_sigterm(small_bundle, tmp_path):
 @pytest.mark.parametrize("argv,match", [
     (["--max-batch", "12"], "power of two"),
     (["--device", "cuda"], "cuda"),
-    (["route"], "9c"),
+    (["route"], "--fleet"),
 ])
 def test_cli_refuses_with_exit_2(small_bundle, argv, match):
     """Config errors are exit 2 with one line: a bad ladder, a card that is
-    not there (never a fallback to the CPU), the router of item 9c."""
+    not there (never a fallback to the CPU), ``route`` given neither
+    ``--fleet`` nor ``--replicas`` (the JAX package's text)."""
     if argv == ["--device", "cuda"] and torch.cuda.is_available():
         pytest.skip("a card is present")
     args = argv if argv == ["route"] else ["--bundle", small_bundle, *argv]
