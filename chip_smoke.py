@@ -204,14 +204,39 @@ Phases, in order; any failure exits non-zero before the last line:
    parity gate; (aq) ``POST /scale`` 2 -> 3 -> 2 under load, the added
    slot warm, zero errors through the drain; (as) req/s and p50/p99
    through 3 replicas and 1 behind the router, and 1 direct.  Neither
-   kernel launches in this process (the replicas are other processes).
+   kernel launches in this process (the replicas are other processes);
+18. data parallelism on one card (``run_data_parallel``): the main path's
+   cell at world 1 here (1 warm-up + 2 timed generations), then as 2 gloo
+   ranks on cuda:0 (``dp_rank_child``, ``multihost.initialize(...,
+   cpu_collectives=True)``, ``ES(..., mesh=global_population_mesh())``)
+   from the same seed: an nccl ``initialize`` of the same two ranks must
+   raise first; the ranks' params and histories bit-identical, within
+   1e-4 of world 1 (phase 4's float32 tolerance: Adam magnifies the
+   last-bit difference of the update's summation order), generation 0's
+   update norm within 1e-6 relative, each rank's launches exact (600 matvec and 1
+   reduction a generation), each rank's update partial against the plain
+   version; env-steps/s of world 2 against world 1, the gloo all-reduce's
+   time at the update's (4481 float32), the fitness's (4096 float32) and
+   the engine's packed gather's shapes, each rank's memory;
+19. elastic hosts on one card (``run_elastic``): an ``ElasticCoordinator``
+   here and 2 host processes through ``python -m
+   estorch_tpu_torch.parallel.elastic --join`` on the card, the cell's
+   configuration through ``es_from_spec`` (streamed + kernel update),
+   ``train_elastic(6)`` under a ``kill_host`` of host 1 at the first of
+   dispatches 3-8 it takes: the run completes, host 1 dies (SIGKILL) and
+   its dispatch is lost and replaced, the accounting closes, the
+   coordinator launches one reduction an update and host 0 600 matvec a
+   dispatch; updates/s before and after the kill, each host's spawn to its
+   readiness and to its first result; the log replayed on the card bit for
+   bit and on the CPU within 1e-6 of the largest entry.
 
 Then one JSON line of per-path numbers (with phase 13's under
 ``crash_safe``, phase 14's under ``attribution``, phase 15's under
-``serving``, phase 16's under ``scenarios`` and phase 17's under
-``fleet``), one of per-kernel numbers (launches from phase 3, and of the
-reduction in (j), (k), (m), phases 10-13, and of both kernels in phases
-16 and 17),
+``serving``, phase 16's under ``scenarios``, phase 17's under ``fleet``
+and phases 18 and 19 under ``data_parallel`` and ``elastic``), one of
+per-kernel numbers (launches from phase 3, and of the reduction in (j),
+(k), (m), phases 10-13, and of both kernels in phases 16-19: each rank's
+in phase 18, the coordinator's and host 0's in phase 19),
 the card line, and the last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -3972,6 +3997,366 @@ def run_fleet(torch, tt, nk, card: str, name: str, fleet_dir: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------
+# phase 18, data parallelism on one card: the cell as 2 gloo ranks on cuda:0
+# ---------------------------------------------------------------------
+
+DP_WORLD = 2
+DP_TIMED = 2  # generations after 1 warm-up
+# world 2 against world 1.  The ranks' float32 partials are summed where
+# world 1 rounds one float64 sum once: the update differs in the last bits.
+# Generation 0 starts from one state, so its update norm is held tight;
+# the params after 3 Adam steps are held at phase 4's float32 tolerance,
+# since Adam divides each coordinate's step by that coordinate's gradient
+# scale and so magnifies a rounding difference where the sum cancels
+# (ROADMAP F15)
+DP_TOL = 1e-4
+DP_GNORM_RTOL = 1e-6
+DP_REPS = 20  # all-reduces a shape, timed one by one
+
+
+def dp_rank_child(rank: int, world: int, rdv: str, out_dir: str) -> None:
+    """One rank of phase 18 (``python -c "import chip_smoke;
+    chip_smoke.dp_rank_child(...)"``), on cuda:0 beside the other rank.
+
+    First an nccl ``initialize`` of the same ranks on the same card, which
+    must raise; then the gloo group (``cpu_collectives=True``), the cell
+    with the group's mesh, 1 warm-up and ``DP_TIMED`` timed generations
+    with the kernels' launches counted around them; then, outside the
+    counts, this rank's update partial against the plain version, the
+    all-reduce's time at the update's, the fitness's and the engine's
+    gather's shapes, and the rank's memory.  Writes ``rank{r}.json`` and
+    ``rank{r}.npy`` (the params)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import estorch_tpu_torch.parallel.multihost as mh
+    from estorch_tpu_torch.ops import noise_kernels as nk
+
+    facts: dict = {"rank": rank}
+    t0 = time.perf_counter()
+    try:
+        mh.initialize(f"file://{rdv}.nccl", num_processes=world, process_id=rank,
+                      device="cuda:0", timeout_s=120)
+        facts["nccl"] = None  # initialized: the refusal failed
+        mh.shutdown()
+    except RuntimeError as e:
+        facts["nccl"] = str(e)
+    mh.initialize(f"file://{rdv}", num_processes=world, process_id=rank, device="cuda:0",
+                  cpu_collectives=True, timeout_s=300)
+    mesh = mh.global_population_mesh()
+    facts["mesh"] = repr(mesh)
+    facts["up_s"] = time.perf_counter() - t0
+    from estorch_tpu_torch import ES, DeviceAgent, MLPPolicy, Pendulum, adam
+
+    es = ES(MLPPolicy, DeviceAgent(Pendulum(), horizon=HORIZON), adam,
+            population_size=POPULATION, sigma=0.05, policy_kwargs=POLICY,
+            optimizer_kwargs={"learning_rate": 1e-2}, mesh=mesh, **STREAMED)
+    nk.reset_launch_counts()
+    es.train(1, verbose=False)
+    torch.cuda.synchronize()
+    dist.barrier()
+    t1 = time.perf_counter()
+    es.train(DP_TIMED, verbose=False)
+    torch.cuda.synchronize()
+    facts["timed_s"] = time.perf_counter() - t1
+    facts["launches"] = dict(nk.launch_counts)
+    facts["history"] = [{k: r[k] for k in ("reward_mean", "reward_max", "env_steps",
+                                           "grad_norm", "sigma")} for r in es.history]
+    np.save(os.path.join(out_dir, f"rank{rank}.npy"), es.state.params_flat.cpu().numpy())
+    # this rank's partial of the update (its pair rows of this generation),
+    # the kernel against its plain version
+    eng = es.engine
+    offs = eng._local_rows(eng.all_pair_offsets(es.state))
+    gen = torch.Generator().manual_seed(rank)
+    w = (torch.rand(offs.shape[0], generator=gen) * 2 - 1).to(es.device)
+    got = nk.weighted_noise_sum(es.table.data, offs, w, es.spec.dim)
+    want = nk.weighted_noise_sum_plain(es.table.data, offs, w, es.spec.dim)
+    facts["partial"] = {"rows": int(offs.shape[0]), "dim": int(es.spec.dim),
+                        "max_abs_err": float((got - want).abs().max()),
+                        "close": bool(torch.allclose(got, want, rtol=1e-4, atol=1e-3))}
+
+    def all_reduce_ms(t) -> float:
+        for _ in range(3):
+            dist.all_reduce(t)
+        times = []
+        for _ in range(DP_REPS):
+            torch.cuda.synchronize()
+            a = time.perf_counter()
+            dist.all_reduce(t)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - a) * 1e3)
+        return statistics.median(times)
+
+    dev = es.device
+    facts["all_reduce_ms"] = {
+        f"update ({es.spec.dim},) float32": all_reduce_ms(torch.zeros(es.spec.dim, device=dev)),
+        f"fitness ({POPULATION},) float32": all_reduce_ms(torch.zeros(POPULATION, device=dev)),
+        f"the engine's gather ({eng.members_padded}, {eng.bc_dim + 2}) float64": all_reduce_ms(
+            torch.zeros((eng.members_padded, eng.bc_dim + 2), dtype=torch.float64,
+                        device=dev)),
+    }
+    free, total = torch.cuda.mem_get_info()
+    facts["memory"] = {"max_allocated_mib": torch.cuda.max_memory_allocated() / 2**20,
+                       "reserved_mib": torch.cuda.memory_reserved() / 2**20,
+                       "card_used_mib": (total - free) / 2**20}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(facts, f)
+
+
+def run_data_parallel(torch, tt, nk, card: str) -> dict:
+    """Phase 18: the cell at world 1 in this process, then as ``DP_WORLD``
+    gloo ranks on cuda:0 (:func:`dp_rank_child`), from the same seed."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    es = streamed_cell()
+    es.train(1, verbose=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    es.train(DP_TIMED, verbose=False)
+    torch.cuda.synchronize()
+    w1_s = time.perf_counter() - t0
+    w1_steps = sum(r["env_steps"] for r in es.history[1:])
+    w1_params = es.state.params_flat.cpu().numpy()
+    w1_history = [r["reward_mean"] for r in es.history]
+    w1_gnorm = [r["grad_norm"] for r in es.history]
+    del es
+    torch.cuda.empty_cache()
+    print(f"world 1: {w1_steps / w1_s:.0f} env-steps/s over {DP_TIMED} generations "
+          f"({w1_s / DP_TIMED:.4f} s a generation) on {card}")
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    env = dict(os.environ)
+    env.pop("ESTORCH_CHAOS", None)
+    t_spawn = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke.dp_rank_child({r}, {DP_WORLD}, "
+         f"{os.path.join(work, 'rdv')!r}, {work!r})"],
+        cwd=HERE, env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        for r in range(DP_WORLD)]
+    try:
+        errs = [p.communicate(timeout=600)[1] for p in procs]
+    except subprocess.TimeoutExpired:
+        fail("phase 18: a rank did not finish in 600 s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, err) in enumerate(zip(procs, errs)):
+        if p.returncode != 0:
+            fail(f"phase 18: rank {r} exited {p.returncode}\n{err[-3000:]}")
+    ranks_s = time.perf_counter() - t_spawn
+    facts = []
+    for r in range(DP_WORLD):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            facts.append(json.load(f))
+    params = [np.load(os.path.join(work, f"rank{r}.npy")) for r in range(DP_WORLD)]
+    shutil.rmtree(work, ignore_errors=True)
+
+    for f in facts:
+        print(f"rank {f['rank']}: {f['mesh']}, up in {f['up_s']:.2f} s; launches "
+              f"{f['launches']}; partial ({f['partial']['rows']} rows, dim "
+              f"{f['partial']['dim']}) max |err| {f['partial']['max_abs_err']:.3g} against the "
+              "plain version (tol atol 1e-3, rtol 1e-4); memory "
+              + ", ".join(f"{k} {v:.1f}" for k, v in f["memory"].items()))
+        print("  gloo all-reduce (median of 20, host clock, synchronized): "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in f["all_reduce_ms"].items()))
+        nccl = f["nccl"]
+        if not nccl or "one card" not in nccl:
+            fail(f"phase 18: an nccl initialize of two ranks on one card did not refuse: {nccl}")
+        if not f["partial"]["close"]:
+            fail(f"phase 18: rank {f['rank']}'s partial disagrees with the plain version")
+        want = {"population_noise_matvec": 3 * HORIZON * (1 + DP_TIMED),
+                "weighted_noise_sum": 1 + DP_TIMED}
+        if f["launches"] != want:
+            fail(f"phase 18: rank {f['rank']} launched {f['launches']}, expected {want}")
+    print(f"nccl refused on both ranks: {facts[0]['nccl'][:120]}...")
+    if any(p.tobytes() != params[0].tobytes() for p in params[1:]) or any(
+            f["history"] != facts[0]["history"] for f in facts[1:]):
+        fail("phase 18: the ranks' params or histories differ")
+    dev = float(np.abs(params[0] - w1_params).max())
+    gnorm = [h["grad_norm"] for h in facts[0]["history"]]
+    g0 = abs(gnorm[0] - w1_gnorm[0]) / abs(w1_gnorm[0])
+    print(f"ranks bit-identical; world {DP_WORLD} against world 1: max |Δparam| {dev:.3g} "
+          f"(tol {DP_TOL:g}; largest |param| {float(np.abs(w1_params).max()):.3g}), "
+          f"generation 0's update norm {g0:.3g} relative (tol {DP_GNORM_RTOL:g}); update norms "
+          f"{gnorm} against {w1_gnorm}; reward means "
+          f"{[h['reward_mean'] for h in facts[0]['history']]} against {w1_history}")
+    if not dev <= DP_TOL:
+        fail(f"phase 18: world {DP_WORLD} is {dev:g} from world 1 (tol {DP_TOL:g})")
+    if not g0 <= DP_GNORM_RTOL:
+        fail(f"phase 18: generation 0's update norm is {g0:g} relative from world 1's")
+    w2_s = max(f["timed_s"] for f in facts)
+    w2_steps = sum(h["env_steps"] for h in facts[0]["history"][1:])
+    if w2_steps != w1_steps:
+        print(f"  (env steps differ: world 2 {w2_steps}, world 1 {w1_steps})")
+    ratio = (w2_steps / w2_s) / (w1_steps / w1_s)
+    print(f"world {DP_WORLD}: {w2_steps / w2_s:.0f} env-steps/s ({w2_s / DP_TIMED:.4f} s a "
+          f"generation, the slower rank), {ratio:.3f}x world 1, on one card {card}; the ranks' "
+          f"processes {ranks_s:.1f} s from spawn to exit")
+    return {"world": DP_WORLD, "backend": "gloo (cpu_collectives=True)",
+            "world1_env_steps_per_s": w1_steps / w1_s,
+            "world2_env_steps_per_s": w2_steps / w2_s, "ratio": ratio,
+            "max_abs_param_diff_vs_world1": dev, "gen0_grad_norm_rel_diff": g0,
+            "ranks": facts, "ranks_wall_s": ranks_s,
+            "launches": {f"rank {f['rank']}": f["launches"] for f in facts}}
+
+
+# ---------------------------------------------------------------------
+# phase 19, elastic hosts on one card: a coordinator here, 2 host processes
+# ---------------------------------------------------------------------
+
+ELASTIC_UPDATES = 6
+ELASTIC_SPEC = {"env": "Pendulum", "population_size": POPULATION, "horizon": HORIZON,
+                "seed": 0, "sigma": 0.05, "lr": 1e-2, "table_size": TABLE_SIZE,
+                "policy_kwargs": {**POLICY, "hidden": list(POLICY["hidden"])},
+                "telemetry": True, **STREAMED}
+# host 1 dies at whichever of dispatches 3..8 it takes first (the
+# coordinator's routing decides which host takes dispatch 3)
+ELASTIC_KILL = [{"kind": "kill_host", "gen": g, "host": 1} for g in range(3, 9)]
+ELASTIC_CPU_TOL = 1e-6  # phase 4's fold tolerance, of the largest entry
+
+
+def run_elastic(torch, tt, nk, card: str) -> dict:
+    """Phase 19: an ``ElasticCoordinator`` in this process and 2 host
+    processes through the ``--join`` CLI on the card, ``train_elastic``
+    under a ``kill_host`` plan, then the event log replayed on the card and
+    on the CPU."""
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from estorch_tpu_torch.parallel.elastic import ElasticCoordinator, es_from_spec
+    from estorch_tpu_torch.resilience.chaos import ChaosPlan
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    spec_path = os.path.join(work, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(ELASTIC_SPEC, f)
+    coord = ElasticCoordinator(join_grace_s=180.0)
+    es = es_from_spec(ELASTIC_SPEC)
+    if es.device.type != "cuda":
+        fail(f"phase 19: the coordinator's ES runs on {es.device}")
+    env = dict(os.environ, ESTORCH_CHAOS=ChaosPlan(ELASTIC_KILL).to_json())
+    addr = f"{coord.address[0]}:{coord.address[1]}"
+    hosts = []
+    for i in range(2):
+        t_spawn = time.time()
+        with open(os.path.join(work, f"host{i}.err"), "w") as err:
+            p = subprocess.Popen([sys.executable, "-m", "estorch_tpu_torch.parallel.elastic",
+                                  "--join", addr, "--spec", spec_path, "--host", str(i)],
+                                 cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=err,
+                                 text=True, start_new_session=True)
+        lines: list = []
+
+        def read(p=p, lines=lines):
+            for line in p.stdout:
+                if line.startswith("{"):
+                    lines.append((time.time(), json.loads(line)))
+
+        threading.Thread(target=read, daemon=True).start()
+        hosts.append({"proc": p, "spawn": t_spawn, "lines": lines})
+    try:
+        deadline = time.time() + 180
+        while not all(any(m.get("event") == "ready" for _, m in h["lines"]) for h in hosts):
+            if time.time() > deadline or any(h["proc"].poll() is not None for h in hosts):
+                errs = [open(os.path.join(work, f"host{i}.err")).read()[-2000:]
+                        for i in range(2)]
+                fail(f"phase 19: the hosts did not get ready: {errs}")
+            time.sleep(0.1)
+        for i, h in enumerate(hosts):
+            t, m = next((t, m) for t, m in h["lines"] if m.get("event") == "ready")
+            h["ready_s"] = t - h["spawn"]
+            print(f"host {i}: ready {h['ready_s']:.2f} s after its spawn ({m})")
+        marks: list[float] = []
+        nk.reset_launch_counts()
+        t0 = time.time()
+        es.train_elastic(ELASTIC_UPDATES, fleet=coord, verbose=False,
+                         log_fn=lambda r: marks.append(time.time()))
+        t1 = time.time()
+        launches = dict(nk.launch_counts)
+    finally:
+        coord.close()
+        for h in hosts:
+            try:
+                h["proc"].wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                _stop_group(h["proc"], grace_s=5.0)
+    rcs = [h["proc"].returncode for h in hosts]
+    errs = [open(os.path.join(work, f"host{i}.err")).read()[-2000:] for i in range(2)]
+    shutil.rmtree(work, ignore_errors=True)
+    log = es.async_event_log
+    n = es.population_size
+    consumed = sum(len(u["consumed"]) for u in log.updates)
+    acct = {"dispatched": len(log.dispatches) * n, "consumed": consumed,
+            "discarded": len(log.discarded), "lost": len(log.lost)}
+    print(f"run: {len(log.updates)} updates in {t1 - t0:.2f} s, dispatches "
+          f"{[d[0] for d in log.dispatches]}, membership {log.membership}, accounting {acct}, "
+          f"hosts' exit codes {rcs}")
+    if len(log.updates) != ELASTIC_UPDATES:
+        fail(f"phase 19: {len(log.updates)} updates, expected {ELASTIC_UPDATES}")
+    if acct["dispatched"] != consumed + acct["discarded"] + acct["lost"]:
+        fail(f"phase 19: the accounting does not close: {acct}")
+    leaves = [m["host"] for m in log.membership if m["event"] == "leave"]
+    if rcs[1] != -9 or leaves[:1] != [1] or not acct["lost"]:
+        fail(f"phase 19: host 1 was not killed mid-run (exit {rcs[1]}, leaves {leaves}, "
+             f"lost {acct['lost']}): {errs[1]}")
+    if rcs[0] != 0:
+        fail(f"phase 19: host 0 exited {rcs[0]}: {errs[0]}")
+    final = [m for _, m in hosts[0]["lines"] if "dispatches_done" in m][-1]
+    events = es.obs.recorder.events()
+    t_leave = next(e["ts"] for e in events if e["name"] == "host_leave")
+    first = {}
+    for e in events:
+        if e["name"] == "elastic_result" and e["host"] not in first:
+            first[e["host"]] = e["ts"] - hosts[e["host"]]["spawn"]
+    before = sum(1 for m in marks if m <= t_leave)
+    after = len(marks) - before
+    ups_before = before / (t_leave - t0) if t_leave > t0 else float("nan")
+    last_before = max([m for m in marks if m <= t_leave], default=t0)
+    ups_after = after / (t1 - last_before) if after else float("nan")
+    print(f"updates/s: {ups_before:.3f} before host 1's death ({before} updates), "
+          f"{ups_after:.3f} after it ({after}); a host's spawn to its first result: "
+          + ", ".join(f"host {h} {s:.2f} s" for h, s in sorted(first.items())))
+    want_coord = {"population_noise_matvec": 0, "weighted_noise_sum": len(log.updates)}
+    if launches != want_coord:
+        fail(f"phase 19: the coordinator launched {launches}, expected {want_coord}")
+    host_want = {"population_noise_matvec": 3 * HORIZON * (final["dispatches_done"] + 1),
+                 "weighted_noise_sum": 0}
+    if final["launches"] != host_want:
+        fail(f"phase 19: host 0 launched {final['launches']}, expected {host_want} "
+             f"({final['dispatches_done']} dispatches and its warm-up)")
+    print(f"launches: coordinator {launches}, host 0 {final['launches']} over "
+          f"{final['dispatches_done']} dispatches + 1 warm-up")
+    live = es.state.params_flat.cpu().numpy()
+    t2 = time.perf_counter()
+    rep = es_from_spec(ELASTIC_SPEC)
+    rep.train_elastic(ELASTIC_UPDATES, replay=log, verbose=False)
+    if rep.state.params_flat.cpu().numpy().tobytes() != live.tobytes():
+        fail("phase 19: the card's replay differs from the live run")
+    del rep
+    cpu = es_from_spec(dict(ELASTIC_SPEC, device="cpu"))
+    cpu.train_elastic(ELASTIC_UPDATES, replay=log, verbose=False)
+    rel = float(np.abs(cpu.state.params_flat.numpy() - live).max() / np.abs(live).max())
+    print(f"replay: on the card bit-identical; on the CPU {rel:.3g} of the largest entry (tol "
+          f"{ELASTIC_CPU_TOL:g}); both replays {time.perf_counter() - t2:.1f} s")
+    if not rel <= ELASTIC_CPU_TOL:
+        fail(f"phase 19: the CPU replay is {rel:g} of the largest entry from the card's run")
+    return {"updates": len(log.updates), "run_s": t1 - t0, "accounting": acct,
+            "membership": log.membership, "hosts_exit": rcs,
+            "ready_s": [h["ready_s"] for h in hosts],
+            "first_result_s": {str(k): v for k, v in first.items()},
+            "updates_per_s_before_kill": ups_before, "updates_per_s_after_kill": ups_after,
+            "cpu_replay_rel": rel, "launches": launches, "host0": final}
+
+
 def main() -> None:
     import torch
 
@@ -4320,6 +4705,14 @@ def main() -> None:
     finally:
         shutil.rmtree(fleet_dir, ignore_errors=True)
 
+    # ---- 18. data parallelism on one card --------------------------------------
+    phase("18. data parallelism")
+    data_parallel = run_data_parallel(torch, estorch_tpu_torch, nk, card)
+
+    # ---- 19. elastic hosts on one card ------------------------------------------
+    phase("19. elastic hosts")
+    elastic = run_elastic(torch, estorch_tpu_torch, nk, card)
+
     # ---- report --------------------------------------------------------------
     phase("report")
     kernels = [
@@ -4342,7 +4735,11 @@ def main() -> None:
          "launches_serving": serving["serving_launches"].get("weighted_noise_sum", 0),
          "launches_scenarios": {k: scenarios[k]["launches"]["weighted_noise_sum"]
                                 for k in ("ak", "al", "am")},
-         "launches_fleet": fleet["launches"].get("weighted_noise_sum", 0)},
+         "launches_fleet": fleet["launches"].get("weighted_noise_sum", 0),
+         "launches_multigpu": {k: v["weighted_noise_sum"]
+                               for k, v in data_parallel["launches"].items()},
+         "launches_elastic": elastic["launches"]["weighted_noise_sum"],
+         "launches_elastic_hosts": {"host 0": elastic["host0"]["launches"]["weighted_noise_sum"]}},
         {"name": "population_noise_matvec", "route": "cuda",
          "source": "estorch_tpu_torch/ops/csrc/noise_kernels.cu",
          "replaces": "estorch_tpu/ops/pallas_noise.py:201",
@@ -4360,12 +4757,18 @@ def main() -> None:
          "launches_serving": serving["serving_launches"].get("population_noise_matvec", 0),
          "launches_scenarios": {k: scenarios[k]["launches"]["population_noise_matvec"]
                                 for k in ("ak", "al", "am")},
-         "launches_fleet": fleet["launches"].get("population_noise_matvec", 0)},
+         "launches_fleet": fleet["launches"].get("population_noise_matvec", 0),
+         "launches_multigpu": {k: v["population_noise_matvec"]
+                               for k, v in data_parallel["launches"].items()},
+         "launches_elastic": elastic["launches"]["population_noise_matvec"],
+         "launches_elastic_hosts": {
+             "host 0": elastic["host0"]["launches"]["population_noise_matvec"]}},
     ]
     print(json.dumps({"paths": paths, "eval_chunk": chunking, "card_vs_cpu_envs": env_cmp,
                       "async": async_paths, "crash_safe": crash_safe,
                       "attribution": attribution, "serving": serving,
-                      "scenarios": scenarios, "fleet": fleet}))
+                      "scenarios": scenarios, "fleet": fleet,
+                      "data_parallel": data_parallel, "elastic": elastic}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -40,9 +40,16 @@ VBN on the device path freezes its statistics from
 ``scenarios.ScenarioDistribution``) wraps the device env in a
 ``ScenarioEnv``: every episode runs under a drawn variant of the physics,
 and every record carries the per-variant fitness block ``scenarios``
-(``_attach_scenarios``, shared with the overlap scheduler).  The options
-not ported yet (``mesh``/``shard_params`` and the sharding options) raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item.  The novelty
+(``_attach_scenarios``, shared with the overlap scheduler).  ``mesh`` (a
+``parallel.mesh.PopulationMesh``, e.g. ``multihost.global_population_mesh()``
+in each of N processes) makes the device and pooled backends one rank of a
+data-parallel group: each rank evaluates its block of the population and
+the ranks sum the update (``parallel/engine.py``); every rank ends each
+generation with the same bits.  The JAX package's ``device=None`` spans
+every local chip; here one process drives one device (ROADMAP F21), and a
+multi-card run is one process a card.  The options not ported yet
+(``shard_params`` and the sharding options) raise ``NotImplementedError``
+naming their ``ROADMAP.md`` item.  The novelty
 family (``algo/nses.py``) and IW-ES (``algo/iwes.py``) subclass ``ES`` and
 share its record plumbing (``_base_record``, ``_emit_record``,
 ``_format_record``).  ``device`` is ``"cuda"`` unless
@@ -70,7 +77,8 @@ throw-away generation to imitate the JAX package's AOT step.
 ``compile_time_s`` sums them (0.0 where this ES loaded neither).  ``train_async`` runs barrier-free
 generations (``algo/scheduler.py``): the fold scheduler on the host
 backend, the overlap scheduler elsewhere, and the replay of a fold run's
-event log (``async_event_log``).
+event log (``async_event_log``); ``train_elastic`` folds whole-population
+dispatches from elastic remote hosts (``parallel/elastic.py``).
 """
 
 from __future__ import annotations
@@ -98,7 +106,7 @@ from ..parallel.pooled import PooledEngine
 from ..utils.backend import resolve_device
 
 _ROADMAP = "ROADMAP.md, port queue"
-_MULTI_GPU = "7, multi-GPU"
+_PARAM_SHARDED = "7c, the param-sharded engine"
 
 # options that only the device and pooled backends have: (keyword, its
 # default, the JAX package's ValueError for a host agent)
@@ -186,7 +194,7 @@ class ES:
         self.obs.note("init")
         if model_shards is not None or partition_rules is not None or noise_mode != "auto":
             _unsupported("model_shards / partition_rules / noise_mode (the param-sharded "
-                         "engine)", _MULTI_GPU)
+                         "engine)", _PARAM_SHARDED)
         if compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(
                 f"compute_dtype must be float32 or bfloat16, got {compute_dtype!r}")
@@ -229,8 +237,11 @@ class ES:
                 if given[option] != default:
                     raise ValueError(message)
             if mesh is not None:
-                _unsupported("mesh", _MULTI_GPU)
+                raise ValueError(
+                    "mesh is a device/pooled-path option: the host backend's workers "
+                    "(n_proc) parallelize its rollouts, and its update runs in this process")
             self.backend = "host"
+            self.mesh = None
             self._init_host(policy, dict(policy_kwargs or {}), agent, dict(agent_kwargs or {}),
                             optimizer, dict(optimizer_kwargs or {}), table_size, device,
                             weight_decay, worker_mode, sigma_decay, sigma_min, mirrored)
@@ -259,8 +270,19 @@ class ES:
         elif not hasattr(self.agent, "env"):
             raise TypeError("agent must be a DeviceAgent wrapping a batched device env or a "
                             "PooledAgent naming a pool env")
-        if shard_params or mesh is not None:
-            _unsupported("shard_params / mesh", _MULTI_GPU)
+        if shard_params:
+            _unsupported("shard_params", _PARAM_SHARDED)
+        if mesh is not None:
+            from ..parallel.mesh import PopulationMesh
+
+            if not isinstance(mesh, PopulationMesh):
+                raise TypeError(
+                    "mesh must be a PopulationMesh (estorch_tpu_torch.parallel: "
+                    "multihost.global_population_mesh() or population_mesh()), "
+                    f"got {mesh!r}")
+            if device is not None and resolve_device(device) != mesh.device:
+                raise ValueError(f"device={device!r} but this rank's mesh device is "
+                                 f"{mesh.device}")
         policy_kwargs = dict(policy_kwargs or {})
         if pooled and (getattr(policy, "learned_carry", False)
                        or policy_kwargs.get("learned_carry")):
@@ -269,7 +291,7 @@ class ES:
                 "episode carries before member params exist (parallel/pooled.py), so a "
                 "params-dependent episode-start carry has no pooled form yet")
 
-        self.device = resolve_device(device)
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.backend = "pooled" if pooled else "device"
         self.module = _instantiate(policy, policy_kwargs, "policy")
         self._recurrent = bool(getattr(self.module, "is_recurrent", False))
@@ -346,9 +368,10 @@ class ES:
                 a.env_name, self.module, self.spec, self.table, self.optimizer, self.config,
                 self.device, n_threads=a.n_threads, seed=self.seed,
                 double_buffer=a.double_buffer, prep=a.prep, env_kwargs=a.env_kwargs,
-                bc_indices=a.bc_indices, carry_init=carry_init)
+                bc_indices=a.bc_indices, carry_init=carry_init, mesh=mesh)
         else:
-            self.engine = self._device_engine(params, streamed, low_rank, carry_init)
+            self.engine = self._device_engine(params, streamed, low_rank, carry_init, mesh)
+        self.mesh = self.engine.mesh
         self.engine.telemetry = self.obs
         self.state = self.engine.init_state(flat, self.seed)
         self._post_engine_init()
@@ -399,15 +422,17 @@ class ES:
                 episodes, low_rank, mirrored = cfg.episodes_per_member, cfg.low_rank, cfg.mirrored
             if not shapes:
                 return None
+            mesh = getattr(self, "mesh", None)
             return generation_cost(
                 population=self.population_size, matmul_shapes=shapes, param_dim=param_dim,
                 horizon=horizon, episodes_per_member=episodes, mirrored=mirrored,
-                low_rank=low_rank, dtype_bytes=dtype_bytes, noise="table")
+                low_rank=low_rank, dtype_bytes=dtype_bytes, noise="table",
+                n_devices=mesh.devices.size if mesh is not None else 1)
         except Exception:  # noqa: BLE001 — diagnostic, never a failed construction
             return None
 
     def _device_engine(self, params: dict, streamed: bool, low_rank: int,
-                       carry_init) -> ESEngine:
+                       carry_init, mesh) -> ESEngine:
         module = self.module
         streamed_apply = None
         if streamed:
@@ -425,7 +450,7 @@ class ES:
             lr_spec = make(params, int(low_rank))
         return ESEngine(self.env, module, self.spec, self.table, self.optimizer, self.config,
                         self.device, streamed_apply=streamed_apply, lowrank_spec=lr_spec,
-                        carry_init=carry_init)
+                        carry_init=carry_init, mesh=mesh)
 
     # ----------------------------------------------------------- host backend
 
@@ -697,9 +722,38 @@ class ES:
             return sched.replay(replay, log_fn=log_fn, verbose=verbose, n_steps=n_steps)
         return sched.run(n_steps, log_fn=log_fn, verbose=verbose)
 
+    def train_elastic(self, n_steps: int, fleet=None,
+                      log_fn: Callable[[dict], None] | None = None, verbose: bool = True,
+                      max_consecutive_rejections: int = 3, max_stale: int = 16,
+                      iw_clip: float = 2.0, replay=None) -> "ES":
+        """Elastic multi-host generations (``parallel/elastic.py``): remote
+        hosts evaluate whole-population dispatches as async sources, this
+        process folds their fitness with clipped importance weights and
+        sends only the ``dim``-float center back after each update.  A slow
+        host costs throughput; a dead host costs ``results_lost``, replaced
+        by more dispatches, never the run.
+
+        ``fleet`` is an ``ElasticCoordinator`` that hosts have joined or
+        will join (membership may change mid-run).  ``replay`` re-drives a
+        recorded ``AsyncEventLog`` as pure math, with no fleet:
+        bit-identical params.  The live run's log is left on
+        :attr:`async_event_log`."""
+        from .scheduler import ElasticScheduler
+
+        if fleet is None and replay is None:
+            raise ValueError(
+                "train_elastic needs a fleet (ElasticCoordinator) to run live, or replay= to "
+                "re-drive a recorded log")
+        sched = ElasticScheduler(self, fleet, max_stale=max_stale, iw_clip=iw_clip,
+                                 max_consecutive_rejections=max_consecutive_rejections)
+        if replay is not None:
+            return sched.replay(replay, log_fn=log_fn, verbose=verbose, n_steps=n_steps)
+        return sched.run(n_steps, log_fn=log_fn, verbose=verbose)
+
     @property
     def async_event_log(self):
-        """The last fold-mode ``train_async`` run's event log (None before one)."""
+        """The last fold-mode ``train_async`` or ``train_elastic`` run's event
+        log (None before one)."""
         return getattr(self, "_async_log", None)
 
     def _track_best(self, prev_state, fitness: np.ndarray) -> tuple[float, bool]:
@@ -797,9 +851,16 @@ class ES:
             # the spec and its draw seed are the scenarios: the manifest
             # names exactly what this run trained under
             config["scenarios"] = self._scenarios.spec_json()
+        mesh = getattr(self, "mesh", None)
+        if mesh is not None and mesh.devices.size > 1:
+            # this process lists its own device (process_index = its rank);
+            # the mesh's size says how many ranks the run spans
+            config["mesh_axes"] = mesh.shape
         return collect_manifest(config=config, devices=[self.device], extra=extra)
 
-    def write_manifest(self, path: str, extra: dict | None = None) -> str:
+    def write_manifest(self, path: str, extra: dict | None = None) -> str | None:
+        """Write :meth:`run_manifest` atomically; under a mesh only rank 0
+        writes (the others get None)."""
         from ..obs.manifest import write_manifest
 
         return write_manifest(path, self.run_manifest(extra))

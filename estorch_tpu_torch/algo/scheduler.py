@@ -54,8 +54,18 @@ The ``async/dispatch`` and ``async/fold`` spans, the ``overlap_efficiency``
 and ``stale_reuse_ratio`` gauges, the ``results_folded`` /
 ``stale_discarded`` / ``results_lost`` / ``speculative_discarded``
 counters and each fold record's ``async`` block land on the run's hub.
-The elastic scheduler (``_HostSource``, ``ElasticScheduler``) waits for
-ROADMAP.md port item 7.
+**elastic** (device backend, ``ES.train_elastic``): the same fold at host
+granularity.  Each dispatch is a whole population evaluated by one remote
+host of an ``ElasticCoordinator`` fleet (``parallel/elastic.py``), about one
+population in flight a live host; the coordinator's update is this fold on
+its device engine (the ε part one ``weighted_noise_sum`` launch, the stale
+statistics in float64), and only the ``dim``-float center goes back to the
+hosts after it.  A dead host's dispatches are counted lost and replaced;
+joins and leaves land on the event log's ``membership``.  The JAX package
+routes this update through its engine's ``apply_weights`` and
+``apply_weights_reuse`` programs with float32 statistics; the two
+packages' elastic runs agree to the fold's stated tolerance, each replays
+its own log bit for bit, and a log crosses between them as JSON.
 """
 
 from __future__ import annotations
@@ -183,6 +193,9 @@ class _ThreadSource:
         for t in self._threads:
             t.start()
 
+    def notify_update(self, version: int, state) -> None:
+        pass  # the workers read each snapshot from its Source
+
     def dispatch(self, source: Source) -> list[int]:
         """Queue every member of ``source``; returns the member list."""
         members = list(range(self.engine.population_size))
@@ -238,6 +251,9 @@ class _ProcessSource:
         # seq -> (dispatch, member indices, worker), for loss accounting
         self._outstanding: dict[int, tuple[int, list[int], int]] = {}
         self._lost_now: list[tuple[int, int]] = []
+
+    def notify_update(self, version: int, state) -> None:
+        pass  # each dispatch carries its snapshot
 
     def dispatch(self, source: Source) -> list[int]:
         # a respawn closes dead workers' pipes and would orphan their
@@ -327,10 +343,7 @@ class GenerationScheduler:
 
     def __init__(self, es, max_stale: int = 16, iw_clip: float = 2.0,
                  max_consecutive_rejections: int = 3):
-        if es.backend != "host":
-            raise ValueError(
-                "GenerationScheduler folds partial host results; device/pooled backends "
-                f"use the overlap scheduler (got backend={es.backend!r})")
+        self._check_es(es)
         if max_stale < 1:
             raise ValueError(f"max_stale must be >= 1, got {max_stale}")
         if iw_clip < 1.0:
@@ -356,6 +369,35 @@ class GenerationScheduler:
         self._discards_since_update: dict[int, int] = {}
         self._staleness_counts: dict[int, int] = {}  # exact, bounded by max_stale + 1 keys
 
+    # ------------------------------------------------------ backend hooks
+    # (the elastic scheduler overrides these; pacing, staleness, the fold's
+    # math, accounting and replay are shared)
+
+    def _check_es(self, es) -> None:
+        if es.backend != "host":
+            raise ValueError(
+                "GenerationScheduler folds partial host results; device/pooled backends "
+                f"use the overlap scheduler (got backend={es.backend!r})")
+
+    def _sigma_of(self, st) -> float:
+        return self.engine._state_sigma(st)
+
+    def _offsets_for(self, st, dispatch: int) -> np.ndarray:
+        return self.engine._pair_offsets(st._replace(generation=dispatch))
+
+    def _layout(self) -> tuple[torch.Tensor, int, bool]:
+        """(table data, dim, mirrored) of the engine the fold runs on."""
+        eng = self.engine
+        return eng.table, eng.dim, eng.mirrored
+
+    def _apply_grad(self, st, grad: torch.Tensor, version: int):
+        return self.engine.apply_grad(st, grad)
+
+    def _inflight_budget(self, src_pool) -> int:
+        """Members to keep in flight: one population (a dispatch adds one,
+        so about two stay out)."""
+        return self.n
+
     # ------------------------------------------------------------ sources
 
     def _snapshot(self, dispatch: int, version: int) -> Source:
@@ -364,8 +406,7 @@ class GenerationScheduler:
         dispatch d and generation d draw the same noise."""
         st = self.es.state
         src = Source(dispatch=dispatch, version=version, params=st.params_flat,
-                     sigma=self.engine._state_sigma(st),
-                     offsets=self.engine._pair_offsets(st._replace(generation=dispatch)),
+                     sigma=self._sigma_of(st), offsets=self._offsets_for(st, dispatch),
                      t_dispatch=time.perf_counter())
         self._sources[dispatch] = src
         self.log.dispatches.append([dispatch, version])
@@ -394,6 +435,7 @@ class GenerationScheduler:
         order, so the sums depend on the batch's membership, not on the
         order results arrived in."""
         eng = self.engine
+        table, dim, mirrored = self._layout()
         st = self.es.state
         batch = sorted(batch, key=lambda a: (a.dispatch, a.member))
         fit = np.asarray([a.fitness for a in batch], np.float32)
@@ -403,9 +445,8 @@ class GenerationScheduler:
         if n_valid < 2:
             return None, None, fit, {"n_valid": n_valid}
         w = rank_weights_with_failures(fit)
-        sigma_u = eng._state_sigma(st)
+        sigma_u = self._sigma_of(st)
         center = st.params_flat
-        dim = eng.dim
 
         by_dispatch: dict[int, list[int]] = {}
         for j, a in enumerate(batch):
@@ -424,7 +465,7 @@ class GenerationScheduler:
                 offs = np.empty(k, np.int64)
                 for kk, j in enumerate(idx):
                     signs[kk], offs[kk] = member_sign_offset(src.offsets, batch[j].member,
-                                                             eng.mirrored)
+                                                             mirrored)
                 if src.version == version:
                     lam, c = np.ones(k, np.float32), 1.0
                     n_fresh += k
@@ -437,7 +478,7 @@ class GenerationScheduler:
                     # of size ‖d‖², and a float32 dot's rounding (which
                     # differs between the card's and the CPU's summation
                     # order) would move λ, and the update, by far more
-                    eps = gather_rows(eng.table, torch.from_numpy(offs).to(eng.device),
+                    eps = gather_rows(table, torch.from_numpy(offs).to(eng.device),
                                       dim).double()
                     d64 = d_vec.double()
                     stats = torch.stack([eps @ d64, (eps * eps).sum(dim=1)]).cpu().numpy()
@@ -451,14 +492,14 @@ class GenerationScheduler:
                     d_terms.append((float(coeff.sum()), d_vec))
             # the ε part of every member in one reduction launch
             grad = weighted_noise_sum(
-                eng.table, torch.from_numpy(np.concatenate(row_offs).astype(np.int32)).to(
+                table, torch.from_numpy(np.concatenate(row_offs).astype(np.int32)).to(
                     eng.device),
                 torch.from_numpy(np.concatenate(row_w)).to(eng.device), dim)
             for csum, d_vec in d_terms:
                 grad = grad + csum * d_vec
         grad = grad / (len(batch) * sigma_u)
         with self.obs.phase("update"):
-            new_state, gnorm = eng.apply_grad(st, grad)
+            new_state, gnorm = self._apply_grad(st, grad, version)
         stats = {
             "n_valid": n_valid,
             "fresh": n_fresh,
@@ -525,7 +566,7 @@ class GenerationScheduler:
                     obs.hists.observe("async/fold_latency_s", t_now - src.t_dispatch)
 
         steps = int(sum(a.steps for a in batch))
-        sigma = self.engine._state_sigma(es.state)
+        sigma = self._sigma_of(es.state)
         es.state = new_state
         # the log entry rides on the state transition: together they are
         # "this batch was consumed"
@@ -640,7 +681,7 @@ class GenerationScheduler:
                 # fewer results in the pipeline than the remaining updates
                 # need (results lost to dead workers are re-dispatched)
                 remaining = (n_steps - updates_done) * self.n - len(arrived)
-                while len(inflight) < min(self.n, remaining):
+                while len(inflight) < min(self._inflight_budget(src_pool), remaining):
                     with obs.trace_ctx(f"d{base + dispatched}"), obs.phase("async"):
                         with obs.phase("dispatch"):
                             src = self._snapshot(base + dispatched, version)
@@ -703,6 +744,8 @@ class GenerationScheduler:
                         t_update = time.perf_counter()
                         version += 1
                         updates_done += 1
+                        # an elastic fleet gets the new center here
+                        src_pool.notify_update(version, es.state)
                         self._prune_sources(version, {d for d, _ in inflight}
                                             | {a.dispatch for a in arrived})
                     else:  # rejected: the same batch again, a deterministic re-run
@@ -771,6 +814,179 @@ class GenerationScheduler:
             self._prune_sources(version)
         es._async_log = self.log
         return es
+
+
+# ---------------------------------------------------------------------
+# the elastic host-granular scheduler (parallel/elastic.py fleets)
+# ---------------------------------------------------------------------
+
+
+class _HostSource:
+    """Host-granular source: each dispatch is a whole population evaluated
+    by one remote host of an elastic fleet, its results arrive together,
+    and a dead host's dispatches come back as lost.  The fleet
+    (``ElasticCoordinator``) owns the sockets and the membership table;
+    this adapter turns results into arrivals and keeps the event log's
+    ``membership``, the per-host latency distributions and the counters."""
+
+    def __init__(self, scheduler: "ElasticScheduler", fleet, events: "queue.Queue"):
+        self.sched = scheduler
+        self.fleet = fleet
+        self.events = events
+        self.n = scheduler.n
+        self.obs = scheduler.obs
+        self._fold_p99: dict[int, float] = {}
+        self._lost_now: list[tuple[int, int]] = []
+
+    def dispatch(self, source: Source) -> list[int]:
+        host = self.fleet.dispatch(source.dispatch, source.version)
+        if host is None:
+            # the grace passed with no live host: the population is lost up
+            # front (it is on the log already), and the empty member list
+            # feeds the dry-out guard
+            self.obs.counters.inc("results_lost", self.n)
+            self.obs.event("results_lost", dispatch=int(source.dispatch), host=None, n=self.n)
+            self._lost_now.extend((int(source.dispatch), i) for i in range(self.n))
+            return []
+        self.obs.event("elastic_dispatch", trace=f"d{source.dispatch}",
+                       dispatch=int(source.dispatch), host=int(host))
+        return list(range(self.n))
+
+    def _note_membership(self, events: list[dict]) -> None:
+        for m in events:
+            self.sched.log.membership.append(
+                dict(m, at_dispatch=len(self.sched.log.dispatches)))
+            if m["event"] == "join":
+                self.obs.counters.inc("hosts_joined")
+            else:
+                self.obs.counters.inc("hosts_lost")
+                # a dead straggler's history must not pin the worst-host rollup
+                if self._fold_p99.pop(int(m["host"]), None) is not None:
+                    self.obs.counters.gauge(
+                        "elastic_fold_p99_worst_s",
+                        round(max(self._fold_p99.values()), 6) if self._fold_p99 else 0.0)
+            self.obs.event(f"host_{m['event']}", host=int(m["host"]))
+        self.obs.counters.gauge("elastic_hosts", self.fleet.n_live())
+
+    def poll_lost(self, timeout_s: float = POLL_SLICE_S) -> list[tuple[int, int]]:
+        results, lost_dispatches, membership = self.fleet.poll(timeout_s)
+        if membership:
+            self._note_membership(membership)
+        t_arr = time.perf_counter()
+        for r in results:
+            d, host = int(r["dispatch"]), int(r["host"])
+            src = self.sched._sources.get(d)
+            if src is None:
+                # a late answer to an earlier run on this fleet: not this log's
+                # dispatch, so it is dropped outside the log, with evidence
+                self.obs.counters.inc("foreign_results_dropped")
+                self.obs.event("foreign_result_dropped", dispatch=d, host=host)
+                continue
+            fit = np.asarray(r["fitness"], np.float32)
+            k = max(len(fit), 1)
+            per = float(r["eval_s"]) / k
+            base_steps, rem = divmod(int(r["steps"]), k)
+            if src.t_dispatch:
+                lat = t_arr - src.t_dispatch
+                self.obs.hists.observe("elastic/fold_s", lat)
+                self.obs.hists.observe(f"elastic/h{host}/fold_s", lat)
+                p99 = self.obs.hists.quantile(f"elastic/h{host}/fold_s", 0.99)
+                if p99 is not None:
+                    self._fold_p99[host] = p99
+                    self.obs.counters.gauge(f"elastic_fold_p99_s_h{host}", round(p99, 6))
+                    self.obs.counters.gauge("elastic_fold_p99_worst_s",
+                                            round(max(self._fold_p99.values()), 6))
+            self.obs.event("elastic_result", trace=f"d{d}", dispatch=d, host=host,
+                           eval_s=round(float(r["eval_s"]), 4))
+            for i in range(len(fit)):
+                self.events.put(Arrival(d, i, float(fit[i]),
+                                        base_steps + (1 if i < rem else 0), per, t_arr))
+        lost: list[tuple[int, int]] = []
+        for d, host in lost_dispatches:
+            if self.sched._sources.get(int(d)) is None:
+                self.obs.event("foreign_loss_dropped", dispatch=int(d), host=int(host))
+                continue
+            self.obs.counters.inc("results_lost", self.n)
+            self.obs.event("results_lost", dispatch=int(d), host=int(host), n=self.n)
+            lost.extend((int(d), i) for i in range(self.n))
+        out, self._lost_now = self._lost_now + lost, []
+        return out
+
+    def notify_update(self, version: int, state) -> None:
+        self.fleet.push_center(version, state.params_flat.cpu().numpy(), float(state.sigma))
+
+    def close(self) -> None:
+        # the fleet outlives the run (its hosts stay joined for the next one)
+        self.obs.counters.gauge("elastic_hosts", self.fleet.n_live())
+
+    @property
+    def n_workers(self) -> int:
+        return max(self.fleet.n_live(), 1)
+
+
+class ElasticScheduler(GenerationScheduler):
+    """The fold at host granularity on the device engine: dispatches go to
+    the hosts of an elastic fleet, each evaluating a whole population
+    under the center it was sent; their fitness folds in with the host
+    fold's clipped importance weights, an update fires a population's
+    worth of arrivals, and only the center goes back to the hosts.  The
+    event log, staleness discards, loss replacement, accounting and
+    bit-exact ``replay`` are the base scheduler's."""
+
+    def __init__(self, es, fleet, max_stale: int = 16, iw_clip: float = 2.0,
+                 max_consecutive_rejections: int = 3):
+        self.fleet = fleet
+        super().__init__(es, max_stale=max_stale, iw_clip=iw_clip,
+                         max_consecutive_rejections=max_consecutive_rejections)
+
+    def _check_es(self, es) -> None:
+        if es.backend != "device":
+            raise ValueError(
+                "ElasticScheduler folds on the coordinator's device engine (table noise); "
+                f"got backend={es.backend!r}")
+        es.engine._require_dense_noise("elastic host fold")
+        if es.config.obs_norm:
+            raise ValueError(
+                "elastic folding does not support obs_norm: a stale host's fitness was "
+                "measured under OLDER running stats, so the density ratio's fixed-f(θ) "
+                "assumption silently breaks (same refusal as IW_ES)")
+        if es.mesh.devices.size > 1:
+            raise ValueError("the elastic coordinator folds in one process; build its ES "
+                             "without a multi-rank mesh (hosts may each run their own)")
+
+    def _sigma_of(self, st) -> float:
+        return float(st.sigma)
+
+    def _offsets_for(self, st, dispatch: int) -> np.ndarray:
+        # the dispatch's offsets drawn on the host: no wait on the card
+        return self.engine._host_pair_offsets(st._replace(generation=int(dispatch))).numpy()
+
+    def _layout(self) -> tuple[torch.Tensor, int, bool]:
+        eng = self.engine
+        return eng.table.data, eng.spec.dim, eng.config.mirrored
+
+    def _apply_grad(self, st, grad: torch.Tensor, version: int):
+        new_state, gnorm = self.engine._finish_update(st, grad)
+        # the state's generation counts updates, as the host fold's does
+        return new_state._replace(generation=version + 1), float(gnorm)
+
+    def _best_theta(self, arrival: Arrival) -> torch.Tensor:
+        table, dim, mirrored = self._layout()
+        src = self._sources[arrival.dispatch]
+        sign, off = member_sign_offset(src.offsets, arrival.member, mirrored)
+        return src.params + src.sigma * sign * self.engine.table.slice(int(off), dim)
+
+    def _make_source(self, events: "queue.Queue"):
+        # the fleet's center (version 0), for hosts that joined already or
+        # join during the run
+        st = self.es.state
+        self.fleet.push_center(0, st.params_flat.cpu().numpy(), self._sigma_of(st))
+        return _HostSource(self, self.fleet, events)
+
+    def _inflight_budget(self, src_pool) -> int:
+        # a population in flight a live host: every host stays fed, a
+        # straggler queues about one more
+        return self.n * max(1, self.fleet.n_live())
 
 
 # ---------------------------------------------------------------------

@@ -5,9 +5,11 @@ run start with the config, the versions, the devices, the git sha and the
 host and pid, under the JAX package's ``schema`` and keys.  Where the JAX
 package writes ``jax`` and its devices, the port writes ``torch``,
 ``cuda`` (torch's CUDA version, or None) and devices as ``{"id",
-"platform": "gpu" | "cpu", "kind", "process_index"}``.
+"platform": "gpu" | "cpu", "kind", "process_index"}``, the process index
+being the rank under ``torch.distributed`` (``parallel/multihost.py``).
 ``ES.run_manifest()`` passes the run's device; this module never
-initializes CUDA on its own.
+initializes CUDA on its own.  Under a multi-rank mesh only rank 0 writes
+(:func:`write_manifest` is ``leader_only``).
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import os
 import subprocess
 import sys
 import time
+
+from ..parallel.multihost import leader_only, process_index
 
 MANIFEST_SCHEMA = 1
 
@@ -42,8 +46,9 @@ def describe_device(device, index: int = 0) -> dict:
     if device.type == "cuda":
         i = torch.cuda.current_device() if device.index is None else device.index
         return {"id": int(i), "platform": "gpu", "kind": torch.cuda.get_device_name(i),
-                "process_index": 0}
-    return {"id": int(index), "platform": "cpu", "kind": "cpu", "process_index": 0}
+                "process_index": process_index()}
+    return {"id": int(index), "platform": "cpu", "kind": "cpu",
+            "process_index": process_index()}
 
 
 def collect_manifest(config: dict | None = None, devices=None,
@@ -84,8 +89,10 @@ def collect_manifest(config: dict | None = None, devices=None,
     return man
 
 
+@leader_only
 def write_manifest(path: str, manifest: dict) -> str:
-    """Atomic write (tmp + rename); returns the absolute path."""
+    """Atomic write (tmp + rename); returns the absolute path (None on a
+    rank other than 0)."""
     path = os.path.abspath(path)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = path + ".tmp"

@@ -9,6 +9,10 @@ copy).  Each sink is a ``train(log_fn=...)`` callable taking one record:
 - :class:`TensorBoardSink`: scalars through ``torch.utils.tensorboard``
   (optional), the nested ``phases`` as ``es/phase/<name>``;
 - :class:`MultiSink`: fan-out to several sinks, with an optional echo.
+
+Every rank of a multi-rank run holds the same records, so a
+:class:`JsonlSink` appends only on rank 0 (``leader_only``,
+``parallel/multihost.py``).
 """
 
 from __future__ import annotations
@@ -16,6 +20,8 @@ from __future__ import annotations
 import json
 import os
 from typing import Callable, Sequence
+
+from ..parallel.multihost import leader_only
 
 
 class JsonlSink:
@@ -26,6 +32,7 @@ class JsonlSink:
         os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
         self._fh = open(self.path, "a", buffering=1)
 
+    @leader_only
     def __call__(self, record: dict) -> None:
         self._fh.write(json.dumps(record, default=float) + "\n")
 

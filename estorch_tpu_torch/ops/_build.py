@@ -99,26 +99,38 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the sources unless the hashed library already exists."""
+    """Compile the sources unless the hashed library already exists.
+
+    Processes that start together (the ranks of a multi-process run, test
+    workers) serialize on a lock file, as ``envs/native_pool.py``'s build
+    does: one runs nvcc and the others find its library on their second
+    look, as a cached load."""
+    import fcntl
+
     out = library_path()
     if out.exists():
         build_info.update(seconds=0.0, log="(cached)", path=str(out), cached=True)
         return out
-    nvcc = find_nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
-    t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=NVCC_TIMEOUT_S)
-    except subprocess.TimeoutExpired as e:
-        raise RuntimeError(f"nvcc timed out after {NVCC_TIMEOUT_S}s: {' '.join(cmd)}") from e
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    with open(out.parent / "noise_kernels.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():
+            build_info.update(seconds=0.0, log="(cached)", path=str(out), cached=True)
+            return out
+        nvcc = find_nvcc()
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=NVCC_TIMEOUT_S)
+        except subprocess.TimeoutExpired as e:
+            raise RuntimeError(f"nvcc timed out after {NVCC_TIMEOUT_S}s: {' '.join(cmd)}") from e
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+        os.replace(tmp, out)  # atomic: a loader never sees half a file
     build_info.update(seconds=time.perf_counter() - t0, log=proc.stderr, path=str(out),
                       cached=False)
     return out

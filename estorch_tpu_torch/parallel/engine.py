@@ -38,9 +38,19 @@ from the host's k-NN, ``apply_weights``); IW-ES adds ``noise_stats`` and
 ``apply_weights_reuse``, plain torch as in the JAX package (no Pallas
 there).
 
-The JAX package runs this as one program over a device mesh with a psum;
-with one device the psum is the identity.  The mesh waits for ROADMAP.md
-port queue item 7.
+The JAX package runs this as one program over a device mesh with a psum.
+Here a ``mesh`` (``parallel/mesh.py``) makes the engine one rank of a
+``torch.distributed`` group, as the JAX engine's ``shard_map`` body is one
+device's: every rank draws the WHOLE population's offsets and initial
+states from the same generator and takes its device-major block of the
+noise rows (padded with ghost rows that repeat row 0 and weigh 0, so any
+even population runs on any world size), rolls its members out, and meets
+the others twice a generation: the fitness, BC and alive steps gathered
+(ghosts sliced away before ranking, their steps masked out of the count),
+and the update's local partial summed.  Everything after the sum (the
+optimizer step, σ, the obs-norm probe, VBN) is replicated, so every rank
+ends each generation with the same bits.  At world 1 no collective runs
+and every launch is as before.
 """
 
 from __future__ import annotations
@@ -74,6 +84,7 @@ from ..ops.noise_kernels import weighted_noise_sum
 from ..ops.params import ParamSpec, map_tree
 from ..ops.ranks import centered_rank_safe
 from ..resilience.chaos import poison_update
+from .mesh import PopulationMesh, padded_count, pairs_per_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -234,6 +245,11 @@ class ESEngine:
     host in between (the novelty family, ``algo/nses.py``), and
     :meth:`noise_stats` with :meth:`apply_weights_reuse` give IW-ES its
     importance ratios and its update with reused samples (``algo/iwes.py``).
+
+    ``mesh`` (a ``PopulationMesh``, default world 1 on ``device``) makes
+    this engine one rank of a data-parallel group: each method takes and
+    returns global arrays (samples, weights, offsets, fitness), and works
+    on its own block of rows in between.
     """
 
     telemetry = NULL_TELEMETRY  # ES points it at its hub
@@ -242,7 +258,8 @@ class ESEngine:
                  optimizer: Any, config: EngineConfig, device: torch.device,
                  streamed_apply: Callable[..., torch.Tensor] | None = None,
                  lowrank_spec: LowRankSpec | LowRankTreeSpec | None = None,
-                 carry_init: Callable[..., Any] | None = None):
+                 carry_init: Callable[..., Any] | None = None,
+                 mesh: PopulationMesh | None = None):
         if carry_init is not None and (config.decomposed or config.streamed):
             # these restructure the forward around the MLP's layers; low_rank
             # composes through the tree form and the standard rollout
@@ -305,7 +322,25 @@ class ESEngine:
                                if config.obs_norm else None)
         self._eval_rollouts: dict[bool, Callable[..., Any]] = {}  # evaluate_episodes
         self.rows = config.population_size // 2 if config.mirrored else config.population_size
-        self.eval_chunk = _choose_eval_chunk(config.eval_chunk, config.population_size)
+        if mesh is None:
+            mesh = PopulationMesh(1, 0, self.device)
+        elif mesh.device != self.device:
+            raise ValueError(f"the engine runs on {self.device}, its mesh rank on {mesh.device}")
+        self.mesh = mesh
+        self.n_devices = mesh.devices.size
+        # the padded layout (the JAX engine's): rank d owns noise rows
+        # [d·rows_local, (d+1)·rows_local) and their members; rows past the
+        # real count are ghosts (row 0 repeated, weight 0)
+        if config.mirrored:
+            self.rows_local = pairs_per_device(config.population_size, self.n_devices)
+            self.members_local = 2 * self.rows_local
+        else:
+            self.members_local = padded_count(config.population_size,
+                                              self.n_devices) // self.n_devices
+            self.rows_local = self.members_local
+        self.rows_padded = self.rows_local * self.n_devices
+        self.members_padded = self.members_local * self.n_devices
+        self.eval_chunk = _choose_eval_chunk(config.eval_chunk, self.members_local)
 
     # ------------------------------------------------------------- state
 
@@ -434,18 +469,41 @@ class ESEngine:
         """bf16 path: a member's params are cast once, where they are built."""
         return t.to(self._dtype)
 
+    def _local_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's block of a global per-row array (offsets, states): the
+        array padded to ``rows_padded`` by repeating row 0, then sliced.
+        World 1: ``x`` itself."""
+        if self.n_devices == 1:
+            return x
+        pad = self.rows_padded - self.rows
+        if pad:
+            x = torch.cat([x, x[:1].expand((pad,) + tuple(x.shape[1:]))])
+        return self.mesh.local_block(x, self.rows_local)
+
+    def _local_weights(self, weights: torch.Tensor) -> torch.Tensor:
+        """This rank's members' block of global per-member weights, the
+        ghosts' zero-padded (they cannot move the params)."""
+        if self.n_devices == 1:
+            return weights
+        pad = self.members_padded - self.config.population_size
+        if pad:
+            weights = torch.cat([weights, weights.new_zeros((pad,))])
+        return self.mesh.local_block(weights, self.members_local)
+
     def _members(self, sample: Sample):
-        """Per-member (offsets, signs, initial states (n, e, state_dim))."""
+        """This rank's per-member (offsets, signs, initial states (n, e,
+        state_dim))."""
         cfg = self.config
-        states = sample.states
+        offsets = self._local_rows(sample.offsets)
+        states = self._local_rows(sample.states)
         if states.ndim == 2:
             states = states[:, None, :]
         if cfg.mirrored:
-            return (member_offsets(sample.offsets),
-                    pair_signs(cfg.population_size, self.device),
+            return (member_offsets(offsets),
+                    pair_signs(self.members_local, self.device),
                     torch.repeat_interleave(states, 2, dim=0))
-        ones = torch.ones((cfg.population_size,), dtype=torch.float32, device=self.device)
-        return sample.offsets, ones, states
+        ones = torch.ones((self.members_local,), dtype=torch.float32, device=self.device)
+        return offsets, ones, states
 
     def _evaluate(self, state: ESState, sample: Sample):
         """Fitness (n,), BC (n, bc_dim) and the summed alive steps of the
@@ -458,7 +516,7 @@ class ESEngine:
         # instead)
         shared = self.spec.unravel(self._cast(state.params_flat))
         fits, bcs, steps = [], [], []
-        for lo in range(0, cfg.population_size, self.eval_chunk):
+        for lo in range(0, self.members_local, self.eval_chunk):
             hi = lo + self.eval_chunk
             apply, carry0 = self._chunk_apply(state, shared, offs[lo:hi], signs[lo:hi])
             states0 = states[lo:hi].reshape((hi - lo) * e, -1)
@@ -466,8 +524,26 @@ class ESEngine:
             # fitness = mean return; BC = the first episode's; steps summed
             fits.append(res.total_reward.view(hi - lo, e).mean(dim=1))
             bcs.append(res.bc.view(hi - lo, e, -1)[:, 0])
-            steps.append(res.steps.sum())
-        return torch.cat(fits), torch.cat(bcs), torch.stack(steps).sum()
+            steps.append(res.steps.view(hi - lo, e).sum(dim=1) if self.n_devices > 1
+                         else res.steps.sum())
+        if self.n_devices == 1:
+            return torch.cat(fits), torch.cat(bcs), torch.stack(steps).sum()
+        return self._gather_global(torch.cat(fits), torch.cat(bcs), torch.cat(steps))
+
+    def _gather_global(self, fitness: torch.Tensor, bc: torch.Tensor, steps: torch.Tensor):
+        """The ranks' (members_local,) fitness, BC rows and alive steps as
+        the global population's, on every rank: one sum of a zero-filled
+        float64 buffer (float32 values and step counts below 2^53 are exact
+        in it), the ghosts sliced away and their steps masked out."""
+        n = self.config.population_size
+        cols = [fitness[:, None].double(), bc.double(), steps[:, None].double()]
+        first = self.mesh.rank * self.members_local
+        if self.members_padded != n:
+            alive = torch.arange(first, first + self.members_local, device=self.device) < n
+            cols[2] = torch.where(alive[:, None], cols[2], 0.0)
+        packed = self.mesh.gather_rows(torch.cat(cols, dim=1), self.members_local)[:n]
+        return (packed[:, 0].float(), packed[:, 1:1 + bc.shape[1]].float(),
+                packed[:, -1].sum().to(torch.int64))
 
     def _episode_carry(self, params: dict, k: int, e: int, dtype: torch.dtype):
         """The episode-start carry of k policies' e episodes each, leaves
@@ -578,9 +654,16 @@ class ESEngine:
     # -------------------------------------------------------------- update
 
     def _grad(self, state: ESState, weights: torch.Tensor, red_offs: torch.Tensor):
-        """The ascent direction from per-member rank weights; ``red_offs``
-        is per pair (mirrored: folded estimator) or per member."""
+        """The ascent direction from the global per-member rank weights and
+        the global ``red_offs``, per pair (mirrored: folded estimator) or
+        per member: this rank's partial summed over the ranks."""
+        return self.mesh.all_reduce_sum(self._local_grad(state, weights, red_offs))
+
+    def _local_grad(self, state: ESState, weights: torch.Tensor, red_offs: torch.Tensor):
+        """This rank's partial of the ascent direction, over its own rows."""
         cfg = self.config
+        weights = self._local_weights(weights)
+        red_offs = self._local_rows(red_offs)
         row_w = fold_mirrored_weights(weights) if cfg.mirrored else weights
         scale = cfg.population_size * state.sigma
         if cfg.low_rank:
@@ -633,13 +716,27 @@ class ESEngine:
         self._require_dense_noise("noise_stats")
         offsets = offsets.to(self.device)
         d_vec = d_vec.to(self.device, torch.float32)
+        n = offsets.shape[0]
+        k = self._even_block(n, "offsets")
+        offsets = self.mesh.local_block(offsets, k)
         chunk = self.config.grad_chunk
         dots, norms = [], []
         for lo in range(0, offsets.shape[0], chunk):
             eps = gather_rows(self.table.data, offsets[lo:lo + chunk], self.spec.dim)
             dots.append(eps @ d_vec)
             norms.append((eps * eps).sum(dim=-1))
-        return torch.cat(dots), torch.cat(norms)
+        if self.n_devices == 1:
+            return torch.cat(dots), torch.cat(norms)
+        both = self.mesh.gather_rows(torch.stack([torch.cat(dots), torch.cat(norms)], dim=1), k)
+        return both[:, 0], both[:, 1]
+
+    def _even_block(self, n: int, what: str) -> int:
+        """Rows a rank takes of ``n`` split evenly (the JAX engine's rule for
+        the IW reductions' inputs)."""
+        k = n // self.n_devices
+        if k * self.n_devices != n:
+            raise ValueError(f"{what} ({n}) must divide evenly over {self.n_devices} devices")
+        return k
 
     def apply_weights_reuse(self, state: ESState, weights: torch.Tensor,
                             old_offsets: torch.Tensor, old_w: torch.Tensor,
@@ -659,11 +756,15 @@ class ESEngine:
         dev = self.device
         d_stack = torch.atleast_2d(d_stack.to(dev, torch.float32))
         coeff_d = torch.atleast_1d(torch.as_tensor(coeff_d, dtype=torch.float32, device=dev))
-        grad = self._grad(state, weights.to(dev, torch.float32), self.all_pair_offsets(state))
-        grad = grad + rank_weighted_noise_sum(self.table, old_offsets.to(dev),
-                                              old_w.to(dev, torch.float32), dim=self.spec.dim,
-                                              chunk=self.config.grad_chunk)
-        return self._finish_update(state, grad + coeff_d @ d_stack)
+        k = self._even_block(old_offsets.shape[0], "old_offsets")
+        # fresh and reused partials over this rank's rows, then one sum
+        grad = self._local_grad(state, weights.to(dev, torch.float32),
+                                self.all_pair_offsets(state))
+        grad = grad + rank_weighted_noise_sum(
+            self.table, self.mesh.local_block(old_offsets.to(dev), k),
+            self.mesh.local_block(old_w.to(dev, torch.float32), k), dim=self.spec.dim,
+            chunk=self.config.grad_chunk)
+        return self._finish_update(state, self.mesh.all_reduce_sum(grad) + coeff_d @ d_stack)
 
     def _finish_update(self, state: ESState, grad_ascent: torch.Tensor,
                        probe_states: torch.Tensor | None = None):

@@ -36,6 +36,11 @@ A generation's phases land on the ``telemetry`` hub: ``eval`` (with
 ``eval/sample``, the materialization, fenced on a CUDA event) and
 ``update`` (with ``update/obsnorm_merge``); the chaos hook
 ``mutate_fitness`` fires on the host-ranked fitness, as in the JAX package.
+
+Under a ``mesh`` (one rank a process, ``parallel/mesh.py``) each process
+evaluates the whole population in its own pools, as the JAX package's
+pooled path does under its mesh, and the update is the rank-sharded
+update-only engine: each rank reduces its block of rows and the ranks sum.
 """
 
 from __future__ import annotations
@@ -71,7 +76,8 @@ class PooledEngine:
     def __init__(self, env_name: str, module: Any, spec: ParamSpec, table, optimizer,
                  config: EngineConfig, device: torch.device, n_threads: int = 0,
                  seed: int = 0, double_buffer: bool = False, prep: dict | None = None,
-                 env_kwargs: dict | None = None, bc_indices=None, carry_init=None):
+                 env_kwargs: dict | None = None, bc_indices=None, carry_init=None,
+                 mesh=None):
         if config.episodes_per_member != 1:
             raise ValueError("episodes_per_member is a device-path option; the pooled path "
                              "rolls one episode per member env")
@@ -104,7 +110,8 @@ class PooledEngine:
         # the update-only engine: the device path's offsets and update; the
         # obs stats are this engine's (host-side), so its config has no obs_norm
         self.core = ESEngine(None, module, spec, table, optimizer,
-                             dataclasses.replace(config, obs_norm=False), self.device)
+                             dataclasses.replace(config, obs_norm=False), self.device, mesh=mesh)
+        self.mesh = self.core.mesh
         self.double_buffer = bool(double_buffer)
         if self.double_buffer:
             half = config.population_size // 2

@@ -33,6 +33,10 @@ die             SIGKILL of this whole process before the generation
                 (``run_resilient``)
 wedge           a silent ``sleep_s`` before the generation, no beats
                 (``run_resilient``; the supervisor's watchdog kills it)
+straggle_host   a ``sleep_s`` stall (plus jitter) of one host at one
+                dispatch (elastic) or generation (``train_sync``)
+kill_host       one host's death at one dispatch: a host process
+                SIGKILLs itself, a host thread drops its connection
 kill_replica    SIGKILL of serving replica ``replica`` (the fleet's
                 monitor, serve/fleet.py): router failover and respawn
 wedge_replica   SIGSTOP of serving replica ``replica``: an alive process
@@ -44,8 +48,9 @@ Training events key on ``gen``; the two serving events on ``at_s``,
 seconds since the fleet armed the plan (a server has no generation
 clock).  :func:`serve_faults` claims the due ones through the same
 once-semantics ledger, so a respawned fleet does not replay a kill.
-The hooks of ``straggle_host``/``kill_host`` come with the elastic
-scheduler (ROADMAP.md port item 7).
+``straggle_host``/``kill_host`` fire through :func:`host_fault`, keyed on
+(dispatch, host) in an elastic run (``parallel/elastic.py``) and on
+(generation, rank) in ``multihost.train_sync``.
 
 The module imports only the standard library at load (NumPy inside the
 two functions that need it), so the fleet supervisor loads it by path
@@ -263,6 +268,32 @@ def member_fault(generation, member: int) -> None:
     for ev in plan.events_at(gen, "rollout_exc"):
         if _matches_member(ev, member) and plan.fire(ev):
             raise ChaosError(f"injected rollout exception (gen {gen}, member {member})")
+
+
+def _matches_host(ev: dict, host: int) -> bool:
+    h = ev.get("host", "all")
+    if h == "all":
+        return True
+    if isinstance(h, (list, tuple)):
+        return int(host) in [int(x) for x in h]
+    return int(h) == int(host)
+
+
+def host_fault(dispatch, host: int) -> bool:
+    """Host faults of one (dispatch, host) of an elastic run, or one
+    (generation, rank) of the synchronous multi-rank loop.
+    ``straggle_host`` sleeps as ``straggler`` does; returns True when a
+    ``kill_host`` fired: the caller owns the death (a host process SIGKILLs
+    itself, a host thread drops its connection)."""
+    plan = active_plan()
+    if plan is None:
+        return False
+    gen = int(dispatch)
+    for ev in plan.events_at(gen, "straggle_host"):
+        if _matches_host(ev, host) and plan.fire(ev):
+            time.sleep(straggler_sleep_s(ev))
+    return any(plan.fire(ev) for ev in plan.events_at(gen, "kill_host")
+               if _matches_host(ev, host))
 
 
 def mutate_fitness(generation, fitness):

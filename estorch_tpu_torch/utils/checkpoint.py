@@ -46,6 +46,8 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from ..parallel.multihost import leader_only
+
 CHECKPOINT_FORMAT_VERSION = 1  # the port's own payload layout
 PAYLOAD = "payload.pt"
 
@@ -251,13 +253,16 @@ class AsyncSaveHandle:
             raise self._error
 
 
+@leader_only
 def save_checkpoint(es, path: str, asynchronous: bool = False) -> AsyncSaveHandle | None:
     """Write a complete checkpoint of ``es`` to directory ``path``.
 
     Synchronous saves return None.  ``asynchronous=True`` returns an
     :class:`AsyncSaveHandle` once the sidecars are written and the
     payload's copy is queued: the checkpoint holds the state as it was at
-    the call, whatever later generations do.
+    the call, whatever later generations do.  Under a multi-rank mesh
+    every rank holds the same state and only rank 0 writes
+    (``leader_only``; the others return None).
     """
     from ..resilience.chaos import crash_checkpoint
 
@@ -439,6 +444,7 @@ class PeriodicCheckpointer:
         if (gen + 1) % self.every == 0:
             self.save(gen)
 
+    @leader_only
     def save(self, gen: int) -> str:
         self.wait()
         path = os.path.join(self.root, f"gen_{gen:08d}")

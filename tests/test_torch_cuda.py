@@ -1133,3 +1133,52 @@ def test_pbt_replay_is_bitwise_its_live_run_on_card(cuda):
     for a, b in zip(es.meta_states, es2.meta_states):
         assert torch.equal(a.params_flat, b.params_flat)
         assert a.opt_state.hyperparams["learning_rate"].device.type == "cuda"
+
+
+# ------------------------------------------------------------------ ranks
+# two gloo ranks share cuda:0 (tests/test_torch_multihost.py is the rank
+# script; it imports no JAX)
+
+
+def _ranks(mode: str, tmp_path, device: str) -> list:
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    script = Path(__file__).with_name("test_torch_multihost.py")
+    rdv = tmp_path / f"{mode}_{device.replace(':', '')}.rdv"
+    env = dict(os.environ, PYTHONPATH=str(script.parent.parent))
+    procs = [subprocess.Popen([sys.executable, str(script), mode, str(r), "2", str(rdv),
+                               str(tmp_path), device], env=env, stdout=subprocess.DEVNULL,
+                              stderr=subprocess.PIPE, text=True) for r in range(2)]
+    try:
+        errs = [p.communicate(timeout=240)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, err in zip(procs, errs):
+        assert p.returncode == 0, err[-3000:]
+    return procs
+
+
+def test_two_ranks_on_one_card_bit_identical_and_near_cpu(cuda, tmp_path):
+    """Two gloo ranks on cuda:0 (``cpu_collectives=True``), CartPole MLP (8,)
+    streamed + kernel update, 2 generations: the ranks bit-identical, and
+    the card's world 2 within phase 4's card-vs-CPU tolerance (1e-4) of
+    the CPU's world 2."""
+    _ranks("train2", tmp_path, "cuda:0")
+    _ranks("train2", tmp_path, "cpu")
+    card = [np.load(tmp_path / f"train2_cuda0_rank{r}.npz") for r in range(2)]
+    cpu = np.load(tmp_path / "train2_cpu_rank0.npz")
+    assert card[0]["params"].tobytes() == card[1]["params"].tobytes()
+    np.testing.assert_allclose(card[0]["params"], cpu["params"], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(card[0]["rewards"], cpu["rewards"], rtol=1e-4)
+
+
+def test_nccl_refuses_two_ranks_on_one_card(cuda, tmp_path):
+    _ranks("nccl", tmp_path, "cuda:0")
+    for r in range(2):
+        got = json.loads((tmp_path / f"nccl_rank{r}.json").read_text())
+        assert got["error"] and "one card" in got["error"], got

@@ -269,10 +269,12 @@ class _HostAgent:
 
 # each case names an option that still waits for its ROADMAP.md item; the
 # two telemetry cases (the hub came with port item 5) hold it live instead,
-# and the scenarios case (port item 8) holds the JAX package's TypeError for
-# anything but a ScenarioDistribution
+# the scenarios case (port item 8) holds the JAX package's TypeError for
+# anything but a ScenarioDistribution, and the mesh cases (port item 7a)
+# hold a world-1 mesh live, anything else refused, and a mesh on the host
+# path refused
 @pytest.mark.parametrize("option", [
-    {"mesh": object()},
+    {"mesh": "world 1"},
     {"telemetry": True},  # live on the device path
     {"model_shards": 2},  # the param-sharded engine, item 7
     {"agent": "pooled", "telemetry": True},  # live on the pooled path
@@ -297,8 +299,27 @@ def test_unported_options_raise(option):
         with pytest.raises(TypeError, match="scenarios must be a ScenarioDistribution"):
             ES(policy, agent, adam, **kw)
         return
+    if "mesh" in option and "shard_params" not in option:
+        _check_mesh_live(policy, agent, kw)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ES(policy, agent, adam, **kw)
+
+
+def _check_mesh_live(policy, agent, kw):
+    """A world-1 ``PopulationMesh`` trains (the mesh on the ES); any other
+    object is refused with a TypeError, and the host path refuses a mesh."""
+    from estorch_tpu_torch.parallel import single_device_mesh
+
+    if isinstance(agent, _HostAgent):
+        with pytest.raises(ValueError, match="mesh is a device/pooled-path option"):
+            ES(policy, agent, adam, **kw)
+        return
+    with pytest.raises(TypeError, match="mesh must be a PopulationMesh"):
+        ES(policy, agent, adam, **dict(kw, mesh=object()))
+    es = ES(policy, agent, adam, **dict(kw, mesh=single_device_mesh("cpu")))
+    es.train(1, verbose=False)
+    assert es.mesh.devices.size == 1 and len(es.history) == 1
 
 
 def _check_telemetry_live(policy, agent, kw):

@@ -464,8 +464,14 @@ def test_unported_pooled_options_raise():
     assert set(es.history[0]["phases"]) == {"eval", "eval/sample", "update", "record"}
     with pytest.raises(ValueError, match="learned_carry is a device-path feature"):
         ES(_Recurrent, agent, adam, **dict(kw, policy_kwargs={"learned_carry": True}))
-    with pytest.raises(NotImplementedError, match="item: 7"):
+    # a mesh (port item 7a): a world-1 mesh trains, anything else is refused
+    from estorch_tpu_torch.parallel import single_device_mesh
+
+    with pytest.raises(TypeError, match="mesh must be a PopulationMesh"):
         ES(MLPPolicy, agent, adam, mesh=object(), **kw)
+    es = ES(MLPPolicy, agent, adam, mesh=single_device_mesh("cpu"), **kw)
+    es.train(1, verbose=False)
+    assert es.mesh.devices.size == 1 and es.engine.core.mesh is es.mesh
     # a per-center evaluation is the novelty family's: a plain ES rejects it
     # with the JAX package's ValueError, pooled or (with VBN) on the device
     with pytest.raises(ValueError, match="meta_index applies to the novelty family"):
