@@ -211,13 +211,15 @@ Phases, in order; any failure exits non-zero before the last line:
    cpu_collectives=True)``, ``ES(..., mesh=global_population_mesh())``)
    from the same seed: an nccl ``initialize`` of the same two ranks must
    raise first; the ranks' params and histories bit-identical, within
-   1e-4 of world 1 (phase 4's float32 tolerance: Adam magnifies the
-   last-bit difference of the update's summation order), generation 0's
-   update norm within 1e-6 relative, each rank's launches exact (600 matvec and 1
-   reduction a generation), each rank's update partial against the plain
-   version; env-steps/s of world 2 against world 1, the gloo all-reduce's
-   time at the update's (4481 float32), the fitness's (4096 float32) and
-   the engine's packed gather's shapes, each rank's memory;
+   1e-6 of the largest entry of world 1 (the ranks' float64 partials
+   summed and rounded once, F22; the same run with the float32 partials of
+   before the repair is printed beside it), generation 0's update norm
+   equal where its fitness records are (else within 1e-6 relative), each
+   rank's launches exact (600 matvec and 1 reduction a generation), each
+   rank's update partial against the plain version; env-steps/s of world
+   2 against world 1, the gloo all-reduce's time at the update's (4481
+   float32), the fitness's (4096 float32) and the engine's packed
+   gather's shapes, each rank's memory;
 19. elastic hosts on one card (``run_elastic``): an ``ElasticCoordinator``
    here and 2 host processes through ``python -m
    estorch_tpu_torch.parallel.elastic --join`` on the card, the cell's
@@ -228,12 +230,31 @@ Phases, in order; any failure exits non-zero before the last line:
    coordinator launches one reduction an update and host 0 600 matvec a
    dispatch; updates/s before and after the kill, each host's spawn to its
    readiness and to its first result; the log replayed on the card bit for
-   bit and on the CPU within 1e-6 of the largest entry.
+   bit and on the CPU within 1e-6 of the largest entry;
+20. param sharding on one card (``run_sharded``): the JAX package's sharded
+   row (``bench.py`` ``stage_shard_ab``: SyntheticEnv 376 -> 17, MLP 768 x
+   768, dim 893,201, population 64, horizon 100, eval_chunk 8, sigma 0.05,
+   Adam 1e-2, seed 0, table 2^21), 1 warm-up + 3 timed generations each:
+   here the replicated ES and the (1, 1) mesh in program mode, then 2 gloo
+   ranks on cuda:0 (``shard_rank_child``, ``ES(..., shard_params=True,
+   mesh=global_hyperscale_mesh(pop, model))``) at (1, 2) in program and
+   table mode and at (2, 1) in program mode: table mode within rtol 2e-4 /
+   atol 1e-5 of the replicated run with equal env steps; generation 0's
+   noise bit-identical across (1, 1), (1, 2) and (2, 1), the params within
+   the same tolerance; leaves held whole by both ranks bit-identical; each
+   rank's param and Adam bytes 0.507x world 1's at (1, 2) and its peak
+   allocation under the replicated run's; a ``nan_update`` at generation 1
+   rejected in the engine on both ranks alike; the gathered ``best_theta``
+   equal to ``member_params``; the cost model's sharding block; neither
+   kernel launched; env-steps/s of every run, the gloo all-reduces of one
+   instrumented generation and their share of it, the program noise's
+   launches a generation, each rank's memory.
 
 Then one JSON line of per-path numbers (with phase 13's under
 ``crash_safe``, phase 14's under ``attribution``, phase 15's under
-``serving``, phase 16's under ``scenarios``, phase 17's under ``fleet``
-and phases 18 and 19 under ``data_parallel`` and ``elastic``), one of
+``serving``, phase 16's under ``scenarios``, phase 17's under ``fleet``,
+phases 18 and 19 under ``data_parallel`` and ``elastic``, phase 20's under
+``sharded``), one of
 per-kernel numbers (launches from phase 3, and of the reduction in (j),
 (k), (m), phases 10-13, and of both kernels in phases 16-19: each rank's
 in phase 18, the coordinator's and host 0's in phase 19),
@@ -3058,15 +3079,17 @@ def _check_records(label: str, es) -> None:
             fail(f"{label}, generation {r['generation']}: scenarios block {blk}")
 
 
-def launches_per_env_step(torch, es, reps: int = 3) -> float:
+def launches_per_env_step(torch, es, reps: int = 5) -> float:
     """Kernel launches an env step of one engine generation (1 chunk), from
     torch.profiler's device events, after ``es``'s warm-up generation.  The
     engine's generation alone: ``ES.train``'s record keeps a new best's
     params, a data-dependent handful of launches outside it.  The profiler
     now and then drops events and never adds one (on an H100, one of 15
-    profiles of the scenario cell's ~22,700 launches read 74 short, and
-    this script's read up to 39 short), so the count is the largest of
-    ``reps`` profiles of the same generation."""
+    profiles of the scenario cell's ~22,700 launches read 74 short, this
+    script's read up to 39 short, and once all three of three profiles of
+    one generation read 50 short while its dispatched aten ops were equal),
+    so the count is the largest of ``reps`` profiles of the same
+    generation."""
     return max(kernel_launches(device_events(torch, lambda: es.engine.generation_step(es.state)))
                for _ in range(reps)) / es.config.horizon
 
@@ -4003,14 +4026,15 @@ def run_fleet(torch, tt, nk, card: str, name: str, fleet_dir: str) -> dict:
 
 DP_WORLD = 2
 DP_TIMED = 2  # generations after 1 warm-up
-# world 2 against world 1.  The ranks' float32 partials are summed where
-# world 1 rounds one float64 sum once: the update differs in the last bits.
-# Generation 0 starts from one state, so its update norm is held tight;
-# the params after 3 Adam steps are held at phase 4's float32 tolerance,
-# since Adam divides each coordinate's step by that coordinate's gradient
-# scale and so magnifies a rounding difference where the sum cancels
-# (ROADMAP F15)
-DP_TOL = 1e-4
+# world 2 against world 1.  Since F22 each rank hands its partial of the
+# update over in float64 and the sum is rounded once, as world 1 rounds its
+# one sum: where the fitness is equal the update is equal.  The params after
+# 3 Adam steps are held at phase 4's fold tolerance, 1e-6 of the largest
+# entry (before the repair the float32 partials put them 2.07e-5 apart, and
+# the gate was 1e-4; Adam divides each coordinate's step by its gradient's
+# scale and so magnifies any rounding difference where the sum cancels), and
+# generation 0's update norm bit-equal where its fitness is
+DP_TOL = 1e-6  # of the largest |param|
 DP_GNORM_RTOL = 1e-6
 DP_REPS = 20  # all-reduces a shape, timed one by one
 
@@ -4065,6 +4089,25 @@ def dp_rank_child(rank: int, world: int, rdv: str, out_dir: str) -> None:
     facts["history"] = [{k: r[k] for k in ("reward_mean", "reward_max", "env_steps",
                                            "grad_norm", "sigma")} for r in es.history]
     np.save(os.path.join(out_dir, f"rank{rank}.npy"), es.state.params_flat.cpu().numpy())
+    # the same run with the update's arithmetic before F22 (each rank's
+    # partial rounded to float32, then the float32 partials summed), for
+    # the before/after reading of world 2 against world 1
+    pre = ES(MLPPolicy, DeviceAgent(Pendulum(), horizon=HORIZON), adam,
+             population_size=POPULATION, sigma=0.05, policy_kwargs=POLICY,
+             optimizer_kwargs={"learning_rate": 1e-2}, mesh=mesh, **STREAMED)
+    eng_pre = pre.engine
+
+    def float32_partials(state, weights, red_offs):
+        w = eng_pre._local_weights(weights)
+        part = nk.weighted_noise_sum(es.table.data, eng_pre._local_rows(red_offs),
+                                     (w[0::2] - w[1::2]).contiguous(), es.spec.dim)
+        return eng_pre.mesh.all_reduce_sum(
+            part / (eng_pre.config.population_size * state.sigma))
+
+    eng_pre._grad = float32_partials
+    pre.train(1 + DP_TIMED, verbose=False)
+    np.save(os.path.join(out_dir, f"rank{rank}_pre.npy"), pre.state.params_flat.cpu().numpy())
+    del pre, eng_pre
     # this rank's partial of the update (its pair rows of this generation),
     # the kernel against its plain version
     eng = es.engine
@@ -4123,6 +4166,8 @@ def run_data_parallel(torch, tt, nk, card: str) -> dict:
     w1_steps = sum(r["env_steps"] for r in es.history[1:])
     w1_params = es.state.params_flat.cpu().numpy()
     w1_history = [r["reward_mean"] for r in es.history]
+    w1_records = [{k: r[k] for k in ("reward_mean", "reward_max", "env_steps")}
+                  for r in es.history]
     w1_gnorm = [r["grad_norm"] for r in es.history]
     del es
     torch.cuda.empty_cache()
@@ -4156,6 +4201,7 @@ def run_data_parallel(torch, tt, nk, card: str) -> dict:
         with open(os.path.join(work, f"rank{r}.json")) as f:
             facts.append(json.load(f))
     params = [np.load(os.path.join(work, f"rank{r}.npy")) for r in range(DP_WORLD)]
+    pre_params = np.load(os.path.join(work, "rank0_pre.npy"))
     shutil.rmtree(work, ignore_errors=True)
 
     for f in facts:
@@ -4180,16 +4226,23 @@ def run_data_parallel(torch, tt, nk, card: str) -> dict:
             f["history"] != facts[0]["history"] for f in facts[1:]):
         fail("phase 18: the ranks' params or histories differ")
     dev = float(np.abs(params[0] - w1_params).max())
+    dev_pre = float(np.abs(pre_params - w1_params).max())
+    largest = float(np.abs(w1_params).max())
     gnorm = [h["grad_norm"] for h in facts[0]["history"]]
     g0 = abs(gnorm[0] - w1_gnorm[0]) / abs(w1_gnorm[0])
+    same_fitness = [{k: h[k] for k in ("reward_mean", "reward_max", "env_steps")} == w
+                    for h, w in zip(facts[0]["history"], w1_records)]
     print(f"ranks bit-identical; world {DP_WORLD} against world 1: max |Δparam| {dev:.3g} "
-          f"(tol {DP_TOL:g}; largest |param| {float(np.abs(w1_params).max()):.3g}), "
-          f"generation 0's update norm {g0:.3g} relative (tol {DP_GNORM_RTOL:g}); update norms "
-          f"{gnorm} against {w1_gnorm}; reward means "
-          f"{[h['reward_mean'] for h in facts[0]['history']]} against {w1_history}")
-    if not dev <= DP_TOL:
-        fail(f"phase 18: world {DP_WORLD} is {dev:g} from world 1 (tol {DP_TOL:g})")
-    if not g0 <= DP_GNORM_RTOL:
+          f"after the F22 repair, {dev_pre:.3g} with the float32 partials before it (both "
+          f"this run) (tol {DP_TOL:g} of the largest |param| {largest:.3g}), generation 0's "
+          f"update norm {g0:.3g} relative (tol {DP_GNORM_RTOL:g}; 0 where its fitness "
+          f"records are equal: {same_fitness}); update norms {gnorm} against {w1_gnorm}; "
+          f"reward means {[h['reward_mean'] for h in facts[0]['history']]} against "
+          f"{w1_history}, on {card}")
+    if not dev <= DP_TOL * largest:
+        fail(f"phase 18: world {DP_WORLD} is {dev:g} from world 1 (tol {DP_TOL:g} of "
+             f"{largest:g})")
+    if not g0 <= (0.0 if same_fitness[0] else DP_GNORM_RTOL):
         fail(f"phase 18: generation 0's update norm is {g0:g} relative from world 1's")
     w2_s = max(f["timed_s"] for f in facts)
     w2_steps = sum(h["env_steps"] for h in facts[0]["history"][1:])
@@ -4202,7 +4255,9 @@ def run_data_parallel(torch, tt, nk, card: str) -> dict:
     return {"world": DP_WORLD, "backend": "gloo (cpu_collectives=True)",
             "world1_env_steps_per_s": w1_steps / w1_s,
             "world2_env_steps_per_s": w2_steps / w2_s, "ratio": ratio,
-            "max_abs_param_diff_vs_world1": dev, "gen0_grad_norm_rel_diff": g0,
+            "max_abs_param_diff_vs_world1": dev,
+            "max_abs_param_diff_vs_world1_float32_partials": dev_pre,
+            "gen0_grad_norm_rel_diff": g0, "same_fitness_records": same_fitness,
             "ranks": facts, "ranks_wall_s": ranks_s,
             "launches": {f"rank {f['rank']}": f["launches"] for f in facts}}
 
@@ -4357,6 +4412,359 @@ def run_elastic(torch, tt, nk, card: str) -> dict:
             "cpu_replay_rel": rel, "launches": launches, "host0": final}
 
 
+# ---------------------------------------------------------------------
+# phase 20, param sharding on one card: the JAX package's sharded row
+# ---------------------------------------------------------------------
+
+# bench.py's sharded headline row (stage_shard_ab): SyntheticEnv 376 -> 17,
+# MLP 768 x 768 (dim 893,201), population 64, horizon 100, eval_chunk 8,
+# sigma 0.05, Adam 1e-2, seed 0, the table of its A/B 2^21; full width
+SHARD_POLICY = {"action_dim": 17, "hidden": (768, 768), "discrete": False,
+                "action_scale": 1.0}
+SHARD_POP, SHARD_HORIZON, SHARD_CHUNK = 64, 100, 8
+SHARD_TABLE = 1 << 21
+SHARD_TIMED = 3  # generations after 1 warm-up
+SHARD_RTOL, SHARD_ATOL = 2e-4, 1e-5  # JAX's sharded A/B gate (bench.py)
+SHARD_NOISE_ROWS = 2  # noise rows of generation 0 compared across mesh shapes
+# each rank's param (and each Adam moment's) floats at (1, 2): half of every
+# sharded leaf and the whole (768, 17) head and its bias (17 is odd)
+SHARD_LOCAL_1X2 = 440_064 + 13_073
+
+
+def shard_es(tt, **over):
+    kw = dict(population_size=SHARD_POP, sigma=0.05, policy_kwargs=SHARD_POLICY,
+              optimizer_kwargs={"learning_rate": 1e-2}, seed=0, table_size=SHARD_TABLE,
+              eval_chunk=SHARD_CHUNK, telemetry=True)
+    kw.update(over)
+    return tt.ES(tt.MLPPolicy, tt.DeviceAgent(tt.SyntheticEnv(), horizon=SHARD_HORIZON),
+                 tt.adam, **kw)
+
+
+def shard_noise(torch, es, rows: int):
+    """Generation 0's ε of the first ``rows`` noise rows through the
+    engine's own noise path, gathered to (dim,) each (a collective)."""
+    import numpy as np
+
+    eng = es.engine
+    draws = eng._draws(es.state, None)
+    out = []
+    for r in range(rows):
+        local = torch.cat([eng._dense_noise(i, torch.tensor([r]), draws)[0]
+                           for i in range(len(eng.layout.leaves))])
+        out.append(eng.layout.gather(local).cpu().numpy())
+    return np.stack(out)
+
+
+def shard_timed(torch, es) -> dict:
+    """1 warm-up and ``SHARD_TIMED`` timed generations: env-steps/s and the
+    env steps of each generation."""
+    es.train(1, verbose=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    es.train(SHARD_TIMED, verbose=False)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    steps = sum(r["env_steps"] for r in es.history[1:])
+    return {"env_steps_per_s": steps / dt, "s_per_generation": dt / SHARD_TIMED,
+            "env_steps": [r["env_steps"] for r in es.history],
+            "reward_mean": [r["reward_mean"] for r in es.history]}
+
+
+def cublas_warm_up(torch, dev) -> None:
+    """One product of each kind the runs use, so cuBLAS's workspace (tens of
+    MiB, kept for the process's life) is allocated before a peak's baseline
+    is read: the smoke process has it from earlier phases, a rank's fresh
+    process not yet."""
+    a = torch.ones((2, 8, 8), device=dev)
+    (a[0] @ a[0]).sum().item()
+    torch.bmm(a, a).sum().item()
+
+
+def shard_rank_child(rank: int, pop: int, model: int, rdv: str, out_dir: str) -> None:
+    """One rank of phase 20 on cuda:0 (``python -c "import chip_smoke;
+    chip_smoke.shard_rank_child(...)"``): the sharded row in program mode
+    (and, at (1, 2), in table mode, one generation instrumented, a poisoned
+    update and the best member), with the kernels' launch counts read
+    around it.  Writes ``{pop}x{model}_rank{r}.json`` and ``.npz``."""
+    import numpy as np
+    import torch
+
+    import estorch_tpu_torch as tt
+    import estorch_tpu_torch.parallel.multihost as mh
+    from estorch_tpu_torch.ops import noise_kernels as nk
+    from estorch_tpu_torch.parallel import mesh as mesh_mod
+
+    from estorch_tpu_torch.parallel.sharded import NOISE_BLOCK_ELEMENTS
+
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    mh.initialize(f"file://{rdv}", num_processes=pop * model, process_id=rank, device="cuda:0",
+                  cpu_collectives=True, timeout_s=300)
+    mesh = mh.global_hyperscale_mesh(pop, model)
+    facts: dict = {"rank": rank, "mesh": repr(mesh)}
+    arrays: dict = {}
+    nk.reset_launch_counts()
+    cublas_warm_up(torch, dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    es = shard_es(tt, mesh=mesh, shard_params=True)
+    arrays["noise0"] = shard_noise(torch, es, SHARD_NOISE_ROWS)
+    facts["program"] = shard_timed(torch, es)
+    facts["program"]["peak_allocated_bytes"] = torch.cuda.max_memory_allocated(dev) - base
+    facts["program"]["memory"] = es.engine.memory_facts(es.state)
+    facts["program"]["sharding"] = es.history[0]["cost_model"].get("sharding")
+    facts["program"]["report"] = es.engine.sharding_report()
+    arrays["program_params"] = es.state.params_flat.cpu().numpy()
+    eng = es.engine
+    shared = [lf for lf in eng.layout.leaves if lf.shard_dim is None]
+    arrays["shared_local"] = torch.cat(
+        [es.state.params_local[lf.local_offset:lf.local_offset + lf.local_size]
+         for lf in shared]).cpu().numpy() if shared else np.zeros(0, np.float32)
+    facts["shared_leaves"] = ["/".join(lf.path) for lf in shared]
+    if (pop, model) == (1, 2):
+        # one more generation instrumented: every all-reduce timed between
+        # synchronizes, the program noise's blocks counted
+        calls = {"n": 0, "s": 0.0, "noise_blocks": 0}
+        real_reduce, real_program = mesh_mod._all_reduce, eng._program
+
+        def timed_reduce(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = real_reduce(*a, **k)
+            torch.cuda.synchronize()
+            calls["n"] += 1
+            calls["s"] += time.perf_counter() - t
+            return out
+
+        def counted_program(*a, **k):
+            calls["noise_blocks"] += 1
+            return real_program(*a, **k)
+
+        mesh_mod._all_reduce, eng._program = timed_reduce, counted_program
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        es.train(1, verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        mesh_mod._all_reduce, eng._program = real_reduce, real_program
+        # the launches of one noise block of the generation's usual size
+        draws = eng._draws(es.state, None)
+        big = max(eng.layout.leaves, key=lambda lf: lf.local_size)
+        i = eng.layout.leaves.index(big)
+        rows = torch.arange(max(1, NOISE_BLOCK_ELEMENTS // big.local_size))  # one block
+        block = kernel_launches(device_events(
+            torch, lambda: eng._dense_noise(i, rows, draws)))
+        facts["instrumented"] = {"all_reduces": calls["n"], "all_reduce_s": calls["s"],
+                                 "generation_s": wall, "noise_blocks": calls["noise_blocks"],
+                                 "launches_per_noise_block": block,
+                                 "noise_launches": calls["noise_blocks"] * block}
+        # table mode, against the replicated world 1 in the smoke process
+        es_t = shard_es(tt, mesh=mesh, shard_params=True, noise_mode="table")
+        facts["table"] = shard_timed(torch, es_t)
+        arrays["table_params"] = es_t.state.params_flat.cpu().numpy()
+        del es_t
+        # a poisoned update at generation 1: rejected in the engine (the
+        # input state returned, the same generation), then the run goes on
+        with_chaos([{"kind": "nan_update", "gen": 1}])
+        try:
+            es_c = shard_es(tt, mesh=mesh, shard_params=True)
+            s1, m0 = es_c.engine.generation_step(es_c.state)
+            best = int(torch.argmax(m0["fitness"]))
+            facts["best_theta_equal"] = bool(torch.equal(
+                es_c.engine.layout.gather(m0["best_theta"]),
+                es_c.engine.member_params(es_c.state, best)))
+            s2, m1 = es_c.engine.generation_step(s1)
+            s3, _ = es_c.engine.generation_step(s2)
+            facts["chaos"] = {"rejected_in_engine": s2 is s1 and not bool(m1["update_finite"]),
+                              "generation_after_rejection": int(s2.generation),
+                              "generation_after_rerun": int(s3.generation),
+                              "finite_after": bool(torch.isfinite(s3.params_local).all())}
+        finally:
+            with_chaos(None)
+    facts["launches"] = dict(nk.launch_counts)
+    with open(os.path.join(out_dir, f"{pop}x{model}_rank{rank}.json"), "w") as f:
+        json.dump(facts, f)
+    np.savez(os.path.join(out_dir, f"{pop}x{model}_rank{rank}.npz"), **arrays)
+    mh.shutdown()
+
+
+def _run_shard_ranks(pop: int, model: int, work: str) -> tuple[list, list, float]:
+    """Start the ``pop·model`` ranks of one mesh on cuda:0 and read their
+    facts and arrays back."""
+    import numpy as np
+
+    env = dict(os.environ)
+    env.pop("ESTORCH_CHAOS", None)
+    rdv = os.path.join(work, f"rdv{pop}x{model}")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke.shard_rank_child({r}, {pop}, "
+         f"{model}, {rdv!r}, {work!r})"],
+        cwd=HERE, env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        for r in range(pop * model)]
+    try:
+        errs = [p.communicate(timeout=600)[1] for p in procs]
+    except subprocess.TimeoutExpired:
+        fail(f"phase 20: a rank of ({pop}, {model}) did not finish in 600 s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, err) in enumerate(zip(procs, errs)):
+        if p.returncode != 0:
+            fail(f"phase 20: rank {r} of ({pop}, {model}) exited {p.returncode}\n{err[-3000:]}")
+    facts, arrays = [], []
+    for r in range(pop * model):
+        with open(os.path.join(work, f"{pop}x{model}_rank{r}.json")) as f:
+            facts.append(json.load(f))
+        arrays.append(dict(np.load(os.path.join(work, f"{pop}x{model}_rank{r}.npz"))))
+    return facts, arrays, time.perf_counter() - t0
+
+
+def run_sharded(torch, tt, nk, card: str) -> dict:
+    """Phase 20: the JAX package's sharded row at world 1 in this process
+    (the replicated ES, and the (1, 1) mesh in program mode), then as 2
+    gloo ranks on cuda:0 at (1, 2) and at (2, 1)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    dev = torch.device("cuda")
+
+    def peak_of(build, noise: bool = False):
+        """Build and run; the peak allocation over both, and generation 0's
+        noise read before the run when asked."""
+        torch.cuda.empty_cache()
+        cublas_warm_up(torch, dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        es = build()
+        noise0 = shard_noise(torch, es, SHARD_NOISE_ROWS) if noise else None
+        run = shard_timed(torch, es)
+        run["peak_allocated_bytes"] = torch.cuda.max_memory_allocated(dev) - base
+        return es, run, noise0
+
+    # the replicated run with the kernel update: its float64 sum rounded once,
+    # as the sharded update's float64 partials are (F22)
+    rep, rep_run, _ = peak_of(lambda: shard_es(tt, noise_kernel=True))
+    rep_params = rep.state.params_flat.cpu().numpy()
+    rep_bytes = 4 * rep.spec.dim
+    del rep
+    nk.reset_launch_counts()
+    one, one_run, one_noise = peak_of(lambda: shard_es(tt, shard_params=True), noise=True)
+    one_params = one.state.params_flat.cpu().numpy()
+    one_launches = dict(nk.launch_counts)
+    del one
+    torch.cuda.empty_cache()
+    for label, run in (("replicated (world 1, table, kernel update)", rep_run),
+                       ("sharded (1, 1) program", one_run)):
+        print(f"{label}: {run['env_steps_per_s']:.0f} env-steps/s "
+              f"({run['s_per_generation']:.4f} s a generation), peak allocated "
+              f"{run['peak_allocated_bytes'] / 2**20:.1f} MiB, on {card}")
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_shard_")
+    try:
+        f12, a12, wall12 = _run_shard_ranks(1, 2, work)
+        f21, a21, wall21 = _run_shard_ranks(2, 1, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    launches = {"world 1": one_launches}
+    for tag, facts in (("1x2", f12), ("2x1", f21)):
+        for f in facts:
+            launches[f"{tag} rank {f['rank']}"] = f["launches"]
+    if any(v for counts in launches.values() for v in counts.values()):
+        fail(f"phase 20: a kernel launched on the sharded path: {launches}")
+
+    # table mode at (1, 2) against the replicated world 1
+    t12 = f12[0]["table"]
+    if t12["env_steps"] != rep_run["env_steps"]:
+        fail(f"phase 20: table-mode env steps {t12['env_steps']} != replicated "
+             f"{rep_run['env_steps']}")
+    table_err = float(np.abs(a12[0]["table_params"] - rep_params).max())
+    if not np.allclose(a12[0]["table_params"], rep_params, rtol=SHARD_RTOL, atol=SHARD_ATOL):
+        fail(f"phase 20: table mode at (1, 2) is {table_err:g} from the replicated run")
+    print(f"table mode (1, 2) against the replicated world 1: env steps equal, max |Δparam| "
+          f"{table_err:.3g} (tol rtol {SHARD_RTOL:g}, atol {SHARD_ATOL:g})")
+    # program mode: the same noise bits and params on every shape
+    for tag, arrays in (("(1, 2)", a12), ("(2, 1)", a21)):
+        for r, a in enumerate(arrays):
+            if a["noise0"].tobytes() != one_noise.tobytes():
+                fail(f"phase 20: generation 0's noise at {tag} rank {r} differs from (1, 1)'s")
+            if a["program_params"].tobytes() != arrays[0]["program_params"].tobytes():
+                fail(f"phase 20: the ranks' params differ at {tag}")
+        err = float(np.abs(arrays[0]["program_params"] - one_params).max())
+        if not np.allclose(arrays[0]["program_params"], one_params, rtol=SHARD_RTOL,
+                           atol=SHARD_ATOL):
+            fail(f"phase 20: program mode at {tag} is {err:g} from (1, 1)")
+        print(f"program mode {tag}: generation 0's noise ({SHARD_NOISE_ROWS} rows x "
+              f"{one_noise.shape[1]}) bit-identical to (1, 1)'s on every rank; max |Δparam| "
+              f"{err:.3g} from (1, 1) (tol rtol {SHARD_RTOL:g}, atol {SHARD_ATOL:g})")
+    # the leaves both ranks hold whole, bit-identical
+    for tag, arrays in (("(1, 2)", a12), ("(2, 1)", a21)):
+        if any(a["shared_local"].tobytes() != arrays[0]["shared_local"].tobytes()
+               for a in arrays[1:]):
+            fail(f"phase 20: a leaf held by both ranks differs at {tag}")
+    print(f"shared leaves bit-identical across ranks: (1, 2) {f12[0]['shared_leaves']}, "
+          f"(2, 1) {f21[0]['shared_leaves']}")
+    # memory at (1, 2): exact state bytes, and each rank's peak under world 1's
+    for f in f12:
+        mem = f["program"]["memory"]
+        ratio = mem["local_dim"] / (rep_bytes / 4)
+        if (mem["local_dim"] != SHARD_LOCAL_1X2 or mem["param_bytes"] != 4 * SHARD_LOCAL_1X2
+                or mem["opt_state_bytes"] != 8 * SHARD_LOCAL_1X2):
+            fail(f"phase 20: rank {f['rank']}'s state bytes {mem}, expected "
+                 f"{SHARD_LOCAL_1X2} floats")
+        peak = f["program"]["peak_allocated_bytes"]
+        if not peak < rep_run["peak_allocated_bytes"]:
+            fail(f"phase 20: rank {f['rank']}'s peak {peak} is not under the replicated "
+                 f"run's {rep_run['peak_allocated_bytes']}")
+        print(f"rank {f['rank']} at (1, 2): params {mem['param_bytes']} B + Adam "
+              f"{mem['opt_state_bytes']} B = {ratio:.3f}x world 1's; peak allocated "
+              f"{peak / 2**20:.1f} MiB against the replicated run's "
+              f"{rep_run['peak_allocated_bytes'] / 2**20:.1f} MiB (max_memory_allocated "
+              f"{mem.get('max_allocated_bytes', 0) / 2**20:.1f} MiB since init_state), on {card}")
+    # the poisoned update, the best member, the cost model's sharding block
+    chaos = [f["chaos"] for f in f12]
+    if not all(c["rejected_in_engine"] and c["generation_after_rejection"] == 1
+               and c["generation_after_rerun"] == 2 and c["finite_after"] for c in chaos):
+        fail(f"phase 20: the poisoned update was not rejected alike: {chaos}")
+    if not all(f["best_theta_equal"] for f in f12):
+        fail("phase 20: the gathered best_theta is not member_params of the best member")
+    sharding = f12[0]["program"]["sharding"]
+    if not sharding or sharding.get("model_shards") != 2:
+        fail(f"phase 20: the records' cost model has no sharding block for (1, 2): {sharding}")
+    print(f"poisoned update at generation 1 rejected in the engine on both ranks alike "
+          f"(generation stays 1, the re-run reaches 2); best_theta gathered == member_params; "
+          f"cost model sharding {sharding}")
+    ins = f12[0]["instrumented"]
+    print(f"(1, 2) instrumented generation: {ins['all_reduces']} gloo all-reduces, "
+          f"{ins['all_reduce_s']:.3f} s of its {ins['generation_s']:.3f} s "
+          f"({ins['all_reduce_s'] / ins['generation_s']:.3f}); program noise "
+          f"{ins['noise_blocks']} blocks x {ins['launches_per_noise_block']} launches = "
+          f"{ins['noise_launches']} launches a generation, on {card}")
+    rows = {"replicated (1, 1) table": rep_run, "sharded (1, 1) program": one_run,
+            "sharded (1, 2) program": f12[0]["program"], "sharded (1, 2) table": t12,
+            "sharded (2, 1) program": f21[0]["program"]}
+    for label, run in rows.items():
+        print(f"{label}: {run['env_steps_per_s']:.0f} env-steps/s "
+              f"({run['s_per_generation']:.4f} s a generation) on {card}")
+    print(f"rank processes: (1, 2) {wall12:.1f} s, (2, 1) {wall21:.1f} s from spawn to exit")
+    return {"config": {"env": "SyntheticEnv 376 -> 17", "policy": SHARD_POLICY,
+                       "population": SHARD_POP, "horizon": SHARD_HORIZON,
+                       "eval_chunk": SHARD_CHUNK, "table_size": SHARD_TABLE},
+            "runs": {k: {kk: v for kk, v in run.items() if kk != "report"}
+                     for k, run in rows.items()},
+            "table_vs_replicated_max_abs": table_err, "launches": launches,
+            "instrumented_1x2": ins, "memory_1x2": [f["program"]["memory"] for f in f12],
+            "peak_1x2_bytes": [f["program"]["peak_allocated_bytes"] for f in f12],
+            "peak_replicated_bytes": rep_run["peak_allocated_bytes"],
+            "sharding_report_1x2": f12[0]["program"]["report"], "chaos": chaos,
+            "ranks_wall_s": {"1x2": wall12, "2x1": wall21}}
+
+
 def main() -> None:
     import torch
 
@@ -4442,6 +4850,21 @@ def main() -> None:
               f"({nbytes / 1e6:.1f} MB distinct)")
         wns.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, max_abs_err=err,
                    bound_by="bytes" if nbytes / bw >= flops / f64 else "operations")
+        # the float64 output (a rank's partial before the ranks' sum, F22):
+        # against the plain version's float64 product (float64 sums of
+        # float32 products in another order: far under 1e-9 at this size),
+        # and rounded, the float32 output bit for bit
+        got64 = nk.weighted_noise_sum(table, offs, w, dim, out_dtype=torch.float64)
+        want64 = nk.weighted_noise_sum_plain(table, offs, w, dim, out_dtype=torch.float64)
+        err64 = float((got64 - want64).abs().max())
+        if not (err64 <= 1e-9 and torch.equal(got64.float(), got)):
+            fail(f"weighted_noise_sum float64 output n={n} dim={dim}: max |err| {err64:g}, "
+                 f"rounded equal to the float32 output: {torch.equal(got64.float(), got)}")
+        ms64 = time_ms(torch, lambda: nk.weighted_noise_sum(table, offs, w, dim,
+                                                            out_dtype=torch.float64))
+        print(f"  float64 output: max |err| {err64:.3g} against the plain version (tol 1e-9), "
+              f"rounded bit-equal to the float32 output; time {ms64:.4f} ms on {card}")
+        wns.update(f64_ms=ms64, f64_max_abs_err=err64)
 
     # population_noise_matvec: three launches an env step, one per layer.
     # Tolerance: float32 dot products of d <= 256 terms in another order.
@@ -4713,6 +5136,10 @@ def main() -> None:
     phase("19. elastic hosts")
     elastic = run_elastic(torch, estorch_tpu_torch, nk, card)
 
+    # ---- 20. param sharding on one card -----------------------------------------
+    phase("20. param sharding")
+    sharded = run_sharded(torch, estorch_tpu_torch, nk, card)
+
     # ---- report --------------------------------------------------------------
     phase("report")
     kernels = [
@@ -4739,7 +5166,9 @@ def main() -> None:
          "launches_multigpu": {k: v["weighted_noise_sum"]
                                for k, v in data_parallel["launches"].items()},
          "launches_elastic": elastic["launches"]["weighted_noise_sum"],
-         "launches_elastic_hosts": {"host 0": elastic["host0"]["launches"]["weighted_noise_sum"]}},
+         "launches_elastic_hosts": {"host 0": elastic["host0"]["launches"]["weighted_noise_sum"]},
+         "launches_sharded": sum(v["weighted_noise_sum"] for v in sharded["launches"].values()),
+         "f64_output_ms": wns["f64_ms"], "f64_output_max_abs_err": wns["f64_max_abs_err"]},
         {"name": "population_noise_matvec", "route": "cuda",
          "source": "estorch_tpu_torch/ops/csrc/noise_kernels.cu",
          "replaces": "estorch_tpu/ops/pallas_noise.py:201",
@@ -4762,13 +5191,16 @@ def main() -> None:
                                for k, v in data_parallel["launches"].items()},
          "launches_elastic": elastic["launches"]["population_noise_matvec"],
          "launches_elastic_hosts": {
-             "host 0": elastic["host0"]["launches"]["population_noise_matvec"]}},
+             "host 0": elastic["host0"]["launches"]["population_noise_matvec"]},
+         "launches_sharded": sum(v["population_noise_matvec"]
+                                 for v in sharded["launches"].values())},
     ]
     print(json.dumps({"paths": paths, "eval_chunk": chunking, "card_vs_cpu_envs": env_cmp,
                       "async": async_paths, "crash_safe": crash_safe,
                       "attribution": attribution, "serving": serving,
                       "scenarios": scenarios, "fleet": fleet,
-                      "data_parallel": data_parallel, "elastic": elastic}))
+                      "data_parallel": data_parallel, "elastic": elastic,
+                      "sharded": sharded}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -47,9 +47,14 @@ data-parallel group: each rank evaluates its block of the population and
 the ranks sum the update (``parallel/engine.py``); every rank ends each
 generation with the same bits.  The JAX package's ``device=None`` spans
 every local chip; here one process drives one device (ROADMAP F21), and a
-multi-card run is one process a card.  The options not ported yet
-(``shard_params`` and the sharding options) raise ``NotImplementedError``
-naming their ``ROADMAP.md`` item.  The novelty
+multi-card run is one process a card.  ``shard_params=True`` runs the
+param-sharded engine (``parallel/sharded.py``) over a ``HyperscaleMesh``
+(``multihost.global_hyperscale_mesh(model_shards=…)`` in each of N
+processes, or the one-process ``(1, 1)`` mesh): each rank holds its shards
+of the params and of the optimizer state per ``partition_rules``, with
+``noise_mode`` "program" (the default: ε generated where it is used, no
+table) or "table"; it covers ``MLPPolicy``'s forward, and the NatureCNN
+conv trunk waits for ROADMAP item 7d.  The novelty
 family (``algo/nses.py``) and IW-ES (``algo/iwes.py``) subclass ``ES`` and
 share its record plumbing (``_base_record``, ``_emit_record``,
 ``_format_record``).  ``device`` is ``"cuda"`` unless
@@ -105,8 +110,6 @@ from ..parallel.engine import _VBN_STREAM, EngineConfig, ESEngine, _seed_of
 from ..parallel.pooled import PooledEngine
 from ..utils.backend import resolve_device
 
-_ROADMAP = "ROADMAP.md, port queue"
-_PARAM_SHARDED = "7c, the param-sharded engine"
 
 # options that only the device and pooled backends have: (keyword, its
 # default, the JAX package's ValueError for a host agent)
@@ -138,10 +141,6 @@ def _instantiate(cls_or_obj, kwargs, what: str):
             f"{what}_kwargs were given alongside an already-constructed {what} "
             f"instance; they would be ignored: {kwargs}")
     return cls_or_obj
-
-
-def _unsupported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet ({_ROADMAP} item: {item})")
 
 
 class ES:
@@ -192,9 +191,17 @@ class ES:
         self.obs = resolve_telemetry(telemetry)
         self._t_created = time.monotonic()  # native loads from here on are this ES's
         self.obs.note("init")
-        if model_shards is not None or partition_rules is not None or noise_mode != "auto":
-            _unsupported("model_shards / partition_rules / noise_mode (the param-sharded "
-                         "engine)", _PARAM_SHARDED)
+        # the param-sharded engine (parallel/sharded.py): params and optimizer
+        # state sharded over a (pop, model) mesh per regex partition rules
+        self._shard_params = bool(shard_params)
+        if noise_mode not in ("auto", "program", "table"):
+            raise ValueError(f"noise_mode must be auto|program|table, got {noise_mode!r}")
+        self._noise_mode = "program" if noise_mode == "auto" else noise_mode
+        if not shard_params and (model_shards is not None or partition_rules is not None
+                                 or noise_mode != "auto"):
+            raise ValueError(
+                "model_shards/partition_rules/noise_mode configure the "
+                "param-sharded engine; pass shard_params=True")
         if compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(
                 f"compute_dtype must be float32 or bfloat16, got {compute_dtype!r}")
@@ -271,8 +278,19 @@ class ES:
             raise TypeError("agent must be a DeviceAgent wrapping a batched device env or a "
                             "PooledAgent naming a pool env")
         if shard_params:
-            _unsupported("shard_params", _PARAM_SHARDED)
-        if mesh is not None:
+            from ..parallel.mesh import HyperscaleMesh, hyperscale_mesh
+
+            if mesh is None:
+                mesh = hyperscale_mesh(model_shards=model_shards, devices=device)
+            elif not isinstance(mesh, HyperscaleMesh):
+                raise TypeError(
+                    "shard_params needs a HyperscaleMesh (estorch_tpu_torch.parallel: "
+                    "multihost.global_hyperscale_mesh() or hyperscale_mesh()), got "
+                    f"{mesh!r}")
+            if device is not None and resolve_device(device) != mesh.device:
+                raise ValueError(f"device={device!r} but this rank's mesh device is "
+                                 f"{mesh.device}")
+        elif mesh is not None:
             from ..parallel.mesh import PopulationMesh
 
             if not isinstance(mesh, PopulationMesh):
@@ -338,7 +356,9 @@ class ES:
                 reference = collect_reference_batch(self.env, vbn_batch, gen).to(self.device)
             self.module.vbn_stats = capture_reference_stats(
                 self.module, self.spec.unravel(flat.to(self.device)), reference)
-        self.table = make_noise_table(table_size, seed=self.seed, device=self.device)
+        # sharded program noise never reads a table: none is allocated
+        self.table = (None if shard_params and self._noise_mode != "table"
+                      else make_noise_table(table_size, seed=self.seed, device=self.device))
         self.optimizer = _instantiate_optimizer(optimizer, optimizer_kwargs)
         self.config = EngineConfig(
             population_size=self.population_size,
@@ -362,7 +382,18 @@ class ES:
             obs_warmup_episodes=int(obs_warmup_episodes),
         )
         carry_init = self.module.carry_init if self._recurrent else None
-        if pooled:
+        if shard_params:
+            from ..parallel.sharded import ShardedESEngine
+
+            if self._recurrent:
+                raise ValueError(
+                    "shard_params currently supports feedforward policies; "
+                    "recurrent carries stay on the replicated engine "
+                    "(docs/sharding.md)")
+            self.engine = ShardedESEngine(
+                self.env, self.module, self.spec, self.table, self.optimizer, self.config,
+                mesh, partition_rules=partition_rules, noise_mode=self._noise_mode)
+        elif pooled:
             a = self.agent
             self.engine = PooledEngine(
                 a.env_name, self.module, self.spec, self.table, self.optimizer, self.config,
@@ -426,8 +457,10 @@ class ES:
             return generation_cost(
                 population=self.population_size, matmul_shapes=shapes, param_dim=param_dim,
                 horizon=horizon, episodes_per_member=episodes, mirrored=mirrored,
-                low_rank=low_rank, dtype_bytes=dtype_bytes, noise="table",
-                n_devices=mesh.devices.size if mesh is not None else 1)
+                low_rank=low_rank, dtype_bytes=dtype_bytes,
+                noise=self._noise_mode if self._shard_params else "table",
+                n_devices=mesh.devices.size if mesh is not None else 1,
+                model_shards=mesh.model_shards if self._shard_params else 1)
         except Exception:  # noqa: BLE001 — diagnostic, never a failed construction
             return None
 
@@ -592,7 +625,10 @@ class ES:
 
             reason = self._update_anomaly(metrics)
             if reason is not None:
-                self.state = prev_state
+                # the sharded engine rolled back already: it returned the
+                # input state, the same generation on every rank
+                if not self._shard_params:
+                    self.state = prev_state
                 rejected_streak += 1
                 self._count_rejection(reason, metrics)
                 if rejected_streak > max_consecutive_rejections:
@@ -602,7 +638,8 @@ class ES:
                 continue
             rejected_streak = 0
             record = self._base_record(prev_state, metrics["fitness"], metrics["steps"],
-                                       metrics["grad_norm"], dt, sigma=metrics["sigma"])
+                                       metrics["grad_norm"], dt, sigma=metrics["sigma"],
+                                       metrics=metrics)
             self._attach_scenarios(record, metrics["fitness"], metrics)
             self._emit_record(record, log_fn, verbose)
             done += 1
@@ -623,7 +660,8 @@ class ES:
         """A generation's metrics as host values, with the σ it sampled
         under: ``fitness`` (NumPy), ``steps``, ``grad_norm``, ``n_valid``,
         ``update_finite``, ``sigma``; under scenarios also ``bc`` (NumPy),
-        whose last column is each member's variant.
+        whose last column is each member's variant.  The sharded engine's
+        ``best_theta`` (this rank's shard) passes through on the device.
 
         Tensors on the card are copied into pinned buffers on a side stream
         that waits on ``queued`` (a CUDA event recorded after the
@@ -658,6 +696,8 @@ class ES:
                "update_finite": bool(vals["update_finite"]), "sigma": float(vals["sigma"])}
         if "bc" in vals:
             out["bc"] = np.asarray(vals["bc"])
+        if "best_theta" in metrics:
+            out["best_theta"] = metrics["best_theta"]
         return out
 
     def _count_rejection(self, reason: str, metrics: dict) -> None:
@@ -756,27 +796,37 @@ class ES:
         log (None before one)."""
         return getattr(self, "_async_log", None)
 
-    def _track_best(self, prev_state, fitness: np.ndarray) -> tuple[float, bool]:
+    def _track_best(self, prev_state, fitness: np.ndarray,
+                    metrics: dict | None = None) -> tuple[float, bool]:
         """Best-member snapshot: (generation max, whether it is a new best).
-        A new best's params are rebuilt from the generation's offsets."""
+        A new best's params are rebuilt from the generation's offsets, or,
+        on the sharded engine, gathered from ``metrics["best_theta"]`` (the
+        ranks' shards; the improvement is the global fitness's, so every
+        rank gathers)."""
         finite_any = bool(np.isfinite(fitness).any())
         gen_best = float(np.nanmax(fitness)) if finite_any else float("nan")
         improved = finite_any and gen_best > self.best_reward
         if improved:
             self.best_reward = gen_best
-            self._best_flat = self.engine.member_params(prev_state, int(np.nanargmax(fitness)))
+            if metrics is not None and "best_theta" in metrics:
+                self._best_flat = self.engine.layout.gather(metrics["best_theta"])
+            else:
+                self._best_flat = self.engine.member_params(prev_state,
+                                                            int(np.nanargmax(fitness)))
         return gen_best, improved
 
     def _base_record(self, prev_state, fitness: np.ndarray, steps: int,
-                     grad_norm: float, dt: float, sigma: float | None = None) -> dict:
+                     grad_norm: float, dt: float, sigma: float | None = None,
+                     metrics: dict | None = None) -> dict:
         """A generation's record, shared by every train loop (ES, the
         novelty family, IW-ES and the overlap scheduler add their fields to
         it).  ``sigma`` is the σ the generation sampled under, when the
-        caller has it on the host already."""
+        caller has it on the host already; ``metrics`` carries the sharded
+        engine's ``best_theta``."""
         fitness = np.asarray(fitness)
         finite_any = bool(np.isfinite(fitness).any())
         with self.obs.phase("record"):  # a new best's params are device work
-            gen_best, improved = self._track_best(prev_state, fitness)
+            gen_best, improved = self._track_best(prev_state, fitness, metrics)
         record = {
             "generation": self.generation,
             "reward_max": gen_best,
@@ -845,14 +895,20 @@ class ES:
             "low_rank": cfg.low_rank if cfg else 0,
             "decomposed": bool(cfg and cfg.decomposed),
             "streamed": bool(cfg and cfg.streamed),
-            "shard_params": False,
+            "shard_params": self._shard_params,
         }
         if self._scenarios is not None:
             # the spec and its draw seed are the scenarios: the manifest
             # names exactly what this run trained under
             config["scenarios"] = self._scenarios.spec_json()
         mesh = getattr(self, "mesh", None)
-        if mesh is not None and mesh.devices.size > 1:
+        if self._shard_params:
+            from ..parallel.mesh import partition_rules_to_json
+
+            config["noise_mode"] = self._noise_mode
+            config["mesh_axes"] = mesh.shape
+            config["partition_rules"] = partition_rules_to_json(self.engine.partition_rules)
+        elif mesh is not None and mesh.devices.size > 1:
             # this process lists its own device (process_index = its rank);
             # the mesh's size says how many ranks the run spans
             config["mesh_axes"] = mesh.shape

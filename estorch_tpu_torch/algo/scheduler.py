@@ -940,10 +940,13 @@ class ElasticScheduler(GenerationScheduler):
                          max_consecutive_rejections=max_consecutive_rejections)
 
     def _check_es(self, es) -> None:
-        if es.backend != "device":
+        if es.backend != "device" or es._shard_params:
             raise ValueError(
-                "ElasticScheduler folds on the coordinator's device engine (table noise); "
-                f"got backend={es.backend!r}")
+                "ElasticScheduler runs on the coordinator's replicated "
+                "device engine (table noise); hosts may run the sharded "
+                "program, the coordinator's fold/update programs are the "
+                f"replicated split path (got backend={es.backend!r}"
+                f"{', shard_params=True' if es._shard_params else ''})")
         es.engine._require_dense_noise("elastic host fold")
         if es.config.obs_norm:
             raise ValueError(
@@ -1049,17 +1052,25 @@ def train_overlap(es, n_steps: int, log_fn=None, verbose: bool = True,
                 if rejected_streak > max_consecutive_rejections:
                     raise RuntimeError(f"{reason}; {rejected_streak} consecutive "
                                        "generations rejected — check env/rollout health")
-                if speculative is not None:
-                    result_of(speculative)  # drain, then drop
-                    obs.counters.inc("speculative_discarded")
-                    obs.event("speculative_discarded", gen=int(done))
-                pending = submit(prev_state)
+                if es._shard_params:
+                    # the sharded engine rolled back in place: new_state IS the
+                    # input state, so the speculative run re-runs the same
+                    # generation from it deterministically: keep it
+                    es.state = prev_state = new_state
+                    pending = speculative if speculative is not None else submit(new_state)
+                else:
+                    if speculative is not None:
+                        result_of(speculative)  # drain, then drop
+                        obs.counters.inc("speculative_discarded")
+                        obs.event("speculative_discarded", gen=int(done))
+                    pending = submit(prev_state)
                 t0 = time.perf_counter()
                 continue
             rejected_streak = 0
             es.state = new_state
             record = es._base_record(prev_state, metrics["fitness"], metrics["steps"],
-                                     metrics["grad_norm"], dt, sigma=metrics["sigma"])
+                                     metrics["grad_norm"], dt, sigma=metrics["sigma"],
+                                     metrics=metrics)
             es._attach_scenarios(record, metrics["fitness"], metrics)
             es._emit_record(record, log_fn, verbose)
             done += 1

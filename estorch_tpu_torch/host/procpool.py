@@ -186,7 +186,8 @@ class ProcessPool:
             try:
                 self._conns[w].close()
             except OSError:
-                pass  # the pipe is gone with its worker either way
+                # the pipe is gone with its worker either way; say so
+                self.telemetry.event("respawn_conn_close_failed", worker=w)
             self._retired.append(p)
             self._spawn(w)
             n += 1

@@ -39,6 +39,8 @@ SIGNATURES = {
     "estorch_weighted_sum_rows_per_chunk": [],
     # table, table_size, offsets, weights, n, dim, partials, out, stream
     "estorch_weighted_noise_sum": [_P, _I64, _P, _P, _I, _I, _P, _P, _P],
+    # the same, out (dim,) float64
+    "estorch_weighted_noise_sum_f64": [_P, _I64, _P, _P, _I, _I, _P, _P, _P],
     # table, table_size, offsets, c, x, n, d, h, layer_offset, y, stream
     "estorch_population_noise_matvec": [_P, _I64, _P, _P, _P, _I, _I, _I, _I64, _P, _P],
 }

@@ -87,15 +87,18 @@ __global__ void weighted_sum_partials(const float* __restrict__ table,
   partials[static_cast<int64_t>(chunk) * dim + j] = acc;
 }
 
+// Out is float, or double where the caller sums several partial totals
+// before rounding once (the ranks' partials of a multi-rank update).
+template <typename Out>
 __global__ void sum_partials(const double* __restrict__ partials, int n_chunks,
-                             int dim, float* __restrict__ out) {
+                             int dim, Out* __restrict__ out) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= dim) return;
   double acc = 0.0;
   for (int c = 0; c < n_chunks; ++c) {
     acc += partials[static_cast<int64_t>(c) * dim + j];
   }
-  out[j] = static_cast<float>(acc);
+  out[j] = static_cast<Out>(acc);
 }
 
 // ---------------------------------------------------------------------------
@@ -310,11 +313,15 @@ extern "C" {
 
 int estorch_weighted_sum_rows_per_chunk() { return kRowsPerChunk; }
 
-// partials: (ceil(n / kRowsPerChunk), dim) float64 scratch from the caller.
-int estorch_weighted_noise_sum(const float* table, int64_t table_size,
-                               const int32_t* offsets, const float* weights,
-                               int n, int dim, double* partials, float* out,
-                               void* stream) {
+}  // extern "C"
+
+namespace {
+
+template <typename Out>
+int weighted_noise_sum_launch(const float* table, int64_t table_size,
+                              const int32_t* offsets, const float* weights,
+                              int n, int dim, double* partials, Out* out,
+                              void* stream) {
   if (n <= 0 || dim <= 0 || dim > table_size) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_chunks = (n + kRowsPerChunk - 1) / kRowsPerChunk;
@@ -323,8 +330,31 @@ int estorch_weighted_noise_sum(const float* table, int64_t table_size,
       table, table_size, offsets, weights, n, dim, partials);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  sum_partials<<<tiles, kSumThreads, 0, s>>>(partials, n_chunks, dim, out);
+  sum_partials<Out><<<tiles, kSumThreads, 0, s>>>(partials, n_chunks, dim, out);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// partials: (ceil(n / kRowsPerChunk), dim) float64 scratch from the caller.
+int estorch_weighted_noise_sum(const float* table, int64_t table_size,
+                               const int32_t* offsets, const float* weights,
+                               int n, int dim, double* partials, float* out,
+                               void* stream) {
+  return weighted_noise_sum_launch(table, table_size, offsets, weights, n, dim,
+                                   partials, out, stream);
+}
+
+// The same sum left in float64 (out: (dim,) double), for a caller that adds
+// it to other partial sums before its one rounding to float32.
+int estorch_weighted_noise_sum_f64(const float* table, int64_t table_size,
+                                   const int32_t* offsets, const float* weights,
+                                   int n, int dim, double* partials, double* out,
+                                   void* stream) {
+  return weighted_noise_sum_launch(table, table_size, offsets, weights, n, dim,
+                                   partials, out, stream);
 }
 
 int estorch_population_noise_matvec(const float* table, int64_t table_size,

@@ -19,12 +19,16 @@ from .noise import NoiseTable, gather_rows
 
 def rank_weighted_noise_sum(table: NoiseTable, offsets: torch.Tensor,
                             weights: torch.Tensor, dim: int,
-                            chunk: int = 256) -> torch.Tensor:
-    """Σ_i weights_i · ε_i, gathering at most ``chunk`` rows at a time."""
+                            chunk: int = 256, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Σ_i weights_i · ε_i, gathering at most ``chunk`` rows at a time.
+    ``dtype`` (default the table's) is the accumulator's: float64 sums
+    the float32 products exactly enough that any order rounds alike."""
     n = offsets.shape[0]
-    acc = torch.zeros((dim,), dtype=table.data.dtype, device=table.data.device)
+    dtype = table.data.dtype if dtype is None else dtype
+    acc = torch.zeros((dim,), dtype=dtype, device=table.data.device)
+    weights = weights.to(dtype)
     for lo in range(0, n, chunk):
-        rows = gather_rows(table.data, offsets[lo:lo + chunk], dim)
+        rows = gather_rows(table.data, offsets[lo:lo + chunk], dim).to(dtype)
         acc += weights[lo:lo + chunk] @ rows  # in place: one (dim,) buffer
     return acc
 

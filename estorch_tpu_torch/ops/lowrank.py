@@ -19,8 +19,10 @@ policies' among them, whose forward cannot be restructured around the
 factors: every 2-D leaf where r·(m+n) < m·n is factored, every other leaf
 (biases, the learned carry ``carry0_*``) takes dense noise, in
 ``ravel_pytree``'s leaf order; each member's dense perturbation is formed
-once an episode and the rollout is the standard one.  The in-program
-factors of the sharded engine wait for ROADMAP.md port queue item 7.
+once an episode and the rollout is the standard one.  The param-sharded
+engine (``parallel/sharded.py``) generates its factors instead of slicing
+them: :func:`lowrank_program_factors` on the program noise stream
+(``ops/noise.py``), by the same r·(m+n) < m·n rule.
 """
 
 from __future__ import annotations
@@ -64,6 +66,12 @@ class LowRankSpec:
         return {k: tuple(v) for k, v in out.items()}
 
 
+def lowrank_factors_save(rank: int, m: int, n: int) -> bool:
+    """Whether an (m, n) leaf factors at rank r: only where it saves noise
+    floats, r·(m+n) < m·n (which also implies r < min(m, n))."""
+    return int(rank) * (m + n) < m * n
+
+
 def make_lowrank_spec(params: Any, rank: int) -> LowRankSpec:
     """Layout from an MLP param dict ({name: {kernel, bias}})."""
     from ..models.decomposed import _ordered_dense_names
@@ -75,8 +83,7 @@ def make_lowrank_spec(params: Any, rank: int) -> LowRankSpec:
     off = 0
     for name in names:
         m, n = (int(s) for s in params[name]["kernel"].shape)
-        # factor only where it saves floats (this also implies r < min(m, n))
-        if rank * (m + n) < m * n:
+        if lowrank_factors_save(rank, m, n):
             lr_layers.append((name, m, n, off, off + m * rank))
             off += (m + n) * rank
         else:
@@ -173,7 +180,7 @@ def make_lowrank_tree_spec(params: dict, rank: int) -> LowRankTreeSpec:
     lr_leaves, dense_leaves = [], []
     off = 0
     for i, shape in enumerate(spec.shapes):
-        if len(shape) == 2 and rank * (shape[0] + shape[1]) < shape[0] * shape[1]:
+        if len(shape) == 2 and lowrank_factors_save(rank, *shape):
             m, n = shape
             lr_leaves.append((i, m, n, off, off + m * rank))
             off += (m + n) * rank
@@ -241,3 +248,20 @@ def lowrank_tree_weighted_sum(spec: LowRankTreeSpec, noise_mat: torch.Tensor,
     for i, shape, size, off in spec.dense_leaves:
         leaves[i] = (weights @ noise_mat[:, off:off + size]).reshape(shape)
     return spec.tree(leaves)
+
+
+def lowrank_program_factors(rank: int, leaf_key: tuple, rows: torch.Tensor,
+                            a_elements: torch.Tensor, b_elements: torch.Tensor):
+    """Program-noise factors of one (m, n) leaf for noise rows ``rows``:
+    A (k, ·, r) and B (k, ·, r), the entries ``a_elements`` of A (m, r) and
+    ``b_elements`` of B (n, r), row-major indices (all of a factor, or the
+    rank's rows of the one on the sharded dim).  ``leaf_key`` is the leaf's
+    (``ops/noise.py`` ``leaf_noise_keys``); the sharded engine's table-free
+    counterpart of :meth:`LowRankSpec.unpack`.  Entries of
+    :func:`dense_kernel` of the pair are zero-mean with unit variance."""
+    from .noise import factor_keys, program_noise
+
+    ka, kb = factor_keys(leaf_key)
+    k = rows.shape[0]
+    return (program_noise(ka, rows, a_elements).view(k, -1, rank),
+            program_noise(kb, rows, b_elements).view(k, -1, rank))

@@ -132,3 +132,88 @@ def member_noise(table: NoiseTable, offsets: torch.Tensor, signs: torch.Tensor,
     population's noise.
     """
     return gather_rows(table.data, offsets, dim) * signs[:, None]
+
+
+# ---------------------------------------------------------------------------
+# program noise (the param-sharded engine, parallel/sharded.py)
+# ---------------------------------------------------------------------------
+#
+# ε generated where it is used, keyed on (seed, generation, leaf, row) and
+# addressed by element: the value of element e of leaf i in noise row r
+# depends on (seed, generation, i, r, e) alone, so a rank generates exactly
+# its shard and every mesh shape gets the same bits.  The generator is
+# Threefry-2x32 with 20 rounds (Salmon et al. 2011, the counter-based
+# generator JAX uses) in int64 torch ops on 32-bit words: the key is the
+# leaf's, the counter (row, element); its two output words give the two
+# uniforms of one Box–Muller normal, formed in float64 and rounded once.
+# The stream is the port's own (ROADMAP F24): JAX's program noise comes from
+# jax.random.normal, whose bits the tests hand over instead.
+
+_MASK32 = 0xFFFFFFFF
+_THREEFRY_ROT = (13, 15, 26, 6, 17, 29, 16, 24)
+_THREEFRY_PARITY = 0x1BD11BDA
+PROGRAM_STREAM_SALT = 0x9E3779B9  # the generation key's second counter word
+_LEAF_SALT = 0x7F4A7C15
+_FACTOR_SALT = 0x94D049BB
+
+
+def threefry2x32_(key: tuple, x0: torch.Tensor, x1: torch.Tensor) -> None:
+    """Threefry-2x32-20 of the counter words ``(x0, x1)`` under ``key``
+    ``(k0, k1)``, in place on two int64 tensors of 32-bit words (one
+    temporary), so a block's generator holds three word tensors at a time."""
+    k0, k1 = int(key[0]) & _MASK32, int(key[1]) & _MASK32
+    ks = (k0, k1, k0 ^ k1 ^ _THREEFRY_PARITY)
+    x0.add_(ks[0]).bitwise_and_(_MASK32)
+    x1.add_(ks[1]).bitwise_and_(_MASK32)
+    t = torch.empty_like(x1)
+    for i in range(20):
+        r = _THREEFRY_ROT[i % 8]
+        x0.add_(x1).bitwise_and_(_MASK32)
+        torch.bitwise_left_shift(x1, r, out=t)
+        x1.bitwise_right_shift_(32 - r).bitwise_or_(t).bitwise_and_(_MASK32)
+        x1.bitwise_xor_(x0)
+        if i % 4 == 3:
+            j = i // 4 + 1
+            x0.add_(ks[j % 3]).bitwise_and_(_MASK32)
+            x1.add_(ks[(j + 1) % 3] + j).bitwise_and_(_MASK32)
+
+
+def threefry2x32(key: tuple, x0: int, x1: int) -> tuple[int, int]:
+    """:func:`threefry2x32_` of one counter ``(x0, x1)``, as Python ints
+    (the host-side key derivation)."""
+    w0 = torch.tensor([int(x0) & _MASK32], dtype=torch.int64)
+    w1 = torch.tensor([int(x1) & _MASK32], dtype=torch.int64)
+    threefry2x32_(key, w0, w1)
+    return int(w0), int(w1)
+
+
+def leaf_noise_keys(seed: int, generation: int, n_leaves: int) -> list[tuple[int, int]]:
+    """Per-leaf keys of one generation's program noise: leaf ``i`` of the
+    param tree (ravel order) draws under key ``i`` of this list."""
+    seed = int(seed)
+    gen_key = threefry2x32((seed & _MASK32, (seed >> 32) & _MASK32),
+                           int(generation) & _MASK32, PROGRAM_STREAM_SALT)
+    return [threefry2x32(gen_key, i, _LEAF_SALT) for i in range(int(n_leaves))]
+
+
+def program_noise(leaf_key: tuple, rows: torch.Tensor, elements: torch.Tensor) -> torch.Tensor:
+    """``(len(rows), len(elements))`` float32 standard normals: element
+    ``elements[j]`` (a row-major index into the leaf) of noise row
+    ``rows[i]`` under ``leaf_key``, on the elements' device."""
+    dev = elements.device
+    rows = rows.to(dev, torch.int64).reshape(-1, 1)
+    elements = elements.to(torch.int64).reshape(1, -1)
+    shape = (rows.shape[0], elements.shape[1])
+    w0, w1 = rows.expand(shape).clone(), elements.expand(shape).clone()
+    threefry2x32_(leaf_key, w0, w1)
+    # two uniforms in (0, 1) from the 32-bit words, centred in their cells,
+    # then sqrt(-2 ln u1)·cos(2π u2), each step in place
+    z = w0.to(torch.float64).add_(0.5).mul_(2.0 ** -32).log_().mul_(-2.0).sqrt_()
+    del w0
+    z.mul_(w1.to(torch.float64).add_(0.5).mul_(2.0 ** -32).mul_(2.0 * np.pi).cos_())
+    return z.to(torch.float32)
+
+
+def factor_keys(leaf_key: tuple) -> tuple[tuple[int, int], tuple[int, int]]:
+    """The keys of a low-rank leaf's two factors (A, then B)."""
+    return (threefry2x32(leaf_key, 0, _FACTOR_SALT), threefry2x32(leaf_key, 1, _FACTOR_SALT))

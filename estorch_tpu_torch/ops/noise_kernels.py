@@ -58,27 +58,41 @@ def _raise_on_error(err: int, what: str) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _out_dtype(out_dtype: torch.dtype) -> torch.dtype:
+    if out_dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"out_dtype must be torch.float32 or torch.float64, got {out_dtype}")
+    return out_dtype
+
+
 def weighted_noise_sum_plain(table_data: torch.Tensor, offsets: torch.Tensor,
-                             weights: torch.Tensor, dim: int) -> torch.Tensor:
+                             weights: torch.Tensor, dim: int,
+                             out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Gather the n rows, then ``weights @ rows`` in float64, rounded to
-    float32 once: the kernel's sum, in another order.  Zeros when n = 0."""
+    float32 once (or left in float64 with ``out_dtype=torch.float64``): the
+    kernel's sum, in another order.  Zeros when n = 0."""
+    out_dtype = _out_dtype(out_dtype)
     if offsets.shape[0] == 0:
-        return torch.zeros((dim,), dtype=table_data.dtype, device=table_data.device)
+        return torch.zeros((dim,), dtype=out_dtype, device=table_data.device)
     rows = gather_rows(table_data, offsets, dim).double()
-    return (weights.double() @ rows).to(table_data.dtype)
+    return (weights.double() @ rows).to(out_dtype)
 
 
 def weighted_noise_sum(table_data: torch.Tensor, offsets: torch.Tensor,
-                       weights: torch.Tensor, dim: int) -> torch.Tensor:
+                       weights: torch.Tensor, dim: int,
+                       out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Σ_k weights_k · table[offsets_k : offsets_k + dim] → (dim,) float32,
     summed in float64 and rounded once, so the card and the CPU agree.
+    ``out_dtype=torch.float64`` returns the float64 sum unrounded, for a
+    caller that adds several such partial sums before its one rounding (the
+    ranks of a multi-rank update).
 
     ``table_data`` (size,) float32, ``offsets`` (n,) int32, ``weights`` (n,)
     float32.  CUDA tensors launch the kernel; CPU tensors take the plain
     version.
     """
+    out_dtype = _out_dtype(out_dtype)
     if table_data.device.type == "cpu":
-        return weighted_noise_sum_plain(table_data, offsets, weights, dim)
+        return weighted_noise_sum_plain(table_data, offsets, weights, dim, out_dtype)
     if table_data.device.type != "cuda":
         raise ValueError(f"unsupported device {table_data.device}")
     dev = table_data.device
@@ -90,7 +104,7 @@ def weighted_noise_sum(table_data: torch.Tensor, offsets: torch.Tensor,
     if not 0 < dim <= size:
         raise ValueError(f"dim must be in (0, {size}], got {dim}")
     if n == 0:
-        return torch.zeros((dim,), dtype=torch.float32, device=dev)
+        return torch.zeros((dim,), dtype=out_dtype, device=dev)
     from ._build import load_library
 
     lib = load_library()
@@ -99,9 +113,11 @@ def weighted_noise_sum(table_data: torch.Tensor, offsets: torch.Tensor,
     if n_chunks > 65535:
         raise ValueError(f"n = {n} rows exceeds the kernel's grid ({65535 * rows_per_chunk})")
     partials = torch.empty((n_chunks, dim), dtype=torch.float64, device=dev)
-    out = torch.empty((dim,), dtype=torch.float32, device=dev)
+    out = torch.empty((dim,), dtype=out_dtype, device=dev)
+    launch = (lib.estorch_weighted_noise_sum_f64 if out_dtype == torch.float64
+              else lib.estorch_weighted_noise_sum)
     with torch.cuda.device(dev):
-        err = lib.estorch_weighted_noise_sum(
+        err = launch(
             table_data.data_ptr(), size, offsets.data_ptr(), weights.data_ptr(),
             n, dim, partials.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)

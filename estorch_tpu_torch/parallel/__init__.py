@@ -5,8 +5,10 @@ Counterpart of ``estorch_tpu.parallel``.
 a data-parallel group over a ``PopulationMesh`` (mesh.py, multihost.py);
 ``PooledEngine`` (pooled.py) evaluates in host env pools; elastic.py joins
 remote hosts to a coordinator that folds their populations
-(``ES.train_elastic``).  The param-sharded engine (``ShardedESEngine``,
-``hyperscale_mesh``, the partition rules) is ROADMAP.md port item 7c.
+(``ES.train_elastic``).  ``ShardedESEngine`` (sharded.py) is the
+param-sharded engine over a ``HyperscaleMesh`` (``hyperscale_mesh``,
+``global_hyperscale_mesh``), its leaves split per the regex partition rules
+(``DEFAULT_PARTITION_RULES``, ``match_partition_rules``).
 
 Every name loads lazily (PEP 562): importing this package imports no
 torch, so the elastic wire protocol and the sinks' leader election stay
@@ -37,6 +39,17 @@ _LAZY = {
     "pairs_per_device": "mesh",
     "population_mesh": "mesh",
     "single_device_mesh": "mesh",
+    "DEFAULT_PARTITION_RULES": "mesh",
+    "HyperscaleMesh": "mesh",
+    "P": "mesh",
+    "hyperscale_mesh": "mesh",
+    "match_partition_rules": "mesh",
+    "partition_rules_from_json": "mesh",
+    "partition_rules_to_json": "mesh",
+    "sharding_summary": "mesh",
+    "ShardedESEngine": "sharded",
+    "ShardedESState": "sharded",
+    "global_hyperscale_mesh": "multihost",
     "global_population_mesh": "multihost",
     "initialize_distributed": "multihost",
     "leader_only": "multihost",
@@ -48,5 +61,5 @@ _LAZY = {
 }
 
 __all__ = sorted(_LAZY)
-_SUBMODULES = ("elastic", "engine", "mesh", "multihost", "pooled")
+_SUBMODULES = ("elastic", "engine", "mesh", "multihost", "pooled", "sharded")
 __getattr__, __dir__ = lazy_names(__name__, globals(), _LAZY, _SUBMODULES)

@@ -542,17 +542,29 @@ class HostWorker:
         es = self.es
         if self._center is None:
             raise ElasticError("dispatch before any center sync")
-        return es.state._replace(
-            params_flat=torch.from_numpy(self._center.copy()).to(es.device),
-            sigma=torch.tensor(self._sigma, dtype=torch.float32, device=es.device),
-            generation=int(dispatch))
+        center = torch.from_numpy(self._center.copy()).to(es.device)
+        sigma = torch.tensor(self._sigma, dtype=torch.float32, device=es.device)
+        if es._shard_params:
+            # the sharded state is this rank's shards: rebuilt from the
+            # synced center each dispatch, as the JAX package rebuilds it
+            return es.engine.init_state(center, es.state.seed)._replace(
+                sigma=sigma, generation=int(dispatch))
+        return es.state._replace(params_flat=center, sigma=sigma, generation=int(dispatch))
 
     def _evaluate(self, dispatch: int):
         t0 = time.perf_counter()
-        ev = self.es.engine.evaluate(self._state_for(dispatch))
-        fitness = ev.fitness.cpu().numpy().astype(np.float32)
-        steps = int(ev.steps.cpu())
-        return fitness, steps, time.perf_counter() - t0
+        es = self.es
+        st = self._state_for(dispatch)
+        if es._shard_params:
+            # the sharded generation as the source: its fitness is kept, the
+            # update it computed is the coordinator's job
+            _, metrics = es.engine.generation_step(st)
+            fitness, steps = metrics["fitness"], metrics["steps"]
+        else:
+            ev = es.engine.evaluate(st)
+            fitness, steps = ev.fitness, ev.steps
+        return (fitness.cpu().numpy().astype(np.float32), int(steps.cpu()),
+                time.perf_counter() - t0)
 
     def _warm(self) -> None:
         """One evaluation before the first dispatch (cuBLAS set up, the
@@ -599,7 +611,8 @@ def es_from_spec(spec: dict, mesh=None):
     ``telemetry``, ``eval_chunk``) mean the same; the port adds
     ``device`` (default ``cuda``; the JAX package's ``cpu_devices`` asks
     for the CPU), ``streamed`` and ``noise_kernel``.  ``shard`` asks for
-    the param-sharded engine (item 7c), which raises."""
+    the param-sharded engine in table mode (``model_shards`` its mesh's
+    model axis), as the JAX package's spec does."""
     from .. import envs as envs_mod
     from ..algo.es import ES
     from ..envs.agent import DeviceAgent
@@ -631,7 +644,9 @@ def es_from_spec(spec: dict, mesh=None):
     if spec.get("eval_chunk"):
         kw["eval_chunk"] = int(spec["eval_chunk"])
     if spec.get("shard"):
-        kw["shard_params"] = True
+        kw.update(shard_params=True, noise_mode="table")
+        if spec.get("model_shards"):
+            kw["model_shards"] = int(spec["model_shards"])
     if mesh is not None:
         kw["mesh"] = mesh
         kw.pop("device")

@@ -47,7 +47,8 @@ noise rows (padded with ghost rows that repeat row 0 and weigh 0, so any
 even population runs on any world size), rolls its members out, and meets
 the others twice a generation: the fitness, BC and alive steps gathered
 (ghosts sliced away before ranking, their steps masked out of the count),
-and the update's local partial summed.  Everything after the sum (the
+and the update's local partial summed (the kernel's in float64, rounded
+once as world 1 rounds its one sum, ROADMAP F22).  Everything after the sum (the
 optimizer step, σ, the obs-norm probe, VBN) is replicated, so every rank
 ends each generation with the same bits.  At world 1 no collective runs
 and every launch is as before.
@@ -69,7 +70,7 @@ from ..envs.rollout import (
 )
 from ..models.decomposed import mlp_decomposed_population_apply, mlp_lowrank_population_apply
 from ..obs.spans import NULL_TELEMETRY
-from ..ops.gradient import es_gradient, fold_mirrored_weights, rank_weighted_noise_sum
+from ..ops.gradient import fold_mirrored_weights, rank_weighted_noise_sum
 from ..ops.lowrank import (
     LowRankSpec,
     LowRankTreeSpec,
@@ -656,32 +657,39 @@ class ESEngine:
     def _grad(self, state: ESState, weights: torch.Tensor, red_offs: torch.Tensor):
         """The ascent direction from the global per-member rank weights and
         the global ``red_offs``, per pair (mirrored: folded estimator) or
-        per member: this rank's partial summed over the ranks."""
-        return self.mesh.all_reduce_sum(self._local_grad(state, weights, red_offs))
+        per member: the ranks' partials of Σ w·ε summed, rounded to float32
+        and divided by population·σ.  The kernel's partials are float64 and
+        rounded once, as world 1 rounds its one sum (ROADMAP F22); the plain
+        reductions' are float32, as the JAX package's (the rest of F22)."""
+        total = self.mesh.all_reduce_sum(self._local_sum(state, weights, red_offs))
+        return total.to(torch.float32) / (self.config.population_size * state.sigma)
 
-    def _local_grad(self, state: ESState, weights: torch.Tensor, red_offs: torch.Tensor):
-        """This rank's partial of the ascent direction, over its own rows."""
+    def _local_sum(self, state: ESState, weights: torch.Tensor, red_offs: torch.Tensor,
+                   exact: bool = False) -> torch.Tensor:
+        """This rank's Σ w·ε over its own rows, not yet divided.  The
+        kernel's float64 sum is left unrounded where it meets other ranks'
+        partials (world N) and rounded by the kernel at world 1, whose
+        launches stay as they were; ``exact`` asks for float64 on every
+        branch (IW-ES's split)."""
         cfg = self.config
         weights = self._local_weights(weights)
         red_offs = self._local_rows(red_offs)
         row_w = fold_mirrored_weights(weights) if cfg.mirrored else weights
-        scale = cfg.population_size * state.sigma
         if cfg.low_rank:
             # one einsum per layer over the stacked factors: no member's
             # dense E is formed
             noise = gather_rows(self.table.data, red_offs, self.noise_dim)
             wsum = (lowrank_tree_weighted_sum if isinstance(self.lr_spec, LowRankTreeSpec)
                     else lowrank_weighted_sum)
-            return self.spec.flatten(wsum(self.lr_spec, noise, row_w)) / scale
+            return self.spec.flatten(wsum(self.lr_spec, noise, row_w))
         if cfg.noise_kernel:
+            f64 = exact or self.n_devices > 1
             return weighted_noise_sum(self.table.data, red_offs, row_w.contiguous(),
-                                      self.spec.dim) / scale
-        if cfg.mirrored:
-            return es_gradient(self.table, red_offs, weights, sigma=state.sigma,
-                               population_size=cfg.population_size, dim=self.spec.dim,
-                               chunk=cfg.grad_chunk)
-        return rank_weighted_noise_sum(self.table, red_offs, weights, dim=self.spec.dim,
-                                       chunk=cfg.grad_chunk) / scale
+                                      self.spec.dim,
+                                      out_dtype=torch.float64 if f64 else torch.float32)
+        return rank_weighted_noise_sum(self.table, red_offs, row_w, dim=self.spec.dim,
+                                       chunk=cfg.grad_chunk,
+                                       dtype=torch.float64 if exact else None)
 
     def apply_weights(self, state: ESState, weights: torch.Tensor,
                       pair_offsets: torch.Tensor | None = None):
@@ -757,14 +765,17 @@ class ESEngine:
         d_stack = torch.atleast_2d(d_stack.to(dev, torch.float32))
         coeff_d = torch.atleast_1d(torch.as_tensor(coeff_d, dtype=torch.float32, device=dev))
         k = self._even_block(old_offsets.shape[0], "old_offsets")
-        # fresh and reused partials over this rank's rows, then one sum
-        grad = self._local_grad(state, weights.to(dev, torch.float32),
-                                self.all_pair_offsets(state))
+        # fresh and reused partials over this rank's rows in float64, then
+        # one sum and one rounding (F22)
+        grad = self._local_sum(state, weights.to(dev, torch.float32),
+                               self.all_pair_offsets(state), exact=True)
+        grad = grad / (self.config.population_size * state.sigma.double())
         grad = grad + rank_weighted_noise_sum(
             self.table, self.mesh.local_block(old_offsets.to(dev), k),
             self.mesh.local_block(old_w.to(dev, torch.float32), k), dim=self.spec.dim,
-            chunk=self.config.grad_chunk)
-        return self._finish_update(state, self.mesh.all_reduce_sum(grad) + coeff_d @ d_stack)
+            chunk=self.config.grad_chunk, dtype=torch.float64)
+        grad = self.mesh.all_reduce_sum(grad).to(torch.float32)
+        return self._finish_update(state, grad + coeff_d @ d_stack)
 
     def _finish_update(self, state: ESState, grad_ascent: torch.Tensor,
                        probe_states: torch.Tensor | None = None):

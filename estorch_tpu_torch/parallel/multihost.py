@@ -11,6 +11,8 @@ process; here each process is one rank with one device, joined by
     # or explicitly: mh.initialize("10.0.0.1:29500", num_processes=N, process_id=r)
     es = ES(..., mesh=mh.global_population_mesh())
     es.train(...)                      # the same code as one process
+    # param-sharded: ES(..., shard_params=True,
+    #                   mesh=mh.global_hyperscale_mesh(model_shards=N))
 
 - **Device.** Rank r runs on ``cuda:{LOCAL_RANK}`` (``LOCAL_RANK`` from the
   environment, else r).  More ranks on a node than cards raises, unless the
@@ -210,6 +212,41 @@ def global_population_mesh(device=None) -> PopulationMesh:
                            "device= (" + LAUNCH_RECIPE + ")")
     return PopulationMesh(dist.get_world_size(), dist.get_rank(), dev,
                           timeout_s=_STATE.get("timeout_s"),
+                          backend=_STATE.get("backend", dist.get_backend()))
+
+
+def global_hyperscale_mesh(pop_shards: int | None = None, model_shards: int | None = None,
+                           device=None):
+    """The 2-D ``(pop, model)`` mesh over every rank of the group (the JAX
+    package's global device list), with ``hyperscale_mesh``'s defaults:
+    ``model`` spans every rank.  It creates the mesh's subgroups, a
+    collective: every rank calls it, with the same shape.  Without a group,
+    the ``(1, 1)`` mesh on ``device``."""
+    from .mesh import HyperscaleMesh, hyperscale_shape, new_hyperscale_groups
+
+    dist = _dist()
+    if dist is None:
+        from ..utils.backend import resolve_device
+
+        hyperscale_shape(pop_shards, model_shards, 1)
+        return HyperscaleMesh(1, 1, 0, resolve_device(device))
+    import datetime
+
+    from ..utils.backend import resolve_device
+
+    dev = resolve_device(device) if device is not None else _STATE.get("device")
+    if dev is None:
+        raise RuntimeError("the process group was not set up by multihost.initialize; pass "
+                           "device= (" + LAUNCH_RECIPE + ")")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    pop, model = hyperscale_shape(pop_shards, model_shards, world)
+    timeout_s = _STATE.get("timeout_s")
+    groups = None
+    if world > 1:
+        groups = new_hyperscale_groups(
+            pop, model, rank,
+            None if timeout_s is None else datetime.timedelta(seconds=float(timeout_s)))
+    return HyperscaleMesh(pop, model, rank, dev, groups=groups, timeout_s=timeout_s,
                           backend=_STATE.get("backend", dist.get_backend()))
 
 

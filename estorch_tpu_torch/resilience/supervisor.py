@@ -53,11 +53,19 @@ def _snapshot(es) -> dict:
     and pooled engines' update, ``optim.Adam``, the obs-stats merge, the
     host engine's ``parameters_to_vector`` and deep-copied optimizer state)
     and none writes a state's tensor in place.  Lists are copied, the
-    archive is taken as its stacked BCs.  IW-ES's reuse window (F11) and
+    archive is taken as its stacked BCs.  A param-sharded state's shards
+    are copied all the same (the JAX package's donated state must be).  IW-ES's reuse window (F11) and
     the novelty family's meta RNG (F12) are taken too: the JAX package's
     rollback leaves both moved by the aborted attempt."""
+    state = es.state
+    if getattr(es, "_shard_params", False):
+        # this rank's shards and optimizer state copied, as the JAX package
+        # copies its donated sharded state
+        from ..parallel.sharded import clone_state
+
+        state = clone_state(state)
     snap = {
-        "state": es.state,
+        "state": state,
         "generation": es.generation,
         "history_len": len(es.history),
         "best_reward": es.best_reward,

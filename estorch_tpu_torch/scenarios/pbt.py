@@ -70,6 +70,12 @@ class PBTController:
                 "PBTController drives the device-path engines (their "
                 "init_state(params, key) builds fresh centers); the "
                 "host/pooled backends have no cheap multi-center form")
+        if es._shard_params:
+            raise ValueError(
+                "PBTController currently drives the replicated device "
+                "engine: the sharded engine's centers are each rank's shards, "
+                "and an exploited center is a whole param vector (the JAX "
+                "package refuses a sharded ES here too)")
         if n_centers < 2:
             raise ValueError(f"n_centers must be >= 2, got {n_centers}")
         if explore_every < 1:

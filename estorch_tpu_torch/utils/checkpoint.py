@@ -84,7 +84,13 @@ def _pack_state(es, st) -> dict:
     d["sigma"] = st.sigma
     d["seed"] = int(st.seed)
     d["opt_state"] = None if st.opt_state is None else _pack_opt(st.opt_state)
-    if st.obs_stats is not None:
+    if getattr(es, "_shard_params", False) and d["opt_state"] is not None:
+        # the moments of this rank's shards, gathered as the params are (a
+        # collective: every rank packs)
+        local = st.params_local.shape
+        d["opt_state"] = _map_tensors(
+            d["opt_state"], lambda t: es.engine.layout.gather(t) if t.shape == local else t)
+    if getattr(st, "obs_stats", None) is not None:
         d["obs_stats"] = list(st.obs_stats)
     return d
 
@@ -253,7 +259,6 @@ class AsyncSaveHandle:
             raise self._error
 
 
-@leader_only
 def save_checkpoint(es, path: str, asynchronous: bool = False) -> AsyncSaveHandle | None:
     """Write a complete checkpoint of ``es`` to directory ``path``.
 
@@ -262,8 +267,15 @@ def save_checkpoint(es, path: str, asynchronous: bool = False) -> AsyncSaveHandl
     payload's copy is queued: the checkpoint holds the state as it was at
     the call, whatever later generations do.  Under a multi-rank mesh
     every rank holds the same state and only rank 0 writes
-    (``leader_only``; the others return None).
+    (``leader_only``; the others return None).  A param-sharded ES's
+    params and moments are gathered first, on every rank (a collective:
+    every rank calls this), and rank 0 writes the whole vectors.
     """
+    return _save_on_leader(es, path, asynchronous, _state_tree(es))
+
+
+@leader_only
+def _save_on_leader(es, path: str, asynchronous: bool, tree: dict) -> AsyncSaveHandle | None:
     from ..resilience.chaos import crash_checkpoint
 
     path = os.path.abspath(path)
@@ -278,7 +290,7 @@ def save_checkpoint(es, path: str, asynchronous: bool = False) -> AsyncSaveHandl
                    os.path.join(path, "host_opt.pt"))
     # a scheduled crash mid-write lands here: sidecars written, no payload
     crash_checkpoint(es.generation)
-    host_tree, copied, sources = _stage(_state_tree(es), asynchronous)
+    host_tree, copied, sources = _stage(tree, asynchronous)
     if asynchronous:
         return AsyncSaveHandle(host_tree, copied, sources, path)
     _commit_payload(host_tree, path)
@@ -291,6 +303,11 @@ def restore_checkpoint(es, path: str) -> None:
     ``es`` must be built with the same configuration (policy, agent,
     optimizer, population, σ, seed); its tensors land on ``es.device``.
     """
+    if getattr(es, "_shard_params", False):
+        raise ValueError(
+            "restore_checkpoint rebuilds replicated engine states; a param-sharded ES "
+            "cannot resume from one (the JAX package's restore yields a replicated "
+            "state that its sharded engine cannot run either)")
     path = os.path.abspath(path)
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
@@ -423,6 +440,9 @@ class PeriodicCheckpointer:
         ck = PeriodicCheckpointer(es, "ckpts", every=10)
         es.train(100, log_fn=ck.on_record)
 
+    Under a multi-rank mesh every rank runs the same checkpointer (its
+    ``on_record`` on every rank's records); only rank 0 writes.
+
     ``asynchronous``: each save's payload drains in a writer thread while
     training goes on; at most one save is in flight (the previous one is
     waited for before the next starts), and the collection of old
@@ -444,8 +464,10 @@ class PeriodicCheckpointer:
         if (gen + 1) % self.every == 0:
             self.save(gen)
 
-    @leader_only
     def save(self, gen: int) -> str:
+        """Save generation ``gen``'s checkpoint.  Every rank calls it (a
+        param-sharded ES gathers its shards first, a collective); rank 0
+        writes and collects."""
         self.wait()
         path = os.path.join(self.root, f"gen_{gen:08d}")
         self._pending = save_checkpoint(self.es, path, asynchronous=self.asynchronous)
@@ -472,6 +494,7 @@ class PeriodicCheckpointer:
         """The newest restorable checkpoint (:func:`latest_checkpoint`)."""
         return latest_checkpoint(self.root)
 
+    @leader_only
     def _gc(self) -> None:
         cks = sorted(d for d in os.listdir(self.root) if d.startswith("gen_"))
         for stale in cks[: -self.max_to_keep]:

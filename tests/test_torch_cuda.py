@@ -48,6 +48,23 @@ def test_weighted_noise_sum_matches_plain(table, cuda, n, dim):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
 
 
+@pytest.mark.parametrize("n,dim", [(1, 8), (65, 257), (1024, 4481), (2048, 4481)])
+def test_weighted_noise_sum_float64_output_matches_plain(table, cuda, n, dim):
+    """The float64 total (a rank's partial before the ranks' sum, F22):
+    within float64 rounding of the plain version's, and rounding it gives
+    the kernel's float32 output bit for bit."""
+    rng = np.random.default_rng(3 * n + dim)
+    offs = torch.from_numpy(rng.integers(0, table.numel() - dim + 1, n).astype(np.int32)).to(cuda)
+    w = torch.from_numpy(rng.uniform(-1, 1, n).astype(np.float32)).to(cuda)
+    before = nk.launch_counts["weighted_noise_sum"]
+    got = nk.weighted_noise_sum(table, offs, w, dim, out_dtype=torch.float64)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float64 and nk.launch_counts["weighted_noise_sum"] == before + 1
+    want = nk.weighted_noise_sum_plain(table, offs, w, dim, out_dtype=torch.float64)
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+    assert torch.equal(got.to(torch.float32), nk.weighted_noise_sum(table, offs, w, dim))
+
+
 @pytest.mark.parametrize("n,dim", [(64, 128), (2048, 4481), (1000, 4737)])
 def test_weighted_noise_sum_equals_plain_bit_for_bit(table, cuda, n, dim):
     # both sum in float64 and round once: the same float32 vector
@@ -1182,3 +1199,44 @@ def test_nccl_refuses_two_ranks_on_one_card(cuda, tmp_path):
     for r in range(2):
         got = json.loads((tmp_path / f"nccl_rank{r}.json").read_text())
         assert got["error"] and "one card" in got["error"], got
+
+
+def test_sharded_ranks_on_one_card_match_one_rank(cuda, tmp_path):
+    """Two gloo ranks on cuda:0 at mesh (1, 2), program mode
+    (``tests/test_torch_sharded.py`` is the rank script): the ranks end
+    with the same gathered params, generation 0's noise has the same bits
+    as a (1, 1) run on the card, and the params stay within the sharded
+    A/B gate of it (rtol 2e-4, atol 1e-5)."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from test_torch_sharded import GENS, HORIZON, POLICY, noise_rows
+
+    from estorch_tpu_torch import ES, CartPole, DeviceAgent, MLPPolicy, adam
+
+    script = Path(__file__).with_name("test_torch_sharded.py")
+    rdv = tmp_path / "card.rdv"
+    env = dict(os.environ, PYTHONPATH=str(script.parent.parent))
+    procs = [subprocess.Popen([sys.executable, str(script), "card", str(r), "1", "2", str(rdv),
+                               str(tmp_path), "cuda:0"], env=env, stdout=subprocess.DEVNULL,
+                              stderr=subprocess.PIPE, text=True) for r in range(2)]
+    try:
+        errs = [p.communicate(timeout=240)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, err in zip(procs, errs):
+        assert p.returncode == 0, err[-3000:]
+    ranks = [np.load(tmp_path / f"card_1x2_rank{r}.npz") for r in range(2)]
+    assert ranks[0]["params"].tobytes() == ranks[1]["params"].tobytes()
+    one = ES(MLPPolicy, DeviceAgent(CartPole(), horizon=HORIZON), adam, population_size=32,
+             sigma=0.1, seed=0, policy_kwargs=POLICY, optimizer_kwargs={"learning_rate": 1e-2},
+             eval_chunk=8, telemetry=False, shard_params=True, device=cuda)
+    noise = noise_rows(one, 4)
+    one.train(GENS, verbose=False)
+    assert ranks[0]["noise0"].tobytes() == noise.tobytes()
+    np.testing.assert_allclose(ranks[0]["params"], one.state.params_flat.cpu().numpy(),
+                               rtol=2e-4, atol=1e-5)

@@ -267,12 +267,14 @@ class _HostAgent:
         return 0.0
 
 
-# each case names an option that still waits for its ROADMAP.md item; the
-# two telemetry cases (the hub came with port item 5) hold it live instead,
-# the scenarios case (port item 8) holds the JAX package's TypeError for
-# anything but a ScenarioDistribution, and the mesh cases (port item 7a)
-# hold a world-1 mesh live, anything else refused, and a mesh on the host
-# path refused
+# each case names an option that waited for its ROADMAP.md item; the two
+# telemetry cases (the hub came with port item 5) hold it live instead, the
+# scenarios case (port item 8) holds the JAX package's TypeError for
+# anything but a ScenarioDistribution, the mesh cases (port item 7a) hold a
+# world-1 mesh live, anything else refused, and a mesh on the host path
+# refused, and the sharding cases (port item 7c) hold the JAX package's
+# ValueError for its keywords without shard_params, a mesh that is not a
+# HyperscaleMesh refused, and shard_params live on the (1, 1) mesh
 @pytest.mark.parametrize("option", [
     {"mesh": "world 1"},
     {"telemetry": True},  # live on the device path
@@ -302,8 +304,22 @@ def test_unported_options_raise(option):
     if "mesh" in option and "shard_params" not in option:
         _check_mesh_live(policy, agent, kw)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ES(policy, agent, adam, **kw)
+    _check_sharded_live(policy, agent, kw)
+
+
+def _check_sharded_live(policy, agent, kw):
+    if not kw.get("shard_params"):
+        with pytest.raises(ValueError, match="pass shard_params=True"):
+            ES(policy, agent, adam, **kw)
+        return
+    if "mesh" in kw:
+        with pytest.raises(TypeError, match="HyperscaleMesh"):
+            ES(policy, agent, adam, **kw)
+        return
+    es = ES(policy, agent, adam, **kw)
+    es.train(1, verbose=False)
+    assert type(es.engine).__name__ == "ShardedESEngine" and es.table is None
+    assert es.mesh.shape == {"pop": 1, "model": 1} and len(es.history) == 1
 
 
 def _check_mesh_live(policy, agent, kw):

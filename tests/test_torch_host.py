@@ -545,7 +545,21 @@ def test_stub_keywords_raise_naming_their_item(option, value, item):
     """F1: a keyword whose item is not ported raises naming it; its default
     (and telemetry=False) does nothing on every backend.  ``telemetry`` came
     with port item 5: live on the host path instead, its phases and
-    counters those of the JAX package's host engine."""
+    counters those of the JAX package's host engine.  The sharding keywords
+    came with item 7c: without ``shard_params`` they raise the JAX
+    package's ``ValueError``."""
+    if option in ("model_shards", "partition_rules", "noise_mode"):
+        # the param-sharded engine's keywords (port item 7c): without
+        # shard_params, the JAX package's ValueError on every backend
+        with pytest.raises(ValueError, match="pass shard_params=True"):
+            _make(**{option: value})
+        with pytest.raises(ValueError, match="pass shard_params=True"):
+            ES(MLPPolicy, DeviceAgent(Pendulum(), horizon=5), adam, device="cpu",
+               policy_kwargs={"action_dim": 1, "discrete": False}, table_size=1 << 14,
+               optimizer_kwargs={"learning_rate": 1e-2}, **{option: value})
+        default = inspect.signature(ES.__init__).parameters[option].default
+        assert _make(**{option: default}).backend == "host"
+        return
     if option == "telemetry":
         es = _make(telemetry=value)
         es.train(2, verbose=False)
@@ -584,3 +598,34 @@ def test_host_engine_alone():
     zero = HostState(st.params_flat, None, 3, 0, sigma=0.0)
     torch.testing.assert_close(eng.member_params(zero, 1), st.params_flat, rtol=0, atol=0)
     eng.close()
+
+
+def test_failed_pipe_close_at_respawn_is_recorded():
+    """F23: a dead worker whose pipe raises ``OSError`` on close is still
+    replaced, and the pool records ``respawn_conn_close_failed`` with the
+    worker on its telemetry, as the JAX package's pool does."""
+
+    class _BadPipe:
+        def __init__(self, conn):
+            self._conn = conn
+
+        def close(self):
+            self._conn.close()
+            raise OSError("close failed")
+
+    es = _make(worker_mode="process", telemetry=True)
+    try:
+        es.train(1, n_proc=2, verbose=False)
+        pool = es.engine._proc_pool
+        pool._procs[1].kill()
+        pool._procs[1].join(timeout=10)
+        pool._conns[1] = _BadPipe(pool._conns[1])
+        assert pool.respawn_dead() == 1
+        events = [e for e in es.obs.recorder.events() if e.get("kind") != "span"]
+        failed = [e for e in events if e["name"] == "respawn_conn_close_failed"]
+        assert len(failed) == 1 and failed[0]["worker"] == 1
+        assert any(e["name"] == "worker_respawned" and e["worker"] == 1 for e in events)
+        es.train(1, n_proc=2, verbose=False)
+        assert len(es.history) == 2
+    finally:
+        es.engine.close()

@@ -471,7 +471,9 @@ def test_unported_recipe_raises_naming_its_item(name, over, item):
         assert set(es.history[0]["phases"]) == {"dispatch", "device", "host_sync", "record"}
         assert es.obs.counters.get("env_steps") == es.history[0]["env_steps"] > 0
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, port queue item: {item}"):
+    # the sharding keywords came with item 7c: through a recipe without
+    # shard_params, the JAX package's ValueError
+    with pytest.raises(ValueError, match="pass shard_params=True"):
         configs.CONFIGS[name](device="cpu", **over)
 
 

@@ -20,9 +20,11 @@ the fixtures.
   another order, and the ranks' partials summed in another order than
   JAX's psum.
 - ``ES(..., mesh=multihost.global_population_mesh()).train`` at worlds 4
-  and 2 against the port's world 1: within 1e-6 absolute (the ranks'
-  float32 partials are summed where world 1 rounds one float64 sum once;
-  measured 4e-9–1.5e-8 on params of size ~1), and all ranks bit-identical.
+  and 2 against the port's world 1: within 1e-6 absolute, and all ranks
+  bit-identical.  Since F22 the ranks hand their partials over in float64
+  and the sum is rounded once, as world 1 rounds: at world 2 the kernel
+  path's and IW-ES's params equal world 1's bit for bit where the fitness
+  is equal.
 - NSR-ES and IW-ES (with reuse) at world 2: archive, meta indices and
   params bit-identical across ranks, and near world 1.
 - A rank killed mid-run turns into a ``CollectiveError`` naming the timeout
@@ -164,14 +166,37 @@ def rank_novelty(rank: int, world: int, rdv: str, work: Path) -> None:
     out["nsr_meta"] = np.asarray([r["meta_index"] for r in ns.history])
     out["nsr_meta_sums"] = np.asarray([float(s.params_flat.double().sum())
                                        for s in ns.meta_states])
+    # F22: the kernel path's update, generation by generation
+    es = cartpole_es(mesh=mesh)
+    for g in range(3):
+        es.state, m = es.engine.generation_step(es.state)
+        out[f"f22_fitness{g}"] = m["fitness"].numpy()
+        out[f"f22_params{g}"] = es.state.params_flat.numpy()
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         iw = iwes_es(mesh=mesh)
         iw.train(4, verbose=False)
     out["iw_params"] = iw.state.params_flat.numpy()
+    out["f22_reuse_params"] = _reuse_update(iwes_es(mesh=mesh)).numpy()
     out["iw_reused"] = np.asarray([r["reused_gens"] for r in iw.history])
     out["iw_gnorm"] = np.asarray([r["grad_norm"] for r in iw.history])
     np.savez(work / f"novelty_rank{rank}.npz", **out)
+
+
+def _reuse_update(es) -> torch.Tensor:
+    """IW-ES's reuse split on the engine: one ``apply_weights_reuse`` from
+    fixed fresh weights, 8 reused rows of two old generations and their
+    drift terms (the same inputs at every world size)."""
+    gen = torch.Generator().manual_seed(5)
+    weights = torch.rand(es.population_size, generator=gen) - 0.5
+    old_offsets = torch.randint(0, es.table.size - es.spec.dim, (8,), generator=gen,
+                                dtype=torch.int32)
+    old_w = (torch.rand(8, generator=gen) - 0.5) * 1e-2
+    d_stack = torch.randn((2, es.spec.dim), generator=gen) * 1e-2
+    coeff_d = torch.tensor([0.3, -0.2])
+    new, _ = es.engine.apply_weights_reuse(es.state, weights, old_offsets, old_w, d_stack,
+                                           coeff_d)
+    return new.params_flat
 
 
 def rank_kill(rank: int, world: int, rdv: str, work: Path) -> None:
@@ -243,16 +268,18 @@ def test_layout_helpers_equal_jax(pop, world):
 
 
 def test_mesh_and_initialize_in_one_process(monkeypatch):
-    """World 1 without a group; several devices in one process and the 7c
-    layouts raise; argless ``initialize`` warns and returns False;
+    """World 1 without a group; several devices in one process raise, for
+    both layouts, and the 2-D mesh is (1, 1); argless ``initialize`` warns
+    and returns False;
     explicit bad arguments raise; ``leader_only`` runs on the only rank."""
     mesh = tmesh.population_mesh(["cpu"])
     assert (mesh.world_size, mesh.rank, mesh.devices.size, str(mesh.device)) == (1, 0, 1, "cpu")
     assert tmesh.single_device_mesh("cpu").shape == {"pop": 1}
     with pytest.raises(ValueError, match="one rank a process"):
         tmesh.population_mesh(["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="item: 7c"):
-        tmesh.hyperscale_mesh()
+    with pytest.raises(ValueError, match="one rank a process"):
+        tmesh.hyperscale_mesh(devices=["cpu", "cpu"])
+    assert tmesh.hyperscale_mesh(devices="cpu").shape == {"pop": 1, "model": 1}
     for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
         monkeypatch.delenv(var, raising=False)
     with pytest.warns(UserWarning, match="single-process run"):
@@ -412,6 +439,23 @@ def test_world_2_near_world_1(novelty):
     np.testing.assert_allclose(got["iw_gnorm"], [r["grad_norm"] for r in iw.history],
                                rtol=1e-4)
     np.testing.assert_allclose(got["iw_params"], iw.state.params_flat.numpy(), atol=1e-5)
+
+
+def test_world_2_update_equals_world_1_bit_for_bit(novelty):
+    """F22: each rank hands its partial of Σ w·ε over in float64, one
+    float64 sum, one rounding, as world 1 rounds its one sum.  Where the
+    fitness is equal, the kernel path's params equal world 1's bit for bit
+    over 3 generations, and so does IW-ES's reuse split (the fresh and the
+    reused terms in one float64 partial) from the same inputs.  The plain
+    reductions keep float32 partials (the rest of F22, ROADMAP)."""
+    got = novelty[0]
+    es = cartpole_es(population_size=16)
+    for g in range(3):
+        es.state, m = es.engine.generation_step(es.state)
+        np.testing.assert_array_equal(got[f"f22_fitness{g}"], m["fitness"].numpy())
+        assert got[f"f22_params{g}"].tobytes() == es.state.params_flat.numpy().tobytes(), g
+    want = _reuse_update(iwes_es()).numpy()
+    assert got["f22_reuse_params"].tobytes() == want.tobytes()
 
 
 def test_killed_rank_is_a_timed_error(tmp_path):
