@@ -218,8 +218,13 @@ Phases, in order; any failure exits non-zero before the last line:
    rank's launches exact (600 matvec and 1 reduction a generation), each
    rank's update partial against the plain version; env-steps/s of world
    2 against world 1, the gloo all-reduce's time at the update's (4481
-   float32), the fitness's (4096 float32) and the engine's packed
-   gather's shapes, each rank's memory;
+   float32), the fitness's (4096 float32), the engine's packed gather's
+   and the plain update's chunk products' (8 x 4481 float32) shapes, each
+   rank's memory; then phase 5's (a) (the standard forward and the plain
+   chunked update) and (d) (low rank 1, bf16), 1 + 2 generations each at
+   world 2 and at world 1 from the same seed, both at ``eval_chunk`` 2048
+   (so a rank's forward and world 1's run the same batched products, F3):
+   bit-equal to world 1 (max |Δparam| 0, the rest of F22);
 19. elastic hosts on one card (``run_elastic``): an ``ElasticCoordinator``
    here and 2 host processes through ``python -m
    estorch_tpu_torch.parallel.elastic --join`` on the card, the cell's
@@ -248,16 +253,22 @@ Phases, in order; any failure exits non-zero before the last line:
    equal to ``member_params``; the cost model's sharding block; neither
    kernel launched; env-steps/s of every run, the gloo all-reduces of one
    instrumented generation and their share of it, the program noise's
-   launches a generation, each rank's memory.
+   launches a generation, each rank's memory;
+21. the doctor on the card (``run_doctor``): ``python -m
+   estorch_tpu_torch.doctor`` as a subprocess: exit 0, the device row
+   healthy on ``cuda``, its probe's one launch of each kernel against its
+   plain version; every other row's status, the report's seconds and each
+   probe's ``elapsed_s`` printed.
 
 Then one JSON line of per-path numbers (with phase 13's under
 ``crash_safe``, phase 14's under ``attribution``, phase 15's under
 ``serving``, phase 16's under ``scenarios``, phase 17's under ``fleet``,
 phases 18 and 19 under ``data_parallel`` and ``elastic``, phase 20's under
-``sharded``), one of
+``sharded``, phase 21's under ``doctor``), one of
 per-kernel numbers (launches from phase 3, and of the reduction in (j),
 (k), (m), phases 10-13, and of both kernels in phases 16-19: each rank's
-in phase 18, the coordinator's and host 0's in phase 19),
+in phase 18, the coordinator's and host 0's in phase 19, the doctor's
+probe's in phase 21),
 the card line, and the last line
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -4037,6 +4048,21 @@ DP_TIMED = 2  # generations after 1 warm-up
 DP_TOL = 1e-6  # of the largest |param|
 DP_GNORM_RTOL = 1e-6
 DP_REPS = 20  # all-reduces a shape, timed one by one
+# the rest of F22: phase 5's (a) and (d) at world DP_WORLD against world 1,
+# gated bit-equal.  Both worlds run the forward in chunks of a rank's
+# members, so each batched product has the same shape at either world (F3:
+# cuBLAS picks its batched kernel by the batch count)
+DP_PLAIN_PATHS = {"a standard": {}, "d low_rank 1 bf16": {"low_rank": 1,
+                                                          "compute_dtype": "bfloat16"}}
+DP_EVAL_CHUNK = POPULATION // DP_WORLD
+
+
+def dp_plain_es(tt, opts: dict, **over):
+    """Phase 18's (a) or (d) (:data:`DP_PLAIN_PATHS`) at the cell's shape."""
+    return tt.ES(tt.MLPPolicy, tt.DeviceAgent(tt.Pendulum(), horizon=HORIZON), tt.adam,
+                 population_size=POPULATION, sigma=0.05, policy_kwargs=POLICY,
+                 optimizer_kwargs={"learning_rate": 1e-2}, eval_chunk=DP_EVAL_CHUNK,
+                 **opts, **over)
 
 
 def dp_rank_child(rank: int, world: int, rdv: str, out_dir: str) -> None:
@@ -4133,8 +4159,15 @@ def dp_rank_child(rank: int, world: int, rdv: str, out_dir: str) -> None:
         return statistics.median(times)
 
     dev = es.device
+    rows = POPULATION // 2
+    n_chunks = -(-rows // eng.config.grad_chunk)
+    n_chunks += -n_chunks % DP_WORLD
+    facts["plain_gather"] = {"shape": [n_chunks, int(es.spec.dim)],
+                             "bytes": n_chunks * int(es.spec.dim) * 4}
     facts["all_reduce_ms"] = {
         f"update ({es.spec.dim},) float32": all_reduce_ms(torch.zeros(es.spec.dim, device=dev)),
+        f"the plain update's chunk products ({n_chunks}, {es.spec.dim}) float32": all_reduce_ms(
+            torch.zeros((n_chunks, es.spec.dim), device=dev)),
         f"fitness ({POPULATION},) float32": all_reduce_ms(torch.zeros(POPULATION, device=dev)),
         f"the engine's gather ({eng.members_padded}, {eng.bc_dim + 2}) float64": all_reduce_ms(
             torch.zeros((eng.members_padded, eng.bc_dim + 2), dtype=torch.float64,
@@ -4144,6 +4177,19 @@ def dp_rank_child(rank: int, world: int, rdv: str, out_dir: str) -> None:
     facts["memory"] = {"max_allocated_mib": torch.cuda.max_memory_allocated() / 2**20,
                        "reserved_mib": torch.cuda.memory_reserved() / 2**20,
                        "card_used_mib": (total - free) / 2**20}
+    # the rest of F22: (a) and (d) at world 2, read against world 1 there
+    import estorch_tpu_torch as tt
+
+    del es, eng
+    facts["plain_paths"] = {}
+    for i, (label, opts) in enumerate(DP_PLAIN_PATHS.items()):
+        other = dp_plain_es(tt, opts, mesh=mesh)
+        other.train(1 + DP_TIMED, verbose=False)
+        np.save(os.path.join(out_dir, f"rank{rank}_plain{i}.npy"),
+                other.state.params_flat.cpu().numpy())
+        facts["plain_paths"][label] = [{k: r[k] for k in ("reward_mean", "reward_max",
+                                                         "env_steps")} for r in other.history]
+        del other
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(facts, f)
 
@@ -4173,6 +4219,15 @@ def run_data_parallel(torch, tt, nk, card: str) -> dict:
     torch.cuda.empty_cache()
     print(f"world 1: {w1_steps / w1_s:.0f} env-steps/s over {DP_TIMED} generations "
           f"({w1_s / DP_TIMED:.4f} s a generation) on {card}")
+    w1_plain = []
+    for label, opts in DP_PLAIN_PATHS.items():
+        other = dp_plain_es(tt, opts)
+        other.train(1 + DP_TIMED, verbose=False)
+        w1_plain.append((label, other.state.params_flat.cpu().numpy(),
+                         [{k: r[k] for k in ("reward_mean", "reward_max", "env_steps")}
+                          for r in other.history]))
+        del other
+    torch.cuda.empty_cache()
 
     work = tempfile.mkdtemp(prefix="chip_smoke_dp_")
     env = dict(os.environ)
@@ -4202,6 +4257,8 @@ def run_data_parallel(torch, tt, nk, card: str) -> dict:
             facts.append(json.load(f))
     params = [np.load(os.path.join(work, f"rank{r}.npy")) for r in range(DP_WORLD)]
     pre_params = np.load(os.path.join(work, "rank0_pre.npy"))
+    plain_params = [[np.load(os.path.join(work, f"rank{r}_plain{i}.npy"))
+                     for i in range(len(DP_PLAIN_PATHS))] for r in range(DP_WORLD)]
     shutil.rmtree(work, ignore_errors=True)
 
     for f in facts:
@@ -4244,6 +4301,25 @@ def run_data_parallel(torch, tt, nk, card: str) -> dict:
              f"{largest:g})")
     if not g0 <= (0.0 if same_fitness[0] else DP_GNORM_RTOL):
         fail(f"phase 18: generation 0's update norm is {g0:g} relative from world 1's")
+    plain = {}
+    for i, (label, want, want_hist) in enumerate(w1_plain):
+        got = [plain_params[r][i] for r in range(DP_WORLD)]
+        if any(g.tobytes() != got[0].tobytes() for g in got[1:]):
+            fail(f"phase 18, path {label}: the ranks' params differ")
+        d = float(np.abs(got[0] - want).max())
+        same = facts[0]["plain_paths"][label] == want_hist
+        plain[label] = {"max_abs_param_diff_vs_world1": d, "same_fitness_records": same,
+                        "bit_equal": got[0].tobytes() == want.tobytes()}
+        print(f"path {label} (eval_chunk {DP_EVAL_CHUNK}) at world {DP_WORLD} against world "
+              f"1 over 1 + {DP_TIMED} generations: max |Δparam| {d:.3g} (gate 0), fitness "
+              f"records equal: {same}, on {card}")
+        if not plain[label]["bit_equal"]:
+            fail(f"phase 18, path {label}: world {DP_WORLD} is {d:g} from world 1, not its "
+                 "bits")
+    gather = facts[0]["plain_gather"]
+    gather_ms = [v for k, v in facts[0]["all_reduce_ms"].items() if "chunk products" in k][0]
+    print(f"the plain update's gather: {gather['shape']} float32, {gather['bytes']} bytes, "
+          f"{gather_ms:.3f} ms (rank 0, median of {DP_REPS})")
     w2_s = max(f["timed_s"] for f in facts)
     w2_steps = sum(h["env_steps"] for h in facts[0]["history"][1:])
     if w2_steps != w1_steps:
@@ -4258,6 +4334,7 @@ def run_data_parallel(torch, tt, nk, card: str) -> dict:
             "max_abs_param_diff_vs_world1": dev,
             "max_abs_param_diff_vs_world1_float32_partials": dev_pre,
             "gen0_grad_norm_rel_diff": g0, "same_fitness_records": same_fitness,
+            "plain_paths": plain, "plain_gather": {**gather, "ms": gather_ms},
             "ranks": facts, "ranks_wall_s": ranks_s,
             "launches": {f"rank {f['rank']}": f["launches"] for f in facts}}
 
@@ -4765,6 +4842,88 @@ def run_sharded(torch, tt, nk, card: str) -> dict:
             "ranks_wall_s": {"1x2": wall12, "2x1": wall21}}
 
 
+# ---------------------------------------------------------------------
+# phase 21, the doctor on the card
+# ---------------------------------------------------------------------
+
+DOCTOR_TIMEOUT_S = 180.0  # the device probe's (a cold kernel build included)
+
+
+def _row_status(name: str, row: dict) -> str:
+    """One report row's verdict in a word or two, for the log."""
+    if "status" in row:
+        return str(row["status"]) + (f" ({row['reason']})" if row.get("reason") else "") + (
+            f" ({row['failed_stage']})" if row.get("failed_stage") else "")
+    if "ok" in row:
+        return "ok" if row["ok"] else f"failed: {row.get('error') or row.get('problems')}"
+    if name == "native":
+        return "cpp_pool" if row.get("cpp_pool") else f"failed: {row.get('error')}"
+    if name == "optional":
+        return "available: " + ", ".join(k for k, v in row.items() if v.get("available"))
+    if name == "host":
+        return f"{row['cpu_count']} CPUs, {row['compile_cache_entries']} cached libraries"
+    if name == "obs":
+        return f"export ok {row['export'].get('ok')}, trace dir writable " \
+               f"{row['trace_dir']['writable']}"
+    if name == "resilience":
+        return f"checkpoint root writable {row['ckpt_root']['writable']}, fork " \
+               f"{row['fork']['available']}"
+    if name == "serve":
+        return f"loopback {row['loopback'].get('bindable')}, batcher " \
+               f"{row['batcher'].get('ok')}"
+    return json.dumps(row)[:120]
+
+
+def run_doctor(card: str) -> dict:
+    """Phase 21: ``python -m estorch_tpu_torch.doctor`` as a subprocess on
+    the card.  Gated: exit 0, the device row healthy on ``cuda``, the
+    probe's one launch of each kernel within 1e-5 of its plain version.
+    Every other row's status, the report's seconds and each probe's
+    ``elapsed_s`` are printed."""
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, "-m", "estorch_tpu_torch.doctor", "--timeout",
+                               str(DOCTOR_TIMEOUT_S)], cwd=HERE, capture_output=True,
+                              text=True, timeout=900)
+    except subprocess.TimeoutExpired:
+        fail("phase 21: the doctor did not finish in 900 s")
+    wall = time.perf_counter() - t0
+    try:
+        rep = json.loads(proc.stdout)
+    except ValueError:
+        fail(f"phase 21: the doctor printed no report (exit {proc.returncode})\n"
+             f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    if proc.returncode != 0:
+        fail(f"phase 21: the doctor exited {proc.returncode}: {json.dumps(rep)[:3000]}")
+    dev, probe = rep["device"], rep["device_probe"]
+    if dev.get("status") != "healthy" or dev.get("platform") != "cuda":
+        fail(f"phase 21: the device row is {dev}")
+    want = {"weighted_noise_sum": 1, "population_noise_matvec": 1}
+    if probe.get("launches") != want:
+        fail(f"phase 21: the probe launched {probe.get('launches')}, expected {want}")
+    if not max(probe["max_abs_err"].values()) <= 1e-5:
+        fail(f"phase 21: a kernel in the probe is off its plain version: {probe}")
+    print(f"doctor: exit {proc.returncode}, report in {wall:.2f} s on {card}; device "
+          f"{dev['status']} ({probe['platform']}, {probe['n_devices']} x "
+          f"{probe['device_name']}), library {probe['library']}, launches "
+          f"{probe['launches']}, max |err| {probe['max_abs_err']}")
+    elapsed = {}
+    for name, row in rep.items():
+        if name == "hint":
+            continue
+        extra = ""
+        if isinstance(row, dict) and "elapsed_s" in row:
+            elapsed[name] = row["elapsed_s"]
+            extra = f", elapsed_s {row['elapsed_s']}"
+        if name == "resilience" and "roundtrip" in row:
+            elapsed["resilience.roundtrip"] = row["roundtrip"].get("elapsed_s")
+        print(f"  {name}: {_row_status(name, row)}{extra}")
+    return {"seconds": wall, "exit": proc.returncode, "device": dev,
+            "launches": probe["launches"], "max_abs_err": probe["max_abs_err"],
+            "library": probe["library"], "elapsed_s": elapsed,
+            "rows": {k: _row_status(k, v) for k, v in rep.items() if k != "hint"}}
+
+
 def main() -> None:
     import torch
 
@@ -5140,6 +5299,10 @@ def main() -> None:
     phase("20. param sharding")
     sharded = run_sharded(torch, estorch_tpu_torch, nk, card)
 
+    # ---- 21. the doctor on the card -------------------------------------------
+    phase("21. the doctor")
+    doctor = run_doctor(card)
+
     # ---- report --------------------------------------------------------------
     phase("report")
     kernels = [
@@ -5168,6 +5331,7 @@ def main() -> None:
          "launches_elastic": elastic["launches"]["weighted_noise_sum"],
          "launches_elastic_hosts": {"host 0": elastic["host0"]["launches"]["weighted_noise_sum"]},
          "launches_sharded": sum(v["weighted_noise_sum"] for v in sharded["launches"].values()),
+         "launches_doctor": doctor["launches"]["weighted_noise_sum"],
          "f64_output_ms": wns["f64_ms"], "f64_output_max_abs_err": wns["f64_max_abs_err"]},
         {"name": "population_noise_matvec", "route": "cuda",
          "source": "estorch_tpu_torch/ops/csrc/noise_kernels.cu",
@@ -5193,14 +5357,15 @@ def main() -> None:
          "launches_elastic_hosts": {
              "host 0": elastic["host0"]["launches"]["population_noise_matvec"]},
          "launches_sharded": sum(v["population_noise_matvec"]
-                                 for v in sharded["launches"].values())},
+                                 for v in sharded["launches"].values()),
+         "launches_doctor": doctor["launches"]["population_noise_matvec"]},
     ]
     print(json.dumps({"paths": paths, "eval_chunk": chunking, "card_vs_cpu_envs": env_cmp,
                       "async": async_paths, "crash_safe": crash_safe,
                       "attribution": attribution, "serving": serving,
                       "scenarios": scenarios, "fleet": fleet,
                       "data_parallel": data_parallel, "elastic": elastic,
-                      "sharded": sharded}))
+                      "sharded": sharded, "doctor": doctor}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

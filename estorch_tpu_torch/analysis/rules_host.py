@@ -1,0 +1,749 @@
+"""Host-side robustness rules: R05 untimed-subprocess-wait,
+R06 signature-probe-default, R11 blocking-wait-in-scheduler,
+R13 untimed-network-call, R15 unbounded-retry,
+R17 unfenced-cross-host-barrier, R23 dropped-trace-context.
+
+R05 is the wedge class ``doctor.py`` exists to detect after the fact:
+a ``proc.wait()`` / ``proc.communicate()`` with no timeout turns a hung
+child into a hung training job — on a TPU pod that's a wedged tunnel
+window, not a stack trace.  Every wait on a subprocess must bound its
+patience and escalate (kill, requeue, raise) itself.
+
+R06 is the bug family from rollout's ``_ci_takes_params``: when
+``inspect.signature`` fails on an exotic callable, falling back to a
+*guessed* constant silently picks a calling convention; the wrong guess
+crashes at trace time far from the cause.  The fallback must PROBE
+(call the zero-arg form under ``except TypeError``) instead of guessing.
+
+R11 is R05 generalized to IN-PROCESS queues and threads — the hazard
+class the async scheduler (algo/scheduler.py) introduced: an event loop
+that blocks unbounded on ``queue.get()``, ``thread.join()``, or a pipe
+``recv()`` turns one silent producer (a straggler that never wakes, a
+worker that died mid-message) into a wedged scheduler, invisible to the
+heartbeat because the loop never reaches its next beat.  Every blocking
+point in an event-driven hot path must wake on a bounded slice.
+
+R13 is the R05 discipline lifted to SOCKETS — the hazard class the
+fleet collector (obs/agg/) made systemic: a ``urllib.request.urlopen``
+or ``http.client.HTTPConnection`` without ``timeout=`` inherits the
+global socket default (None: block forever), so one replica that
+accepts the TCP connection and then goes silent wedges the scraper,
+the client, or the doctor probe that called it.  CPython's own default
+timeouts are None throughout; the bound must be at the call site.
+
+R17 is the R05/R11/R13 family lifted to the HOST layer — the hazard
+class the elastic multi-host work (parallel/elastic.py, multihost.py)
+made systemic: a cross-host rendezvous with no deadline.  Two shapes:
+(1) ``jax.distributed.initialize`` without ``initialization_timeout`` —
+the cluster barrier where a peer that never dials in hangs every host
+in the job, indefinitely and identically, so no survivor can even name
+the missing peer; (2) a raw coordinator-socket blocking wait —
+``.accept()`` or a buffer-sized ``.recv(n)``/``.recvfrom(n)`` on a
+socket-ish receiver — in a scope that never bounds it (no
+``settimeout``, no ``select``-style readiness wait, and no
+``socket.timeout``/``TimeoutError`` handler, which only ever fires on a
+timed socket).  The zero-arg pipe ``recv()`` stays R11's; socket
+CONSTRUCTION timeouts stay R13's; R17 owns the per-wait fence on an
+accepted/long-lived connection.
+
+R15 is the retry half of the same failure story: a loop that catches a
+network call's exception and tries again with NO attempt bound (``while
+True``) turns a dead peer into an infinite hammer, and one with no
+backoff/sleep between attempts turns a mass failover into a stampede
+that finishes off the survivors.  The front router's budgeted retry
+(serve/router.py: ``for attempt in range(1 + retry_budget)`` with
+exponential backoff + jitter) is the prescribed shape.  Scope is
+syntactic: the network call must be visible inside the loop's try body
+(a retry that delegates to a helper is judged where the helper makes
+its calls), and a handler that contains any ``raise`` is treated as
+escalating, not retrying — the single stale-keep-alive reconnect idiom
+(serve/client.py) raises on its second failure and stays clean.
+
+R23 is trace-context PROPAGATION as a static contract
+(docs/observability.md "Distributed tracing"): a handler that read the
+inbound ``X-Trace-Id`` header (``self.headers.get`` — the
+BaseHTTPRequestHandler receiver; a client reading a RESPONSE header is
+the opposite direction and out of scope) and then makes an outbound
+HTTP hop (``urlopen`` / ``conn.request``) in the same scope must put
+the header on that hop; otherwise every process behind this one mints
+fresh trace ids and the fleet-wide assembly (``obs trace --fleet``)
+ends here with no arrow out.  Forwarding sites: the header as a
+dict-literal key, an ``add_header``/``putheader``/``setdefault`` first
+argument, or a subscript-store key.  The front router's
+``_upstream_predict`` headers dict (serve/router.py) is the prescribed
+shape.
+"""
+
+from __future__ import annotations
+
+import ast
+import re
+
+from .context import ModuleContext
+from .engine import get_rule, iter_scopes, make_finding, rule, scope_nodes, walk_tree
+
+# ---------------------------------------------------------------------
+# R05 untimed-subprocess-wait
+# ---------------------------------------------------------------------
+
+_PROC_CTORS = {"subprocess.Popen", "multiprocessing.Process"}
+# one-shot helpers in the same hazard class: block until the child exits
+_RUN_HELPERS = {"subprocess.run", "subprocess.call", "subprocess.check_call",
+                "subprocess.check_output"}
+_PROCISH_NAME = re.compile(r"(^|_)(proc|process|popen|child)(es|s)?($|_)",
+                           re.IGNORECASE)
+
+
+def _has_timeout(call: ast.Call) -> bool:
+    for kw in call.keywords:
+        if kw.arg == "timeout":
+            return not (isinstance(kw.value, ast.Constant)
+                        and kw.value.value is None)
+    # Popen.wait(timeout) may be positional; communicate(input, timeout)
+    # positional timeout is arg index 1
+    if isinstance(call.func, ast.Attribute):
+        if call.func.attr == "wait" and len(call.args) >= 1:
+            return True
+        if call.func.attr == "communicate" and len(call.args) >= 2:
+            return True
+    return False
+
+
+def _receiver_tail(func: ast.Attribute) -> str | None:
+    """Last name component of the receiver: `self.proc.wait` -> "proc"."""
+    base = func.value
+    if isinstance(base, ast.Attribute):
+        return base.attr
+    if isinstance(base, ast.Name):
+        return base.id
+    return None
+
+
+@rule("R05", "untimed-subprocess-wait", "error",
+      "subprocess wait/communicate without a timeout can wedge the host")
+def check_untimed_wait(ctx: ModuleContext):
+    r = get_rule("R05")
+    out = []
+    for symbol, scope in iter_scopes(ctx):
+        proc_names: set[str] = set()
+        # pass 1: names bound from Popen/Process constructors in this scope
+        for node in scope_nodes(scope):
+            if (isinstance(node, ast.Assign)
+                    and isinstance(node.value, ast.Call)):
+                resolved = ctx.resolve(node.value.func)
+                tail = (resolved or "").rsplit(".", 1)[-1]
+                if resolved in _PROC_CTORS or tail == "Popen":
+                    for tgt in node.targets:
+                        if isinstance(tgt, ast.Name):
+                            proc_names.add(tgt.id)
+        # pass 2: unbounded waits on those names (or proc-ish receivers)
+        for node in scope_nodes(scope):
+            if not isinstance(node, ast.Call):
+                continue
+            resolved = ctx.resolve(node.func)
+            if resolved in _RUN_HELPERS and not any(
+                    kw.arg == "timeout"
+                    and not (isinstance(kw.value, ast.Constant)
+                             and kw.value.value is None)
+                    for kw in node.keywords):
+                out.append(make_finding(
+                    ctx, r, node,
+                    f"`{resolved}` without timeout — a hung child wedges "
+                    "this host forever",
+                    "pass timeout=... and handle "
+                    "subprocess.TimeoutExpired",
+                    symbol))
+                continue
+            if not isinstance(node.func, ast.Attribute):
+                continue
+            method = node.func.attr
+            if method not in ("wait", "communicate"):
+                continue
+            if _has_timeout(node):
+                continue
+            tail = _receiver_tail(node.func)
+            known = (isinstance(node.func.value, ast.Name)
+                     and node.func.value.id in proc_names)
+            procish = tail is not None and _PROCISH_NAME.search(tail)
+            # bare `.communicate()` is Popen-specific; `.wait()` needs a
+            # proc-ish receiver so DMA/thread/event waits stay quiet
+            if not (known or procish or method == "communicate"):
+                continue
+            out.append(make_finding(
+                ctx, r, node,
+                f"`.{method}()` without timeout — a hung child wedges "
+                "this host forever",
+                f"call `.{method}(timeout=...)` and kill/escalate on "
+                "subprocess.TimeoutExpired",
+                symbol))
+    return out
+
+
+# ---------------------------------------------------------------------
+# R11 blocking-wait-in-scheduler
+# ---------------------------------------------------------------------
+
+# receiver-name heuristics, same approach as R05's _PROCISH_NAME: the
+# names people actually give queues / worker threads / pipe connections
+_QUEUEISH_NAME = re.compile(
+    r"(^|_)(queue|q|events?|inbox|outbox|results?|tasks?|mailbox)(s)?($|_)",
+    re.IGNORECASE)
+_THREADISH_NAME = re.compile(
+    r"(^|_)(thread|worker|pump|collector|consumer|producer)(s)?($|_)",
+    re.IGNORECASE)
+_CONNISH_NAME = re.compile(
+    r"(^|_)(conn|connection|pipe|sock|socket|channel)(s)?($|_)",
+    re.IGNORECASE)
+
+
+def _kw(call: ast.Call, name: str) -> ast.keyword | None:
+    for kw in call.keywords:
+        if kw.arg == name:
+            return kw
+    return None
+
+
+def _untimed_get(call: ast.Call) -> bool:
+    """queue.get() blocking forever: no positional args (dict.get(key)
+    and protocol gets always pass one), no timeout, and not the
+    non-blocking form (block=False / get_nowait is a different name)."""
+    if call.args:
+        return False
+    kw = _kw(call, "timeout")
+    if kw is not None and not (isinstance(kw.value, ast.Constant)
+                               and kw.value.value is None):
+        return False
+    block = _kw(call, "block")
+    if block is not None and isinstance(block.value, ast.Constant) \
+            and block.value.value is False:
+        return False
+    return True
+
+
+def _untimed_join(call: ast.Call) -> bool:
+    """thread.join() with no bound: str.join(iterable) always has an
+    argument, Thread.join(timeout) may be positional."""
+    if call.args:
+        return False
+    kw = _kw(call, "timeout")
+    return kw is None or (isinstance(kw.value, ast.Constant)
+                          and kw.value.value is None)
+
+
+def _scope_establishes_readiness(ctx: ModuleContext, scope) -> bool:
+    """True when the scope bounds its pipe waits before recv(): a
+    ``poll(timeout)`` probe or a ``wait(..., timeout=...)`` select-style
+    call — the procpool idiom (conn.poll(slice) / mpc.wait(conns,
+    timeout=...)), after which recv() only ever reads buffered data."""
+    for node in scope_nodes(scope):
+        if not isinstance(node, ast.Call):
+            continue
+        if isinstance(node.func, ast.Attribute) and node.func.attr == "poll" \
+                and node.args:
+            return True
+        name = (node.func.attr if isinstance(node.func, ast.Attribute)
+                else node.func.id if isinstance(node.func, ast.Name)
+                else None)
+        if name == "wait" and _kw(node, "timeout") is not None:
+            return True
+    return False
+
+
+@rule("R11", "blocking-wait-in-scheduler", "error",
+      "unbounded in-process wait (queue.get/thread.join/conn.recv) can "
+      "wedge an event loop")
+def check_blocking_wait(ctx: ModuleContext):
+    r = get_rule("R11")
+    out = []
+    for symbol, scope in iter_scopes(ctx):
+        ready = None  # lazy: computed only when a recv() shows up
+        for node in scope_nodes(scope):
+            if not isinstance(node, ast.Call) or not isinstance(
+                    node.func, ast.Attribute):
+                continue
+            method = node.func.attr
+            tail = _receiver_tail(node.func)
+            if tail is None:
+                continue
+            if method == "get" and _QUEUEISH_NAME.search(tail) \
+                    and _untimed_get(node):
+                out.append(make_finding(
+                    ctx, r, node,
+                    f"`{tail}.get()` without timeout — a producer that "
+                    "never answers wedges this loop forever",
+                    "call `.get(timeout=...)` in a bounded slice and "
+                    "handle queue.Empty (re-check liveness, then retry)",
+                    symbol))
+            elif method == "join" and _THREADISH_NAME.search(tail) \
+                    and _untimed_join(node):
+                out.append(make_finding(
+                    ctx, r, node,
+                    f"`{tail}.join()` without timeout — a worker stuck "
+                    "in a straggler sleep or dead lock never joins",
+                    "call `.join(timeout=...)` and escalate (flag, "
+                    "abandon a daemon thread, raise) when it misses",
+                    symbol))
+            elif method == "recv" and _CONNISH_NAME.search(tail) \
+                    and not node.args:
+                if ready is None:
+                    ready = _scope_establishes_readiness(ctx, scope)
+                if not ready:
+                    out.append(make_finding(
+                        ctx, r, node,
+                        f"`{tail}.recv()` with no readiness guard — a "
+                        "silent peer wedges this end forever",
+                        "probe `.poll(timeout)` (or select via "
+                        "multiprocessing.connection.wait with a timeout) "
+                        "before recv, so the wait is bounded",
+                        symbol))
+    return out
+
+
+# ---------------------------------------------------------------------
+# R13 untimed-network-call
+# ---------------------------------------------------------------------
+
+# resolved dotted name -> positional index where `timeout` lands
+# (urlopen(url, data, timeout); HTTPConnection(host, port, timeout);
+# HTTPSConnection(host, port, key_file, cert_file, timeout) — the
+# deprecated TLS params sit BEFORE timeout; create_connection(address,
+# timeout, ...))
+_NET_CALLS = {
+    "urllib.request.urlopen": 2,
+    "http.client.HTTPConnection": 2,
+    "http.client.HTTPSConnection": 4,
+    "socket.create_connection": 1,
+}
+
+
+def _net_has_timeout(call: ast.Call, pos_index: int) -> bool:
+    kw = _kw(call, "timeout")
+    if kw is not None:
+        return not (isinstance(kw.value, ast.Constant)
+                    and kw.value.value is None)
+    if len(call.args) <= pos_index:
+        return False
+    # a positional literal None is spelling the unbounded default,
+    # exactly like timeout=None
+    arg = call.args[pos_index]
+    return not (isinstance(arg, ast.Constant) and arg.value is None)
+
+
+@rule("R13", "untimed-network-call", "error",
+      "network connect/read without a timeout can wedge the host on one "
+      "silent peer")
+def check_untimed_network(ctx: ModuleContext):
+    r = get_rule("R13")
+    out = []
+    for symbol, scope in iter_scopes(ctx):
+        for node in scope_nodes(scope):
+            if not isinstance(node, ast.Call):
+                continue
+            resolved = ctx.resolve(node.func)
+            if resolved not in _NET_CALLS:
+                continue
+            if _net_has_timeout(node, _NET_CALLS[resolved]):
+                continue
+            out.append(make_finding(
+                ctx, r, node,
+                f"`{resolved}` without timeout — the global socket "
+                "default is None (block forever), so one peer that "
+                "accepts and goes silent wedges this host",
+                "pass timeout=... at the call site and handle the "
+                "TimeoutError/OSError (count it, retry, or mark the "
+                "peer down)",
+                symbol))
+    return out
+
+
+# ---------------------------------------------------------------------
+# R15 unbounded-retry
+# ---------------------------------------------------------------------
+
+def _is_net_call(ctx: ModuleContext, node: ast.Call) -> bool:
+    """The calls whose failure a retry loop plausibly retries: the R13
+    connect/request layer (urlopen / HTTP[S]Connection /
+    create_connection) plus ``.request()``/``.getresponse()`` on a
+    conn-ish receiver."""
+    resolved = ctx.resolve(node.func)
+    if resolved in _NET_CALLS or (resolved or "").endswith(".urlopen"):
+        return True
+    if isinstance(node.func, ast.Attribute) \
+            and node.func.attr in ("request", "getresponse"):
+        tail = _receiver_tail(node.func)
+        return tail is not None and bool(_CONNISH_NAME.search(tail))
+    return False
+
+
+def _loop_is_unbounded(loop: ast.While | ast.For,
+                       ctx: ModuleContext) -> bool:
+    if isinstance(loop, ast.While):
+        t = loop.test
+        return isinstance(t, ast.Constant) and bool(t.value)
+    resolved = (ctx.resolve(loop.iter.func)
+                if isinstance(loop.iter, ast.Call) else None)
+    return resolved == "itertools.count"
+
+
+def _has_backoff(loop: ast.While | ast.For, ctx: ModuleContext) -> bool:
+    """Any sleep-shaped call in the loop body: ``time.sleep``, a
+    ``.sleep()`` method, or an event-style ``.wait(timeout)`` — all
+    space attempts out."""
+    for node in ast.walk(loop):
+        if not isinstance(node, ast.Call):
+            continue
+        resolved = ctx.resolve(node.func)
+        if resolved == "time.sleep":
+            return True
+        if isinstance(node.func, ast.Attribute):
+            if node.func.attr == "sleep":
+                return True
+            if node.func.attr == "wait" and (node.args or node.keywords):
+                return True
+    return False
+
+
+def _retrying_handlers(try_node: ast.Try) -> list[ast.ExceptHandler]:
+    """Handlers that swallow the failure back into the loop: no
+    ``raise`` anywhere in the handler body.  A handler that re-raises
+    (even conditionally, like the client's second-attempt escalation)
+    is bounding its own patience."""
+    out = []
+    for handler in try_node.handlers:
+        if not any(isinstance(n, ast.Raise)
+                   for stmt in handler.body for n in ast.walk(stmt)):
+            out.append(handler)
+    return out
+
+
+def _walk_own_body(loop: ast.While | ast.For):
+    """Nodes of ``loop`` WITHOUT descending into nested loops: a
+    bounded, backed-off retry inside an outer ``while True`` dispatcher
+    must be judged as its own (innermost) loop, not pinned on the
+    outer one."""
+    stack = list(ast.iter_child_nodes(loop))
+    while stack:
+        node = stack.pop()
+        yield node
+        if not isinstance(node, (ast.While, ast.For, ast.FunctionDef,
+                                 ast.AsyncFunctionDef)):
+            stack.extend(ast.iter_child_nodes(node))
+
+
+@rule("R15", "unbounded-retry", "error",
+      "network retry loop with no attempt bound or no backoff between "
+      "attempts")
+def check_unbounded_retry(ctx: ModuleContext):
+    r = get_rule("R15")
+    out = []
+    for symbol, scope in iter_scopes(ctx):
+        for loop in scope_nodes(scope):
+            if not isinstance(loop, (ast.While, ast.For)):
+                continue
+            # the retry shape: a try in THIS loop's own body (nested
+            # loops are judged separately as their own retry loops)
+            # whose body makes a network call and whose handler
+            # swallows the failure into the next iteration
+            retries_net = False
+            for node in _walk_own_body(loop):
+                if not isinstance(node, ast.Try):
+                    continue
+                if not _retrying_handlers(node):
+                    continue
+                if any(_is_net_call(ctx, c)
+                       for stmt in node.body
+                       for c in ast.walk(stmt)
+                       if isinstance(c, ast.Call)):
+                    retries_net = True
+                    break
+            if not retries_net:
+                continue
+            if _loop_is_unbounded(loop, ctx):
+                out.append(make_finding(
+                    ctx, r, loop,
+                    "unbounded network retry: this loop catches the "
+                    "failure and tries again forever — a dead peer "
+                    "becomes an infinite hammer",
+                    "bound the attempts (`for attempt in range(1 + "
+                    "budget)`) and back off exponentially with jitter "
+                    "between them (serve/router.py is the shape)",
+                    symbol))
+            elif not _has_backoff(loop, ctx):
+                out.append(make_finding(
+                    ctx, r, loop,
+                    "network retry loop with no backoff: immediate "
+                    "re-attempts turn a mass failover into a stampede "
+                    "on the survivors",
+                    "sleep between attempts (exponential backoff + "
+                    "jitter, `time.sleep(base * 2**attempt * jitter)`) "
+                    "or escalate after the first failure",
+                    symbol))
+    return out
+
+
+# ---------------------------------------------------------------------
+# R17 unfenced-cross-host-barrier
+# ---------------------------------------------------------------------
+
+_SOCKISH_NAME = re.compile(
+    r"(^|_)(sock|socket|srv|server|listener|conn|connection|peer)"
+    r"(s)?($|_)",
+    re.IGNORECASE)
+_SELECTISH_NAME = re.compile(
+    r"(^|_)(sel|selector|selectors|select|poller|epoll|kqueue)(s)?($|_)",
+    re.IGNORECASE)
+_TIMEOUTISH_EXC = ("timeout", "TimeoutError")
+
+
+def _scope_bounds_socket_waits(ctx: ModuleContext, scope,
+                               wait_tail: str) -> bool:
+    """True when the scope provably fences a wait on the receiver named
+    ``wait_tail``: a ``settimeout(x)`` with a non-None bound on the SAME
+    receiver (a timeout on some other socket bounds nothing here), a
+    readiness wait on a selector-ish receiver (``sel.select(...)``/
+    ``select.select(...)`` — the socket itself was registered elsewhere,
+    so no receiver match is possible; a ``.select()`` on a non-selector
+    receiver, e.g. an ORM query or a soup, is not a fence), or an
+    ``except socket.timeout / TimeoutError`` handler — which only ever
+    fires on a socket that HAS a timeout, so catching it is evidence one
+    was set upstream (the elastic protocol helpers' shape: the
+    connect/accept site sets the timeout, the recv loop catches)."""
+    for node in scope_nodes(scope):
+        if isinstance(node, ast.Call) and isinstance(node.func,
+                                                     ast.Attribute):
+            if (node.func.attr == "settimeout" and node.args
+                    and _receiver_tail(node.func) == wait_tail
+                    and not (isinstance(node.args[0], ast.Constant)
+                             and node.args[0].value is None)):
+                return True
+            if node.func.attr == "select" and (node.args or node.keywords):
+                recv = _receiver_tail(node.func)
+                if recv is not None and _SELECTISH_NAME.search(recv):
+                    return True
+        if isinstance(node, ast.ExceptHandler) and node.type is not None:
+            types = (node.type.elts
+                     if isinstance(node.type, ast.Tuple) else [node.type])
+            for t in types:
+                name = (t.attr if isinstance(t, ast.Attribute)
+                        else t.id if isinstance(t, ast.Name) else None)
+                if name in _TIMEOUTISH_EXC:
+                    return True
+    return False
+
+
+@rule("R17", "unfenced-cross-host-barrier", "error",
+      "cross-host rendezvous (jax.distributed init / coordinator-socket "
+      "wait) with no deadline hangs the whole fleet on one silent peer")
+def check_unfenced_cross_host_barrier(ctx: ModuleContext):
+    r = get_rule("R17")
+    out = []
+    for symbol, scope in iter_scopes(ctx):
+        bounded: dict[str, bool] = {}  # per waited receiver, lazily
+        for node in scope_nodes(scope):
+            if not isinstance(node, ast.Call):
+                continue
+            resolved = ctx.resolve(node.func)
+            if resolved == "jax.distributed.initialize":
+                kw = _kw(node, "initialization_timeout")
+                if kw is None or (isinstance(kw.value, ast.Constant)
+                                  and kw.value.value is None):
+                    out.append(make_finding(
+                        ctx, r, node,
+                        "`jax.distributed.initialize` without "
+                        "`initialization_timeout` — one peer that never "
+                        "dials in hangs EVERY host in the job, "
+                        "indefinitely and identically",
+                        "pass initialization_timeout=... (seconds) so "
+                        "the barrier becomes a timed error naming the "
+                        "wedge (parallel/multihost.py is the shape)",
+                        symbol))
+                continue
+            if not isinstance(node.func, ast.Attribute):
+                continue
+            method = node.func.attr
+            tail = _receiver_tail(node.func)
+            if tail is None or not _SOCKISH_NAME.search(tail):
+                continue
+            # .accept() is argless; socket .recv/.recvfrom carry a
+            # buffer size (the argless pipe recv() is R11's territory)
+            wait = (method == "accept" and not node.args) or (
+                method in ("recv", "recvfrom", "recv_into") and node.args)
+            if not wait:
+                continue
+            if tail not in bounded:
+                bounded[tail] = _scope_bounds_socket_waits(ctx, scope,
+                                                           tail)
+            if not bounded[tail]:
+                out.append(make_finding(
+                    ctx, r, node,
+                    f"`{tail}.{method}()` with no deadline — a silent "
+                    "peer (wedged host, half-open TCP) blocks this end "
+                    "of the fleet forever",
+                    "settimeout(...) the socket (or select with a "
+                    "timeout) and loop on socket.timeout in bounded "
+                    "slices, re-checking liveness each slice",
+                    symbol))
+    return out
+
+
+# ---------------------------------------------------------------------
+# R06 signature-probe-default
+# ---------------------------------------------------------------------
+
+def _calls_signature(ctx: ModuleContext, stmts: list[ast.stmt]) -> bool:
+    for stmt in stmts:
+        for node in ast.walk(stmt):
+            if isinstance(node, ast.Call):
+                resolved = ctx.resolve(node.func)
+                if resolved in ("inspect.signature",
+                                "inspect.getfullargspec"):
+                    return True
+    return False
+
+
+def _guessing_assign(handler: ast.ExceptHandler) -> ast.stmt | None:
+    """The handler's constant-assignment, when the handler does nothing
+    but guess (assignments of constants, pass, or a comment)."""
+    guess: ast.stmt | None = None
+    for stmt in handler.body:
+        if isinstance(stmt, ast.Pass):
+            continue
+        if (isinstance(stmt, ast.Assign)
+                and isinstance(stmt.value, ast.Constant)):
+            guess = guess or stmt
+            continue
+        if (isinstance(stmt, ast.AnnAssign)
+                and isinstance(stmt.value, ast.Constant)):
+            guess = guess or stmt
+            continue
+        return None  # handler does real work (probes, raises, logs...)
+    return guess
+
+
+@rule("R06", "signature-probe-default", "warning",
+      "inspect.signature failure falls back to a guessed constant")
+def check_signature_probe(ctx: ModuleContext):
+    r = get_rule("R06")
+    parent_symbol = {}
+    for symbol, scope in iter_scopes(ctx):
+        for node in scope_nodes(scope):
+            parent_symbol[node] = symbol
+    out = []
+    for node in walk_tree(ctx.tree):
+        if not isinstance(node, ast.Try):
+            continue
+        if not _calls_signature(ctx, node.body):
+            continue
+        for handler in node.handlers:
+            guess = _guessing_assign(handler)
+            if guess is None:
+                continue
+            out.append(make_finding(
+                ctx, r, guess,
+                "signature introspection failed and the fallback GUESSES "
+                "a calling convention",
+                "probe once at build time instead: call the zero-arg form "
+                "under `except TypeError` and record which form worked",
+                parent_symbol.get(node, "<module>")))
+    return out
+
+
+# ---------------------------------------------------------------------
+# R23 dropped-trace-context
+# ---------------------------------------------------------------------
+
+_TRACE_HEADER_LITERAL = "X-Trace-Id"
+# header-constant names from obs/tracing.py: a resolved name ending in
+# one of these IS the trace header, however the module imported it
+_TRACE_HEADER_NAMES = {"TRACE_HEADER"}
+
+
+def _is_trace_token(ctx: ModuleContext, node: ast.AST) -> bool:
+    """Is this expression the trace-id header key — the literal
+    "X-Trace-Id" or the TRACE_HEADER constant (any import spelling)?"""
+    if isinstance(node, ast.Constant):
+        return node.value == _TRACE_HEADER_LITERAL
+    resolved = ctx.resolve(node)
+    return bool(resolved) and \
+        resolved.rsplit(".", 1)[-1] in _TRACE_HEADER_NAMES
+
+
+def _reads_inbound_trace(ctx: ModuleContext, node: ast.AST) -> bool:
+    """``self.headers.get(<trace token>)`` / ``self.headers[<token>]`` —
+    the BaseHTTPRequestHandler read that makes this scope a RECEIVER of
+    trace context (a ``resp.headers.get`` on a client response is the
+    opposite direction and stays out of scope)."""
+    def _self_headers(base: ast.AST) -> bool:
+        return (isinstance(base, ast.Attribute) and base.attr == "headers"
+                and isinstance(base.value, ast.Name)
+                and base.value.id == "self")
+
+    if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+            and node.func.attr == "get" and _self_headers(node.func.value)
+            and node.args and _is_trace_token(ctx, node.args[0])):
+        return True
+    return (isinstance(node, ast.Subscript) and _self_headers(node.value)
+            and _is_trace_token(ctx, node.slice))
+
+
+def _is_outbound_http(ctx: ModuleContext, call: ast.Call) -> bool:
+    """An outbound HTTP hop: ``urllib.request.urlopen`` or the
+    ``conn.request(method, path, ...)`` HTTPConnection idiom."""
+    if ctx.resolve(call.func) == "urllib.request.urlopen":
+        return True
+    return (isinstance(call.func, ast.Attribute)
+            and call.func.attr == "request" and len(call.args) >= 2)
+
+
+def _scope_forwards_trace(ctx: ModuleContext, nodes) -> bool:
+    """Any forwarding site in the scope: the trace header as a dict-
+    literal key, an ``add_header``/``putheader``/``setdefault`` first
+    argument, or a subscript-store key (``headers[TRACE_HEADER] = ...``)."""
+    for node in nodes:
+        if isinstance(node, ast.Dict):
+            if any(k is not None and _is_trace_token(ctx, k)
+                   for k in node.keys):
+                return True
+        elif (isinstance(node, ast.Call)
+                and isinstance(node.func, ast.Attribute)
+                and node.func.attr in ("add_header", "putheader",
+                                       "setdefault")
+                and node.args and _is_trace_token(ctx, node.args[0])):
+            return True
+        elif isinstance(node, ast.Assign):
+            if any(isinstance(t, ast.Subscript)
+                   and _is_trace_token(ctx, t.slice)
+                   for t in node.targets):
+                return True
+    return False
+
+
+@rule("R23", "dropped-trace-context", "warning",
+      "handler received X-Trace-Id but its outbound HTTP hop does not "
+      "forward it — the assembled trace ends here")
+def check_dropped_trace_context(ctx: ModuleContext):
+    r = get_rule("R23")
+    out = []
+    for symbol, scope in iter_scopes(ctx):
+        nodes = scope_nodes(scope)
+        if not any(_reads_inbound_trace(ctx, n) for n in nodes):
+            continue
+        outbound = [n for n in nodes
+                    if isinstance(n, ast.Call)
+                    and _is_outbound_http(ctx, n)]
+        if not outbound or _scope_forwards_trace(ctx, nodes):
+            continue
+        for call in outbound:
+            out.append(make_finding(
+                ctx, r, call,
+                "this scope read the inbound `X-Trace-Id` header but "
+                "its outbound HTTP call never forwards it — every hop "
+                "behind this one becomes a separate, unjoinable trace",
+                "put the trace id on the outbound request (a "
+                '`{"X-Trace-Id": trace}` headers entry or '
+                "`add_header(TRACE_HEADER, trace)`) — and forward "
+                "`X-Parent-Span` beside it so the assembly keeps "
+                "parentage (docs/observability.md 'Distributed "
+                "tracing')",
+                symbol))
+    return out

@@ -47,8 +47,9 @@ noise rows (padded with ghost rows that repeat row 0 and weigh 0, so any
 even population runs on any world size), rolls its members out, and meets
 the others twice a generation: the fitness, BC and alive steps gathered
 (ghosts sliced away before ranking, their steps masked out of the count),
-and the update's local partial summed (the kernel's in float64, rounded
-once as world 1 rounds its one sum, ROADMAP F22).  Everything after the sum (the
+and the update's parts (the kernel's float64 partials summed and rounded
+once; the plain reduction's chunk products gathered and added in world 1's
+order; ROADMAP F22), so world N's update is world 1's bits.  Everything after the sum (the
 optimizer step, σ, the obs-norm probe, VBN) is replicated, so every rank
 ends each generation with the same bits.  At world 1 no collective runs
 and every launch is as before.
@@ -657,31 +658,68 @@ class ESEngine:
     def _grad(self, state: ESState, weights: torch.Tensor, red_offs: torch.Tensor):
         """The ascent direction from the global per-member rank weights and
         the global ``red_offs``, per pair (mirrored: folded estimator) or
-        per member: the ranks' partials of Σ w·ε summed, rounded to float32
-        and divided by population·σ.  The kernel's partials are float64 and
-        rounded once, as world 1 rounds its one sum (ROADMAP F22); the plain
-        reductions' are float32, as the JAX package's (the rest of F22)."""
-        total = self.mesh.all_reduce_sum(self._local_sum(state, weights, red_offs))
-        return total.to(torch.float32) / (self.config.population_size * state.sigma)
+        per member: Σ w·ε rounded to float32 and divided by population·σ.
+        At world N every rank holds world 1's bits (ROADMAP F22): the
+        kernel's float64 partials are summed and rounded once, as world 1
+        rounds its one sum; the plain reduction's float32 chunk products
+        are gathered and added in world 1's order; the low-rank factors'
+        einsums run whole on every rank."""
+        cfg = self.config
+        if cfg.low_rank:
+            total = self._lowrank_sum(weights, red_offs)
+        elif cfg.noise_kernel:
+            total = self.mesh.all_reduce_sum(self._local_sum(state, weights, red_offs))
+        else:
+            total = self._chunked_sum(weights, red_offs)
+        return total.to(torch.float32) / (cfg.population_size * state.sigma)
+
+    def _row_weights(self, weights: torch.Tensor) -> torch.Tensor:
+        return fold_mirrored_weights(weights) if self.config.mirrored else weights
+
+    def _lowrank_sum(self, weights: torch.Tensor, red_offs: torch.Tensor) -> torch.Tensor:
+        """World 1's low-rank Σ w·ε over all the global rows, on every rank
+        with no collective: one einsum per layer over the stacked factors,
+        no member's dense E formed."""
+        noise = gather_rows(self.table.data, red_offs, self.noise_dim)
+        wsum = (lowrank_tree_weighted_sum if isinstance(self.lr_spec, LowRankTreeSpec)
+                else lowrank_weighted_sum)
+        return self.spec.flatten(wsum(self.lr_spec, noise, self._row_weights(weights)))
+
+    def _chunked_sum(self, weights: torch.Tensor, red_offs: torch.Tensor) -> torch.Tensor:
+        """World 1's plain reduction, ``acc += w[c] @ rows[c]`` in float32
+        over its ``grad_chunk`` chunks of the global rows in order.  At
+        world N each rank forms the products of its share of those chunks
+        (the count padded to a multiple of the ranks with zero rows), one
+        exact gather hands every rank all of them, and every rank adds them
+        in world 1's order."""
+        chunk, dim = self.config.grad_chunk, self.spec.dim
+        row_w = self._row_weights(weights)
+        if self.n_devices == 1:
+            return rank_weighted_noise_sum(self.table, red_offs, row_w, dim=dim, chunk=chunk)
+        n_chunks = -(-red_offs.shape[0] // chunk)
+        k = -(-n_chunks // self.n_devices)
+        first = self.mesh.rank * k
+        local = torch.zeros((k, dim), dtype=self.table.data.dtype, device=self.device)
+        for i, c in enumerate(range(first, min(first + k, n_chunks))):
+            lo = c * chunk
+            local[i] = row_w[lo:lo + chunk] @ gather_rows(self.table.data,
+                                                           red_offs[lo:lo + chunk], dim)
+        products = self.mesh.gather_rows(local, k)
+        acc = torch.zeros((dim,), dtype=self.table.data.dtype, device=self.device)
+        for c in range(n_chunks):
+            acc += products[c]
+        return acc
 
     def _local_sum(self, state: ESState, weights: torch.Tensor, red_offs: torch.Tensor,
                    exact: bool = False) -> torch.Tensor:
-        """This rank's Σ w·ε over its own rows, not yet divided.  The
-        kernel's float64 sum is left unrounded where it meets other ranks'
-        partials (world N) and rounded by the kernel at world 1, whose
-        launches stay as they were; ``exact`` asks for float64 on every
-        branch (IW-ES's split)."""
+        """This rank's partial of Σ w·ε over its own rows, not yet divided,
+        from the kernel or (``exact``: IW-ES's split) the plain reduction in
+        float64.  The kernel's float64 sum is left unrounded where it meets
+        other ranks' partials (world N) and rounded by the kernel at world
+        1, whose launches stay as they were."""
         cfg = self.config
-        weights = self._local_weights(weights)
         red_offs = self._local_rows(red_offs)
-        row_w = fold_mirrored_weights(weights) if cfg.mirrored else weights
-        if cfg.low_rank:
-            # one einsum per layer over the stacked factors: no member's
-            # dense E is formed
-            noise = gather_rows(self.table.data, red_offs, self.noise_dim)
-            wsum = (lowrank_tree_weighted_sum if isinstance(self.lr_spec, LowRankTreeSpec)
-                    else lowrank_weighted_sum)
-            return self.spec.flatten(wsum(self.lr_spec, noise, row_w))
+        row_w = self._row_weights(self._local_weights(weights))
         if cfg.noise_kernel:
             f64 = exact or self.n_devices > 1
             return weighted_noise_sum(self.table.data, red_offs, row_w.contiguous(),

@@ -614,6 +614,7 @@ class ShardedESEngine:
         rows, signs = self._member_rows_signs(torch.tensor([int(member_index)]))
         return self.layout.gather(self._perturbed(state, rows, signs, draws)[0])
 
+    @torch.no_grad()
     def evaluate_episodes(self, state: ShardedESState, states0: torch.Tensor,
                           params_flat: torch.Tensor | None = None,
                           with_env_metrics: bool = False):

@@ -46,7 +46,6 @@ for the CPU.
 
 from __future__ import annotations
 
-import hashlib
 import importlib
 import inspect
 import json
@@ -58,24 +57,10 @@ import torch
 
 from ..envs.rollout import episode_carry
 
-BUNDLE_SCHEMA = 1
-MANIFEST_NAME = "MANIFEST.json"
-ARRAYS_NAME = "arrays.npz"
-
-
-class BundleError(ValueError):
-    """Malformed, corrupt, or incompatible bundle."""
-
+from .validate import (ARRAYS_NAME, BUNDLE_SCHEMA, MANIFEST_NAME, BundleError,
+                       _sha256_file, validate_bundle)
 
 # --------------------------------------------------------------------- util
-
-def _sha256_file(path: str) -> str:
-    h = hashlib.sha256()
-    with open(path, "rb") as f:
-        for chunk in iter(lambda: f.read(1 << 20), b""):
-            h.update(chunk)
-    return h.hexdigest()
-
 
 def _resolve_import(spec: str):
     """``"pkg.mod:attr"`` → the attribute (class/function)."""
@@ -352,70 +337,6 @@ def _commit_manifest(path: str, manifest: dict) -> None:
     os.replace(tmp, manifest_path)  # the commit point
 
 
-# ----------------------------------------------------------------- validate
-
-def validate_bundle(path: str) -> dict:
-    """Structural validation WITHOUT importing the policy module or
-    touching a device.  Returns the manifest; raises :class:`BundleError`
-    with the finding otherwise.
-    """
-    path = os.path.abspath(path)
-    manifest_path = os.path.join(path, MANIFEST_NAME)
-    if not os.path.isdir(path):
-        raise BundleError(f"bundle path {path!r} is not a directory")
-    if not os.path.exists(manifest_path):
-        raise BundleError(
-            f"bundle at {path!r} has no {MANIFEST_NAME} — the export never "
-            "committed (crashed mid-write?) or this is not a bundle"
-        )
-    try:
-        with open(manifest_path) as f:
-            manifest = json.load(f)
-    except ValueError as e:
-        raise BundleError(f"unreadable {MANIFEST_NAME}: {e}") from e
-    schema = manifest.get("schema")
-    if schema != BUNDLE_SCHEMA:
-        raise BundleError(
-            f"bundle schema {schema!r} != supported {BUNDLE_SCHEMA} — "
-            "re-export from the run that produced it"
-        )
-    for key in ("module", "obs_shape", "param_dim", "sha256", "version"):
-        if key not in manifest:
-            raise BundleError(f"{MANIFEST_NAME} is missing {key!r}")
-    arrays_path = os.path.join(path, ARRAYS_NAME)
-    if not os.path.exists(arrays_path):
-        raise BundleError(f"bundle is missing its payload {ARRAYS_NAME}")
-    sha = manifest.get("sha256")
-    want = sha.get(ARRAYS_NAME) if isinstance(sha, dict) else None
-    if not want:
-        raise BundleError(
-            f"{MANIFEST_NAME} records no checksum for {ARRAYS_NAME} — "
-            "not a bundle this version can trust"
-        )
-    for rel, want in sorted(sha.items()):
-        fpath = os.path.join(path, *rel.split("/"))
-        if not os.path.exists(fpath):
-            raise BundleError(f"bundle is missing checksummed file {rel!r}")
-        got = _sha256_file(fpath)
-        if got != want:
-            raise BundleError(
-                f"{rel} checksum mismatch (manifest {str(want)[:12]}…, "
-                f"file {got[:12]}…) — the payload is corrupt or was "
-                "modified after export"
-            )
-    from .warm import validate_warm_block
-
-    validate_warm_block(manifest)
-    with np.load(arrays_path) as z:
-        if "params_flat" not in z.files:
-            raise BundleError(f"{ARRAYS_NAME} has no params_flat array")
-        n = int(z["params_flat"].shape[0])
-    if n != int(manifest["param_dim"]):
-        raise BundleError(
-            f"params_flat has {n} parameters but the manifest promises "
-            f"{manifest['param_dim']}"
-        )
-    return manifest
 
 
 # --------------------------------------------------------------------- load

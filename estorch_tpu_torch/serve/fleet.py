@@ -404,8 +404,8 @@ class Fleet:
             with open(slot.log_path, errors="replace") as f:
                 lines = [ln.strip() for ln in f if ln.strip()]
             last = lines[-1][:300] if lines else ""
-        except OSError:
-            pass
+        except OSError as e:
+            last = f"its log {slot.log_path} is unreadable: {e}"
         msg = f"replica {slot.name} refused to start (exit 2)" + (
             f": {last}" if last else "")
         with self._slots_lock:

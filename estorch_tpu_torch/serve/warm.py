@@ -34,8 +34,8 @@ import torch
 
 from .batcher import DynamicBatcher
 from .bundle import BundleError, load_bundle
+from .validate import WARM_FORMAT
 
-WARM_FORMAT = "torch_eager"
 
 # The documented per-bucket accuracy bound for quantized serving: the
 # worst row of the quantized program may deviate from the f32 anchor by
@@ -141,39 +141,6 @@ def warm_bundle(
         # no ladder exists — the ladder-complete structural check does not apply
         block["recurrent_only"] = True
     return block
-
-
-def validate_warm_block(manifest: dict) -> None:
-    """Structural validation of the manifest's warm block (no device
-    touched): a known format, the platform facts present, and the bucket
-    ladder COMPLETE — verified + excluded buckets covering exactly the
-    ladder of its recorded ``max_batch``.  A version or platform mismatch
-    is NOT an error here — :func:`install_warmth` reports it."""
-    warm = manifest.get("warm")
-    if warm is None:
-        return
-    if not isinstance(warm, dict):
-        raise BundleError("manifest 'warm' block is not an object")
-    if warm.get("format") != WARM_FORMAT:
-        raise BundleError(
-            f"warm block has unknown format {warm.get('format')!r} — "
-            f"this version reads only {WARM_FORMAT!r}")
-    for key in ("max_batch", "torch_version", "platform"):
-        if key not in warm:
-            raise BundleError(f"warm block is missing {key!r}")
-    if not bool(warm.get("recurrent_only")):
-        from .batcher import bucket_sizes
-
-        try:
-            ladder = set(bucket_sizes(int(warm["max_batch"])))
-        except ValueError as e:
-            raise BundleError(f"warm block max_batch invalid: {e}") from e
-        covered = set(int(b) for b in warm.get("buckets", [])) | set(
-            int(b) for b in warm.get("buckets_excluded", []))
-        if covered != ladder:
-            raise BundleError(
-                f"warm block ladder incomplete: covers {sorted(covered)} "
-                f"but max_batch {warm['max_batch']} needs {sorted(ladder)}")
 
 
 def install_warmth(manifest: dict, device) -> dict:

@@ -231,11 +231,14 @@ class AsyncSaveHandle:
     """Returned by ``save_checkpoint(..., asynchronous=True)``: the payload's
     copy and write go on in a writer thread.  :meth:`wait` (idempotent)
     blocks until the checkpoint is durable and re-raises the writer's
-    error; call it before restoring from the path or exiting."""
+    error; call it before restoring from the path or exiting.  A writer
+    that misses ``wait``'s timeout is a ``TimeoutError`` naming the
+    checkpoint, never a wait without end."""
 
     def __init__(self, host_tree: dict, copied, sources: list, path: str):
         self._error: BaseException | None = None
         self._done = False
+        self._path = path
         self._thread = threading.Thread(target=self._write,
                                         args=(host_tree, copied, sources, path),
                                         name="checkpoint-writer")
@@ -250,10 +253,14 @@ class AsyncSaveHandle:
         except Exception as e:  # noqa: BLE001 — re-raised by wait()
             self._error = e
 
-    def wait(self) -> None:
+    def wait(self, timeout_s: float = 600.0) -> None:
+        """Block until the writer is done, at most ``timeout_s`` seconds."""
         if self._done:
             return
-        self._thread.join()
+        self._thread.join(timeout=timeout_s)
+        if self._thread.is_alive():
+            raise TimeoutError(f"checkpoint writer for {self._path} did not finish "
+                               f"within {timeout_s} s")
         self._done = True
         if self._error is not None:
             raise self._error

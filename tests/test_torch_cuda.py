@@ -1240,3 +1240,16 @@ def test_sharded_ranks_on_one_card_match_one_rank(cuda, tmp_path):
     assert ranks[0]["noise0"].tobytes() == noise.tobytes()
     np.testing.assert_allclose(ranks[0]["params"], one.state.params_flat.cpu().numpy(),
                                rtol=2e-4, atol=1e-5)
+
+
+def test_doctor_probe_launches_both_kernels(cuda):
+    """``python -m estorch_tpu_torch.doctor``'s device probe on the card:
+    the kernel library built or loaded, each kernel launched once in its
+    child against its plain version."""
+    from estorch_tpu_torch import doctor
+
+    out = doctor.check_device(timeout_s=180.0)
+    assert out["status"] == "ok", out
+    assert out["platform"] == "cuda" and out["n_devices"] >= 1
+    assert out["launches"] == {"weighted_noise_sum": 1, "population_noise_matvec": 1}
+    assert max(out["max_abs_err"].values()) <= 1e-5

@@ -21,10 +21,12 @@ the fixtures.
   JAX's psum.
 - ``ES(..., mesh=multihost.global_population_mesh()).train`` at worlds 4
   and 2 against the port's world 1: within 1e-6 absolute, and all ranks
-  bit-identical.  Since F22 the ranks hand their partials over in float64
-  and the sum is rounded once, as world 1 rounds: at world 2 the kernel
-  path's and IW-ES's params equal world 1's bit for bit where the fitness
-  is equal.
+  bit-identical.  Since F22 every branch of the update gives world 1's
+  bits: the kernel's float64 partials summed and rounded once, the plain
+  reduction's float32 chunk products gathered and added in world 1's
+  order, the low-rank einsums whole on every rank.  At world 2 the kernel,
+  plain, pooled and low-rank paths' params and IW-ES's reuse split equal
+  world 1's bit for bit.
 - NSR-ES and IW-ES (with reuse) at world 2: archive, meta indices and
   params bit-identical across ranks, and near world 1.
 - A rank killed mid-run turns into a ``CollectiveError`` naming the timeout
@@ -172,6 +174,10 @@ def rank_novelty(rank: int, world: int, rdv: str, work: Path) -> None:
         es.state, m = es.engine.generation_step(es.state)
         out[f"f22_fitness{g}"] = m["fitness"].numpy()
         out[f"f22_params{g}"] = es.state.params_flat.numpy()
+    for name, es in f22_plain_cases(mesh).items():
+        for g in range(3):
+            es.train(1, verbose=False)
+            out[f"{name}_params{g}"] = es.state.params_flat.numpy()
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         iw = iwes_es(mesh=mesh)
@@ -181,6 +187,22 @@ def rank_novelty(rank: int, world: int, rdv: str, work: Path) -> None:
     out["iw_reused"] = np.asarray([r["reused_gens"] for r in iw.history])
     out["iw_gnorm"] = np.asarray([r["grad_norm"] for r in iw.history])
     np.savez(work / f"novelty_rank{rank}.npz", **out)
+
+
+def f22_plain_cases(mesh=None) -> dict:
+    """The update's plain branches (the rest of F22): the plain chunked
+    reduction at population 28 with ``grad_chunk`` 4 (14 pair rows, 4
+    chunks, the last short; padded to an even count at world 2, whose
+    ranks hold 7 pairs), the same with 3 chunks (``grad_chunk`` 5, a count
+    not divisible by 2), pooled ES, and the low-rank einsums."""
+    mesh_kw = {} if mesh is None else {"mesh": mesh}
+    return {
+        "plain4": cartpole_es(population_size=28, noise_kernel=False, grad_chunk=4, **mesh_kw),
+        "plain3": cartpole_es(population_size=28, noise_kernel=False, grad_chunk=5, **mesh_kw),
+        "pooled3": ES(MLPPolicy, PooledAgent("cartpole", horizon=HORIZON), adam,
+                      **novelty_kw(grad_chunk=3, **mesh_kw)),
+        "lowrank": cartpole_es(streamed=False, noise_kernel=False, low_rank=1, **mesh_kw),
+    }
 
 
 def _reuse_update(es) -> torch.Tensor:
@@ -413,16 +435,18 @@ def test_world_2_ranks_bit_identical(novelty, key):
 
 def test_world_2_near_world_1(novelty):
     """ES, pooled ES, NSR-ES and IW-ES at world 2 against world 1: the same
-    meta indices and reuse decisions, params within 1e-6 (ES, pooled) and
-    1e-5 (NSR-ES and IW-ES add their own float32 sums on top of the
-    update's)."""
+    meta indices and reuse decisions, ES's and pooled ES's params equal
+    (every branch of the update is world 1's bits, F22), NSR-ES's and
+    IW-ES's within 1e-5 as they were held before F22's repair (IW-ES's
+    per-row ε·d and ‖ε‖² are formed in chunks of each rank's own rows,
+    ``ESEngine.noise_stats``)."""
     got = novelty[0]
     es = cartpole_es(population_size=16)
     es.train(2, verbose=False)
-    np.testing.assert_allclose(got["train_params"], es.state.params_flat.numpy(), atol=1e-6)
+    np.testing.assert_array_equal(got["train_params"], es.state.params_flat.numpy())
     pooled = ES(MLPPolicy, PooledAgent("cartpole", horizon=HORIZON), adam, **novelty_kw())
     pooled.train(2, verbose=False)
-    np.testing.assert_allclose(got["pooled_params"], pooled.state.params_flat.numpy(), atol=1e-6)
+    np.testing.assert_array_equal(got["pooled_params"], pooled.state.params_flat.numpy())
     ns = NSR_ES(MLPPolicy, DeviceAgent(CartPole(), horizon=HORIZON), adam,
                 meta_population_size=2, k=3, **novelty_kw())
     ns.train(3, verbose=False)
@@ -447,7 +471,7 @@ def test_world_2_update_equals_world_1_bit_for_bit(novelty):
     fitness is equal, the kernel path's params equal world 1's bit for bit
     over 3 generations, and so does IW-ES's reuse split (the fresh and the
     reused terms in one float64 partial) from the same inputs.  The plain
-    reductions keep float32 partials (the rest of F22, ROADMAP)."""
+    branches: ``test_world_2_plain_update_equals_world_1_bit_for_bit``."""
     got = novelty[0]
     es = cartpole_es(population_size=16)
     for g in range(3):
@@ -456,6 +480,20 @@ def test_world_2_update_equals_world_1_bit_for_bit(novelty):
         assert got[f"f22_params{g}"].tobytes() == es.state.params_flat.numpy().tobytes(), g
     want = _reuse_update(iwes_es()).numpy()
     assert got["f22_reuse_params"].tobytes() == want.tobytes()
+
+
+@pytest.mark.parametrize("name", ["plain4", "plain3", "pooled3", "lowrank"])
+def test_world_2_plain_update_equals_world_1_bit_for_bit(novelty, name):
+    """The rest of F22: the plain chunked reduction (its chunk products
+    gathered and added in world 1's order, chunk counts even and odd),
+    pooled ES's update through the same branch, and the low-rank einsums
+    (whole on every rank) give world 1's params bit for bit over 3
+    generations."""
+    es = f22_plain_cases()[name]
+    for g in range(3):
+        es.train(1, verbose=False)
+        assert novelty[0][f"{name}_params{g}"].tobytes() == \
+            es.state.params_flat.numpy().tobytes(), f"{name} generation {g}"
 
 
 def test_killed_rank_is_a_timed_error(tmp_path):
