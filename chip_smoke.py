@@ -52,7 +52,7 @@ Phases, in order; any failure exits non-zero before the last line:
    Adam 1e-5 (``reused_prev`` equal, params within 1e-5), and a host
    NS-ES on phase 9's ``rollout(policy)`` Pendulum agent at population 32,
    2 generations (meta indices equal, reward means within 1e-4, update
-   cosine 0.999); then the fold: three CPU live ``train_async`` runs'
+   cosine 0.999); then the fold: two CPU live ``train_async`` runs'
    event logs (pop 32, horizon 60, a straggler folded late) each replayed
    on the card and on the CPU (params within 1e-6 of their largest entry,
    one reduction launch an update); then a CPU checkpoint of the streamed path
@@ -83,7 +83,7 @@ Phases, in order; any failure exits non-zero before the last line:
    generation: (j) PooledAgent("pendulum", horizon=200), MLP 64x64, pop
    4096, the kernel update; (k) the same with ``double_buffer=True``; (l)
    the ``pong84_conv`` recipe (NatureCNN with VBN, pop 256, 84x84x4, action
-   repeat 2, sticky 0.25, horizon 100, cut from 500), with the host-clock shares of the
+   repeat 2, sticky 0.25, horizon 50, cut from 500), with the host-clock shares of the
    four parts of its env step timed apart for one generation;
 9. the host path at full width, (m) host/pendulum/vbn64x64: the
    ``halfcheetah_vbn`` recipe's torch MLP 64x64 with TorchVirtualBatchNorm
@@ -92,14 +92,14 @@ Phases, in order; any failure exits non-zero before the last line:
    ``rollout(policy)`` agent over the port's NumPy Pendulum pool (the
    output times 2; the card machine has no MuJoCo, so obs/action dims are
    3/1, not 17/6), Pendulum's horizon 200, 8 forked workers rolling out
-   on the CPU with the update on the card, 1 warm-up and 2 timed
+   on the CPU with the update on the card, 1 warm-up and 1 timed
    generations with the reduction's launches exact (1 a generation), and
    the same run with ``device="cpu"``; then the policies on the card: one
-   generation with one worker on each device at population 64 (cut from
+   generation with one worker on each device at population 32 (cut from
    1000: it steps one member at a time), the launches an env step
    over 4 members' rollouts, the device's busy share of one profiled
    generation at population 16 with 8 threads; and, at horizon 10 and
-   population 124, 8 thread workers against one on each device;
+   population 64, 8 thread workers against one on each device;
 10. the recurrent paths, each through ``ES(...).train`` with 1 warm-up and
    2 timed generations, the reduction's launches exact (1 a generation
    with ``noise_kernel``), then one profiled generation: (n)
@@ -258,13 +258,29 @@ Phases, in order; any failure exits non-zero before the last line:
    estorch_tpu_torch.doctor`` as a subprocess: exit 0, the device row
    healthy on ``cuda``, its probe's one launch of each kernel against its
    plain version; every other row's status, the report's seconds and each
-   probe's ``elapsed_s`` printed.
+   probe's ``elapsed_s`` printed;
+22. the sharded conv forward on one card (``run_sharded_conv``): the
+   ``pong84_conv`` recipe's NatureCNN + VBN at full width (3 actions, dim
+   1,685,987) on ``PixelShiftEnv`` (84 x 84 x 4 float pixels, a leaky
+   shift register as cheap as ``SyntheticEnv``), population 64, horizon
+   20, eval_chunk 8, sigma 0.05, Adam 1e-2, table 2^23, 1 warm-up + 2
+   timed generations each: here the replicated ES (the kernel update) and
+   the (1, 1) mesh in program mode, then 2 gloo ranks on cuda:0
+   (``conv_rank_child``) at (1, 2) in program and table mode: table mode
+   within rtol 2e-4 / atol 1e-5 of the replicated run with equal env
+   steps; generation 0's noise bit-identical at (1, 1) and (1, 2); conv_0-2
+   and fc column-parallel and the head whole; exactly chunks x horizon x 4
+   + 1 model-group sums in a generation; each rank's param and Adam bytes
+   (843,763 floats, 0.5005x) and its peak under the replicated run's;
+   neither kernel launched by a sharded run; env-steps/s of every run and
+   the gloo all-reduces' share of one instrumented generation.
 
 Then one JSON line of per-path numbers (with phase 13's under
 ``crash_safe``, phase 14's under ``attribution``, phase 15's under
 ``serving``, phase 16's under ``scenarios``, phase 17's under ``fleet``,
 phases 18 and 19 under ``data_parallel`` and ``elastic``, phase 20's under
-``sharded``, phase 21's under ``doctor``), one of
+``sharded``, phase 21's under ``doctor``, phase 22's under
+``sharded_conv``), one of
 per-kernel numbers (launches from phase 3, and of the reduction in (j),
 (k), (m), phases 10-13, and of both kernels in phases 16-19: each rank's
 in phase 18, the coordinator's and host 0's in phase 19, the doctor's
@@ -327,8 +343,8 @@ ENV_PATHS = [
 # phase 8's pooled paths: label, how to build it, the timed generations after
 # 1 warm-up, and the reduction's launches a generation
 # (l)'s horizon, cut from the pong84_conv recipe's 500 (to 250, then to 100,
-# as (s)'s, to make room for phase 17)
-PONG_CONV_HORIZON = 100
+# as (s)'s, to make room for phase 17, then to 50 for phase 22)
+PONG_CONV_HORIZON = 50
 POOLED_PATHS = [
     ("j pooled/pendulum/standard+nk", lambda tt, cf: tt.ES(
         tt.MLPPolicy, tt.PooledAgent("pendulum", horizon=HORIZON), tt.adam,
@@ -338,7 +354,7 @@ POOLED_PATHS = [
         tt.MLPPolicy, tt.PooledAgent("pendulum", horizon=HORIZON, double_buffer=True), tt.adam,
         population_size=POPULATION, sigma=0.05, policy_kwargs=POLICY,
         optimizer_kwargs={"learning_rate": 1e-2}, noise_kernel=True), 3, 1),
-    # (l) times 1 generation at horizon 100, a fifth of the recipe's 500, to keep
+    # (l) times 1 generation at horizon 50, a tenth of the recipe's 500, to keep
     # the script within its time
     ("l pooled/pong84_conv", lambda tt, cf: cf.pong84_conv(
         agent_kwargs={"env_name": "pong84", "horizon": PONG_CONV_HORIZON, "frame_stack": 4,
@@ -353,11 +369,12 @@ PONG_PAIRS, PONG_TABLE = 128, 1 << 23  # the pong84_conv recipe's update shape
 HOST_POPULATION, HOST_HORIZON, HOST_WORKERS = 1000, 200, 8
 HOST_SIDE_HORIZON = 10  # the thread workers' side readings
 # their population, cut from 1000 to 250 to make room for phase 12, then to
-# 124 (mirrored sampling needs it even) for phase 17
-HOST_SIDE_POP = 124
-HOST_TIMED = 2  # generations after 1 warm-up
-# the one-worker generations step members one by one (cut from 250, then 128)
-HOST_ONE_WORKER_POP = 64
+# 124 (mirrored sampling needs it even) for phase 17, then to 64 for phase 22
+HOST_SIDE_POP = 64
+HOST_TIMED = 1  # generations after 1 warm-up (2 until phase 22)
+# the one-worker generations step members one by one (cut from 250, then 128,
+# then 64, then 32 for phase 22)
+HOST_ONE_WORKER_POP = 32
 HOST_RECIPE = dict(population_size=HOST_POPULATION, sigma=0.02, optimizer_kwargs={"lr": 1e-2},
                    weight_decay=0.005, table_size=TABLE_SIZE)
 HOST_PAIRS, HOST_DIM = HOST_POPULATION // 2, 4737  # the update's shape: 3 -> 64x64 VBN -> 1
@@ -1835,7 +1852,7 @@ def rel_max(a, b) -> float:
     return float((a.cpu() - b.cpu()).abs().max() / b.cpu().abs().max())
 
 
-def compare_fold_card_cpu(torch, tt, nk, n_logs: int = 3) -> list[dict]:
+def compare_fold_card_cpu(torch, tt, nk, n_logs: int = 2) -> list[dict]:
     """Phase 4, the fold: ``n_logs`` live fold runs of the (m) policy at
     population 32, horizon 60, 4 thread workers on the CPU with a straggler
     folded late, each run's event log replayed on the card and on the CPU:
@@ -4532,19 +4549,35 @@ def shard_noise(torch, es, rows: int):
     return np.stack(out)
 
 
-def shard_timed(torch, es) -> dict:
-    """1 warm-up and ``SHARD_TIMED`` timed generations: env-steps/s and the
-    env steps of each generation."""
+def shard_timed(torch, es, timed: int = SHARD_TIMED) -> dict:
+    """1 warm-up and ``timed`` timed generations: env-steps/s and the env
+    steps of each generation."""
     es.train(1, verbose=False)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    es.train(SHARD_TIMED, verbose=False)
+    es.train(timed, verbose=False)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     steps = sum(r["env_steps"] for r in es.history[1:])
-    return {"env_steps_per_s": steps / dt, "s_per_generation": dt / SHARD_TIMED,
+    return {"env_steps_per_s": steps / dt, "s_per_generation": dt / timed,
             "env_steps": [r["env_steps"] for r in es.history],
             "reward_mean": [r["reward_mean"] for r in es.history]}
+
+
+def peak_run(torch, build, timed, noise: bool = False):
+    """Build an ES and run ``timed(torch, es)`` on it: ``(es, run,
+    noise0)``, the run with the peak allocation over both above the
+    allocation before, and generation 0's noise read first when asked."""
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    cublas_warm_up(torch, dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    es = build()
+    noise0 = shard_noise(torch, es, SHARD_NOISE_ROWS) if noise else None
+    run = timed(torch, es)
+    run["peak_allocated_bytes"] = torch.cuda.max_memory_allocated(dev) - base
+    return es, run, noise0
 
 
 def cublas_warm_up(torch, dev) -> None:
@@ -4665,9 +4698,11 @@ def shard_rank_child(rank: int, pop: int, model: int, rdv: str, out_dir: str) ->
     mh.shutdown()
 
 
-def _run_shard_ranks(pop: int, model: int, work: str) -> tuple[list, list, float]:
-    """Start the ``pop·model`` ranks of one mesh on cuda:0 and read their
-    facts and arrays back."""
+def _run_shard_ranks(pop: int, model: int, work: str, child: str = "shard_rank_child",
+                     label: str = "phase 20") -> tuple[list, list, float]:
+    """Start the ``pop·model`` ranks of one mesh on cuda:0 (each the
+    function ``child`` of this module) and read their facts and arrays
+    back."""
     import numpy as np
 
     env = dict(os.environ)
@@ -4675,14 +4710,14 @@ def _run_shard_ranks(pop: int, model: int, work: str) -> tuple[list, list, float
     rdv = os.path.join(work, f"rdv{pop}x{model}")
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
-        [sys.executable, "-c", f"import chip_smoke; chip_smoke.shard_rank_child({r}, {pop}, "
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke.{child}({r}, {pop}, "
          f"{model}, {rdv!r}, {work!r})"],
         cwd=HERE, env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
         for r in range(pop * model)]
     try:
         errs = [p.communicate(timeout=600)[1] for p in procs]
     except subprocess.TimeoutExpired:
-        fail(f"phase 20: a rank of ({pop}, {model}) did not finish in 600 s")
+        fail(f"{label}: a rank of ({pop}, {model}) did not finish in 600 s")
     finally:
         for p in procs:
             if p.poll() is None:
@@ -4690,7 +4725,7 @@ def _run_shard_ranks(pop: int, model: int, work: str) -> tuple[list, list, float
                 p.wait()
     for r, (p, err) in enumerate(zip(procs, errs)):
         if p.returncode != 0:
-            fail(f"phase 20: rank {r} of ({pop}, {model}) exited {p.returncode}\n{err[-3000:]}")
+            fail(f"{label}: rank {r} of ({pop}, {model}) exited {p.returncode}\n{err[-3000:]}")
     facts, arrays = [], []
     for r in range(pop * model):
         with open(os.path.join(work, f"{pop}x{model}_rank{r}.json")) as f:
@@ -4708,29 +4743,15 @@ def run_sharded(torch, tt, nk, card: str) -> dict:
 
     import numpy as np
 
-    dev = torch.device("cuda")
-
-    def peak_of(build, noise: bool = False):
-        """Build and run; the peak allocation over both, and generation 0's
-        noise read before the run when asked."""
-        torch.cuda.empty_cache()
-        cublas_warm_up(torch, dev)
-        base = torch.cuda.memory_allocated(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-        es = build()
-        noise0 = shard_noise(torch, es, SHARD_NOISE_ROWS) if noise else None
-        run = shard_timed(torch, es)
-        run["peak_allocated_bytes"] = torch.cuda.max_memory_allocated(dev) - base
-        return es, run, noise0
-
     # the replicated run with the kernel update: its float64 sum rounded once,
     # as the sharded update's float64 partials are (F22)
-    rep, rep_run, _ = peak_of(lambda: shard_es(tt, noise_kernel=True))
+    rep, rep_run, _ = peak_run(torch, lambda: shard_es(tt, noise_kernel=True), shard_timed)
     rep_params = rep.state.params_flat.cpu().numpy()
     rep_bytes = 4 * rep.spec.dim
     del rep
     nk.reset_launch_counts()
-    one, one_run, one_noise = peak_of(lambda: shard_es(tt, shard_params=True), noise=True)
+    one, one_run, one_noise = peak_run(torch, lambda: shard_es(tt, shard_params=True),
+                                       shard_timed, noise=True)
     one_params = one.state.params_flat.cpu().numpy()
     one_launches = dict(nk.launch_counts)
     del one
@@ -4922,6 +4943,250 @@ def run_doctor(card: str) -> dict:
             "launches": probe["launches"], "max_abs_err": probe["max_abs_err"],
             "library": probe["library"], "elapsed_s": elapsed,
             "rows": {k: _row_status(k, v) for k, v in rep.items() if k != "hint"}}
+
+
+# ---------------------------------------------------------------------
+# phase 22, the sharded conv forward
+# ---------------------------------------------------------------------
+
+# the pong84_conv recipe's policy at full width (NatureCNN with VBN, 3
+# actions: dim 1,685,987) on a pixel device env of 84 x 84 x 4 floats;
+# population 64, horizon 20, eval_chunk 8, sigma 0.05, Adam 1e-2, table 2^23
+CONV_POLICY = {"action_dim": 3, "use_vbn": True}
+CONV_POP, CONV_HORIZON, CONV_CHUNK = 64, 20, 8
+CONV_TABLE = 1 << 23
+CONV_TIMED = 2  # generations after 1 warm-up
+CONV_DIM = 1_685_987
+# each rank's param (and Adam moment) floats at (1, 2): half of every conv,
+# fc and VBN leaf, the whole (512, 3) head and its bias (3 is odd)
+CONV_LOCAL_1X2 = 843_763
+# the layers split at (1, 2): conv_0-2 and fc (the head is whole), so a
+# generation's activation gathers are chunks x horizon x 4, and one more
+# model-group sum carries the update's norm and finite flag
+CONV_SPLIT_LAYERS = 4
+CONV_GATHERS = (CONV_POP // CONV_CHUNK) * CONV_HORIZON * CONV_SPLIT_LAYERS + 1
+
+
+class PixelShiftEnv:
+    """A pixel device env for phase 22: (84, 84, 4) float observations, a
+    leaky shift register driven by the action (each step moves the image
+    one column right, scaled by 0.9, and writes a / 2 into column 0; the
+    reward is −(a / 2 − pixel (0, 5, 0))²).  Never ends.  The state is the
+    flat image; a step is a copy and a few elementwise ops, as cheap as
+    ``SyntheticEnv``'s."""
+
+    height = width = 84
+    channels = 4
+    action_dim = 3
+    discrete = True
+    default_horizon = CONV_HORIZON
+    bc_dim = 4
+    obs_dim = 84 * 84 * 4
+
+    def reset(self, generator, n: int):
+        import torch
+
+        states = torch.rand((n, self.obs_dim), generator=generator, device=generator.device)
+        return states, self.observe(states)
+
+    def observe(self, states):
+        return states.view(-1, self.height, self.width, self.channels)
+
+    def step(self, states, actions):
+        import torch
+
+        img = self.observe(states)
+        n = img.shape[0]
+        value = actions.reshape(n).to(torch.float32) / 2.0
+        d = value - img[:, 0, 5, 0]
+        col = value[:, None, None, None].expand(n, self.height, 1, self.channels)
+        new = torch.cat([col, img[:, :, :-1] * 0.9], dim=2)
+        return (new.reshape(n, -1), new, -(d * d),
+                torch.zeros((n,), dtype=torch.bool, device=img.device))
+
+    def behavior(self, states, obs):
+        return obs[:, 0, :4, 0]
+
+
+def conv_es(tt, **over):
+    kw = dict(population_size=CONV_POP, sigma=0.05, policy_kwargs=CONV_POLICY,
+              optimizer_kwargs={"learning_rate": 1e-2}, seed=0, table_size=CONV_TABLE,
+              eval_chunk=CONV_CHUNK, telemetry=False)
+    kw.update(over)
+    return tt.ES(tt.NatureCNN, tt.DeviceAgent(PixelShiftEnv(), horizon=CONV_HORIZON),
+                 tt.adam, **kw)
+
+
+def conv_timed(torch, es) -> dict:
+    return shard_timed(torch, es, CONV_TIMED)
+
+
+def conv_rank_child(rank: int, pop: int, model: int, rdv: str, out_dir: str) -> None:
+    """One rank of phase 22 on cuda:0 (``python -c "import chip_smoke;
+    chip_smoke.conv_rank_child(...)"``): the conv run in program mode, one
+    generation instrumented (every all-reduce timed, the model group's
+    counted), then in table mode, with the kernels' launch counts read
+    around it.  Writes ``{pop}x{model}_rank{r}.json`` and ``.npz``."""
+    import numpy as np
+    import torch
+
+    import estorch_tpu_torch as tt
+    import estorch_tpu_torch.parallel.multihost as mh
+    from estorch_tpu_torch.ops import noise_kernels as nk
+    from estorch_tpu_torch.parallel import mesh as mesh_mod
+
+    torch.cuda.set_device(torch.device("cuda:0"))
+    mh.initialize(f"file://{rdv}", num_processes=pop * model, process_id=rank, device="cuda:0",
+                  cpu_collectives=True, timeout_s=300)
+    mesh = mh.global_hyperscale_mesh(pop, model)
+    facts: dict = {"rank": rank, "mesh": repr(mesh)}
+    nk.reset_launch_counts()
+    es, facts["program"], noise0 = peak_run(
+        torch, lambda: conv_es(tt, mesh=mesh, shard_params=True), conv_timed, noise=True)
+    facts["program"]["memory"] = es.engine.memory_facts(es.state)
+    facts["program"]["report"] = es.engine.sharding_report()
+    facts["plans"] = [p.mode for p in es.engine._plans]
+    arrays = {"noise0": noise0, "program_params": es.state.params_flat.cpu().numpy()}
+    calls = {"n": 0, "s": 0.0, "model": 0}
+    real_reduce = mesh_mod._all_reduce
+
+    def timed_reduce(t, group, what, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_reduce(t, group, what, *a, **k)
+        torch.cuda.synchronize()
+        calls["n"] += 1
+        calls["model"] += what == "model"
+        calls["s"] += time.perf_counter() - t0
+        return out
+
+    mesh_mod._all_reduce = timed_reduce
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        es.train(1, verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        mesh_mod._all_reduce = real_reduce
+    facts["instrumented"] = {"all_reduces": calls["n"], "all_reduce_s": calls["s"],
+                             "model_group_sums": calls["model"], "generation_s": wall}
+    del es
+    es_t, facts["table"], _ = peak_run(
+        torch, lambda: conv_es(tt, mesh=mesh, shard_params=True, noise_mode="table"),
+        conv_timed)
+    arrays["table_params"] = es_t.state.params_flat.cpu().numpy()
+    facts["launches"] = dict(nk.launch_counts)
+    with open(os.path.join(out_dir, f"{pop}x{model}_rank{rank}.json"), "w") as f:
+        json.dump(facts, f)
+    np.savez(os.path.join(out_dir, f"{pop}x{model}_rank{rank}.npz"), **arrays)
+    mh.shutdown()
+
+
+def run_sharded_conv(torch, tt, nk, card: str) -> dict:
+    """Phase 22: the pong84_conv recipe's NatureCNN + VBN on a pixel device
+    env, replicated (the kernel update) and on the (1, 1) mesh in this
+    process, then as 2 gloo ranks on cuda:0 at (1, 2) in program and table
+    mode.  Gated: table mode within JAX's A/B gate of the replicated run
+    with equal env steps, generation 0's noise bit-identical at (1, 1) and
+    (1, 2), the exact model-group sums of a generation, each rank's state
+    bytes and its peak under the replicated run's, neither kernel launched
+    by a sharded run."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    nk.reset_launch_counts()
+    rep, rep_run, _ = peak_run(torch, lambda: conv_es(tt, noise_kernel=True), conv_timed)
+    if rep.spec.dim != CONV_DIM or rep._obs_shape != (84, 84, 4):
+        fail(f"phase 22: the policy's dim {rep.spec.dim} / input {rep._obs_shape}, expected "
+             f"{CONV_DIM} / (84, 84, 4)")
+    rep_params = rep.state.params_flat.cpu().numpy()
+    rep_launches = dict(nk.launch_counts)
+    del rep
+    nk.reset_launch_counts()
+    one, one_run, one_noise = peak_run(torch, lambda: conv_es(tt, shard_params=True),
+                                       conv_timed, noise=True)
+    one_params = one.state.params_flat.cpu().numpy()
+    one_launches = dict(nk.launch_counts)
+    del one
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="chip_smoke_conv_")
+    try:
+        f12, a12, wall12 = _run_shard_ranks(1, 2, work, "conv_rank_child", "phase 22")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    launches = {"sharded (1, 1)": one_launches}
+    for f in f12:
+        launches[f"1x2 rank {f['rank']}"] = f["launches"]
+    if any(v for counts in launches.values() for v in counts.values()):
+        fail(f"phase 22: a kernel launched on the sharded path: {launches}")
+    if f12[0]["plans"] != ["column"] * CONV_SPLIT_LAYERS + ["whole"]:
+        fail(f"phase 22: the layers at (1, 2) run as {f12[0]['plans']}")
+    t12 = f12[0]["table"]
+    if t12["env_steps"] != rep_run["env_steps"]:
+        fail(f"phase 22: table-mode env steps {t12['env_steps']} != replicated "
+             f"{rep_run['env_steps']}")
+    table_err = float(np.abs(a12[0]["table_params"] - rep_params).max())
+    if not np.allclose(a12[0]["table_params"], rep_params, rtol=SHARD_RTOL, atol=SHARD_ATOL):
+        fail(f"phase 22: table mode at (1, 2) is {table_err:g} from the replicated run")
+    print(f"table mode (1, 2) against the replicated run: env steps equal, max |Δparam| "
+          f"{table_err:.3g} (tol rtol {SHARD_RTOL:g}, atol {SHARD_ATOL:g})")
+    for r, a in enumerate(a12):
+        if a["noise0"].tobytes() != one_noise.tobytes():
+            fail(f"phase 22: generation 0's noise at (1, 2) rank {r} differs from (1, 1)'s")
+        if a["program_params"].tobytes() != a12[0]["program_params"].tobytes():
+            fail("phase 22: the ranks' params differ at (1, 2)")
+    prog_err = float(np.abs(a12[0]["program_params"] - one_params).max())
+    if not np.allclose(a12[0]["program_params"], one_params, rtol=SHARD_RTOL, atol=SHARD_ATOL):
+        fail(f"phase 22: program mode at (1, 2) is {prog_err:g} from (1, 1)")
+    print(f"program mode (1, 2): generation 0's noise ({SHARD_NOISE_ROWS} rows x "
+          f"{one_noise.shape[1]}) bit-identical to (1, 1)'s on both ranks; max |Δparam| "
+          f"{prog_err:.3g} from (1, 1)")
+    for f in f12:
+        ins = f["instrumented"]
+        if ins["model_group_sums"] != CONV_GATHERS:
+            fail(f"phase 22: rank {f['rank']} ran {ins['model_group_sums']} model-group sums "
+                 f"in a generation, expected {CONV_GATHERS}")
+        mem = f["program"]["memory"]
+        if (mem["local_dim"] != CONV_LOCAL_1X2 or mem["param_bytes"] != 4 * CONV_LOCAL_1X2
+                or mem["opt_state_bytes"] != 8 * CONV_LOCAL_1X2):
+            fail(f"phase 22: rank {f['rank']}'s state bytes {mem}, expected {CONV_LOCAL_1X2} "
+                 "floats")
+        peak = f["program"]["peak_allocated_bytes"]
+        if not peak < rep_run["peak_allocated_bytes"]:
+            fail(f"phase 22: rank {f['rank']}'s peak {peak} is not under the replicated "
+                 f"run's {rep_run['peak_allocated_bytes']}")
+        print(f"rank {f['rank']} at (1, 2): params {mem['param_bytes']} B + Adam "
+              f"{mem['opt_state_bytes']} B = {mem['local_dim'] / CONV_DIM:.4f}x world 1's; "
+              f"peak allocated {peak / 2**20:.1f} MiB against the replicated run's "
+              f"{rep_run['peak_allocated_bytes'] / 2**20:.1f} MiB; {ins['model_group_sums']} "
+              f"model-group sums a generation (= {CONV_POP // CONV_CHUNK} chunks x "
+              f"{CONV_HORIZON} steps x {CONV_SPLIT_LAYERS} layers + 1)")
+    ins = f12[0]["instrumented"]
+    print(f"(1, 2) instrumented generation: {ins['all_reduces']} gloo all-reduces, "
+          f"{ins['all_reduce_s']:.3f} s of its {ins['generation_s']:.3f} s "
+          f"({ins['all_reduce_s'] / ins['generation_s']:.3f}), on {card}")
+    rows = {"replicated (1, 1) table, kernel update": rep_run,
+            "sharded (1, 1) program": one_run, "sharded (1, 2) program": f12[0]["program"],
+            "sharded (1, 2) table": t12}
+    for label, run in rows.items():
+        print(f"{label}: {run['env_steps_per_s']:.0f} env-steps/s "
+              f"({run['s_per_generation']:.4f} s a generation), peak allocated "
+              f"{run['peak_allocated_bytes'] / 2**20:.1f} MiB, on {card}")
+    print(f"rank processes: (1, 2) {wall12:.1f} s from spawn to exit")
+    return {"config": {"env": "PixelShiftEnv 84x84x4", "policy": CONV_POLICY, "dim": CONV_DIM,
+                       "population": CONV_POP, "horizon": CONV_HORIZON,
+                       "eval_chunk": CONV_CHUNK, "table_size": CONV_TABLE},
+            "runs": {k: {kk: v for kk, v in run.items() if kk not in ("report", "memory")}
+                     for k, run in rows.items()},
+            "table_vs_replicated_max_abs": table_err, "program_vs_1x1_max_abs": prog_err,
+            "launches": launches, "replicated_launches": rep_launches,
+            "instrumented_1x2": ins, "memory_1x2": [f["program"]["memory"] for f in f12],
+            "peak_replicated_bytes": rep_run["peak_allocated_bytes"],
+            "sharding_report_1x2": f12[0]["program"]["report"], "ranks_wall_s": wall12}
 
 
 def main() -> None:
@@ -5303,6 +5568,10 @@ def main() -> None:
     phase("21. the doctor")
     doctor = run_doctor(card)
 
+    # ---- 22. the sharded conv forward on one card ------------------------------
+    phase("22. the sharded conv forward")
+    sharded_conv = run_sharded_conv(torch, estorch_tpu_torch, nk, card)
+
     # ---- report --------------------------------------------------------------
     phase("report")
     kernels = [
@@ -5332,6 +5601,9 @@ def main() -> None:
          "launches_elastic_hosts": {"host 0": elastic["host0"]["launches"]["weighted_noise_sum"]},
          "launches_sharded": sum(v["weighted_noise_sum"] for v in sharded["launches"].values()),
          "launches_doctor": doctor["launches"]["weighted_noise_sum"],
+         "launches_sharded_conv": sum(v["weighted_noise_sum"]
+                                      for v in sharded_conv["launches"].values()),
+         "launches_conv_replicated": sharded_conv["replicated_launches"]["weighted_noise_sum"],
          "f64_output_ms": wns["f64_ms"], "f64_output_max_abs_err": wns["f64_max_abs_err"]},
         {"name": "population_noise_matvec", "route": "cuda",
          "source": "estorch_tpu_torch/ops/csrc/noise_kernels.cu",
@@ -5358,14 +5630,16 @@ def main() -> None:
              "host 0": elastic["host0"]["launches"]["population_noise_matvec"]},
          "launches_sharded": sum(v["population_noise_matvec"]
                                  for v in sharded["launches"].values()),
-         "launches_doctor": doctor["launches"]["population_noise_matvec"]},
+         "launches_doctor": doctor["launches"]["population_noise_matvec"],
+         "launches_sharded_conv": sum(v["population_noise_matvec"]
+                                      for v in sharded_conv["launches"].values())},
     ]
     print(json.dumps({"paths": paths, "eval_chunk": chunking, "card_vs_cpu_envs": env_cmp,
                       "async": async_paths, "crash_safe": crash_safe,
                       "attribution": attribution, "serving": serving,
                       "scenarios": scenarios, "fleet": fleet,
                       "data_parallel": data_parallel, "elastic": elastic,
-                      "sharded": sharded, "doctor": doctor}))
+                      "sharded": sharded, "doctor": doctor, "sharded_conv": sharded_conv}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -53,8 +53,11 @@ param-sharded engine (``parallel/sharded.py``) over a ``HyperscaleMesh``
 processes, or the one-process ``(1, 1)`` mesh): each rank holds its shards
 of the params and of the optimizer state per ``partition_rules``, with
 ``noise_mode`` "program" (the default: ε generated where it is used, no
-table) or "table"; it covers ``MLPPolicy``'s forward, and the NatureCNN
-conv trunk waits for ROADMAP item 7d.  The novelty
+table) or "table"; it partitions the forward of ``MLPPolicy`` and
+``NatureCNN``, each with or without VBN.  The device path takes the
+policy's input shape from the observation the env's reset returns, as the
+JAX package inits from ``obs0``: ``NatureCNN`` trains on a device env
+with (H, W, C) observations.  The novelty
 family (``algo/nses.py``) and IW-ES (``algo/iwes.py``) subclass ``ES`` and
 share its record plumbing (``_base_record``, ``_emit_record``,
 ``_format_record``).  ``device`` is ``"cuda"`` unless
@@ -324,7 +327,7 @@ class ES:
                 from ..scenarios import ScenarioEnv
 
                 self.env = ScenarioEnv(self.env, scenarios)
-            obs_shape, horizon = self.env.obs_dim, self.agent.rollout_horizon
+            obs_shape, horizon = self._device_obs_shape(obs_norm), self.agent.rollout_horizon
             for option, on, where in (("decomposed", decomposed, "models/decomposed.py"),
                                       ("streamed", streamed, "ops/noise_kernels.py"),
                                       ("low_rank", low_rank and not self._recurrent,
@@ -406,6 +409,21 @@ class ES:
         self.engine.telemetry = self.obs
         self.state = self.engine.init_state(flat, self.seed)
         self._post_engine_init()
+
+    def _device_obs_shape(self, obs_norm: bool):
+        """The policy's input shape on the device path, from the
+        observation the env's reset returns, as the JAX package inits from
+        ``obs0``: ``obs_dim`` for a flat env, (H, W, C) for a pixel env.
+        ``obs_norm`` keeps (obs_dim,) statistics, so it needs a flat one."""
+        _, obs0 = self.env.reset(torch.Generator().manual_seed(0), 1)
+        shape = tuple(int(d) for d in obs0.shape[1:])
+        if len(shape) == 1:
+            return int(self.env.obs_dim)
+        if obs_norm:
+            raise ValueError(
+                f"obs_norm keeps (obs_dim,) running statistics of flat observations; this "
+                f"env's observations are {shape}")
+        return shape
 
     def _post_engine_init(self) -> None:
         """Once the engine exists (every backend): the native loads its

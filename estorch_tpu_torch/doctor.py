@@ -220,6 +220,41 @@ def _marker_json(out: str, marker: str) -> dict:
     return {}
 
 
+def _device_probe_run(timeout_s: float, device: str | None) -> tuple[dict, str, str | None]:
+    """The staged device child's run and its (status, reason)."""
+    dev = "cuda" if device is None else str(device)
+    if dev not in ("cuda", "cpu"):
+        raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
+    run = _run_staged_probe(_STAGED_PROBE.replace("__DEVICE__", repr(dev)), timeout_s,
+                            _child_env())
+    return (run,) + classify_device_probe(run["out"], run["timed_out"], run["returncode"])
+
+
+def probe_device(timeout_s: float = 45.0, device: str | None = None) -> dict:
+    """The JAX doctor's quick probe of the default device, over
+    :func:`check_device`'s staged child with its hard timeout:
+    ``{"status": "healthy"|"wedged"|"error", ...detail}``.  "healthy"
+    (with ``platform`` and ``n_devices``) when the child launched the
+    kernels; "wedged" (with ``timeout_s`` and ``stderr_tail``) when it
+    neither finished nor failed within ``timeout_s``, the signature of a
+    hung runtime; "error" (with ``returncode`` and ``stderr_tail``) when it
+    failed fast, no card included."""
+    run, status, reason = _device_probe_run(timeout_s, device)
+    if status == "ok":
+        platform, n = "", 0
+        for ln in run["out"].splitlines():
+            if ln.startswith("PROBE_DEVICES_OK"):
+                parts = ln.split()
+                platform, n = parts[1], int(parts[2])
+        return {"status": "healthy", "platform": platform, "n_devices": n}
+    if run["timed_out"]:
+        out = {"status": "wedged", "timeout_s": timeout_s, "stderr_tail": run["err"][-500:]}
+        if run["unreapable"]:
+            out["unreapable_child"] = True
+        return out
+    return {"status": "error", "returncode": run["returncode"], "stderr_tail": run["err"][-500:]}
+
+
 def check_device(timeout_s: float = 20.0, device: str | None = None) -> dict:
     """Prove the device path alive or wedged in SECONDS with a typed
     reason: a staged subprocess runs torch's import → CUDA init → the
@@ -232,12 +267,8 @@ def check_device(timeout_s: float = 20.0, device: str | None = None) -> dict:
     ``"cpu"`` runs the stages on the CPU with the plain versions.  The row
     carries the kernels' launches in the probe and their largest
     difference from the plain versions."""
+    run, status, reason = _device_probe_run(timeout_s, device)
     dev = "cuda" if device is None else str(device)
-    if dev not in ("cuda", "cpu"):
-        raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
-    run = _run_staged_probe(_STAGED_PROBE.replace("__DEVICE__", repr(dev)), timeout_s,
-                            _child_env())
-    status, reason = classify_device_probe(run["out"], run["timed_out"], run["returncode"])
     result: dict = {
         "status": status,
         "elapsed_s": run["elapsed_s"],

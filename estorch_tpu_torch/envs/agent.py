@@ -67,8 +67,8 @@ def collect_reference_batch(env: Any, n_steps: int = 128,
                             actions: torch.Tensor | None = None,
                             state0: torch.Tensor | None = None) -> torch.Tensor:
     """Observations of one random-action episode, for VirtualBatchNorm's
-    frozen statistics: (n_steps, obs_dim), row t the observation before
-    step t (row 0 the reset frame).  Where a step ends the episode, the old
+    frozen statistics: (n_steps, *obs_shape) ((n_steps, obs_dim) for a flat
+    env), row t the observation before step t (row 0 the reset frame).  Where a step ends the episode, the old
     state and obs are kept, not reset, so the shapes stay fixed.
 
     ``state0`` (1, state_dim) and ``actions`` (n_steps,) integers or
@@ -92,7 +92,6 @@ def collect_reference_batch(env: Any, n_steps: int = 128,
     for t in range(n_steps):
         rows.append(obs[0])
         nstate, nobs, _, done = env.step(state, actions[t:t + 1])
-        keep = done[:, None]
-        state = torch.where(keep, state, nstate)
-        obs = torch.where(keep, obs, nobs)
+        state = torch.where(done[:, None], state, nstate)
+        obs = torch.where(done.view((1,) * obs.ndim), obs, nobs)
     return torch.stack(rows)

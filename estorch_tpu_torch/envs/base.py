@@ -19,6 +19,7 @@ field to one value per member, shape (n,) (``scenarios/params.py``).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Protocol
 
 import torch
@@ -52,3 +53,19 @@ class DeviceEnv(Protocol):
              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]: ...
 
     def behavior(self, states: torch.Tensor, obs: torch.Tensor) -> torch.Tensor: ...
+
+
+@dataclasses.dataclass(frozen=True)
+class EnvSpec:
+    """Static facts the engine needs about an env (shapes, modes)."""
+
+    obs_dim: int
+    action_dim: int
+    discrete: bool
+    horizon: int
+    bc_dim: int
+
+    @staticmethod
+    def of(env: DeviceEnv, horizon: int | None = None) -> "EnvSpec":
+        return EnvSpec(obs_dim=env.obs_dim, action_dim=env.action_dim, discrete=env.discrete,
+                       horizon=int(horizon or env.default_horizon), bc_dim=env.bc_dim)

@@ -126,12 +126,89 @@ def population_forward(module, member_params: dict) -> Callable[..., Any]:
     return lambda obs: member_params_apply(module, member_params, obs[:, None, :])[:, 0]
 
 
+def make_rollout(env: Any, policy_apply: Callable[..., Any], horizon: int,
+                 carry_init: Callable[..., Any] | None = None, with_obs_moments: bool = False,
+                 with_env_metrics: bool = False) -> Callable[..., Any]:
+    """``rollout(params, state0) -> RolloutResult`` of one episode.
+
+    The counterpart of the JAX package's ``make_rollout``, which takes a
+    reset key where this takes the initial state ``state0`` (state_dim,).
+    ``policy_apply(params, obs (1, *obs_shape)) -> (1, out)``; with
+    ``carry_init`` (a recurrent policy) ``policy_apply(params, obs, carry)
+    -> (out, carry')`` from the carry ``carry_init(params)`` (or
+    ``carry_init()``) at the episode's start.  A thin form of
+    :func:`make_batched_rollout` at one row: the same masking, and the
+    same aux channels (each then for the one episode)."""
+    batched = make_batched_rollout(env, horizon, with_obs_moments=with_obs_moments,
+                                   with_env_metrics=with_env_metrics)
+    takes_params = carry_init is not None and carry_init_takes_params(carry_init)
+
+    def rollout(params: Any, state0: torch.Tensor):
+        states0 = state0.reshape(1, -1)
+        obs0 = env.observe(states0)
+        carry0 = None
+        if carry_init is not None:
+            h0 = carry_init(params) if takes_params else carry_init()
+            carry0 = map_carry(lambda t: t.to(obs0.device)[None], h0)
+
+            def apply(obs, carry):
+                return policy_apply(params, obs, carry)
+        else:
+            def apply(obs):
+                return policy_apply(params, obs)
+
+        out = batched(apply, states0, obs0, carry0)
+        return _map_result(out, lambda t: t[0])
+
+    return rollout
+
+
+def make_population_rollout(env: Any, policy_apply: Callable[..., Any], horizon: int,
+                            carry_init: Callable[..., Any] | None = None) -> Callable[..., Any]:
+    """``rollout(params, states0) -> RolloutResult`` of n episodes, member
+    i's params the i-th of ``params``' stacked leaves (a leading axis of n)
+    from ``states0[i]``: the counterpart of the JAX package's vmap of
+    ``make_rollout``, with ``torch.func.vmap`` of ``policy_apply`` (one
+    member's params, one observation) over the members in one batched
+    rollout (:func:`make_batched_rollout`).  Results (n,), (n, bc_dim),
+    (n,)."""
+    batched = make_batched_rollout(env, horizon)
+    takes_params = carry_init is not None and carry_init_takes_params(carry_init)
+
+    def rollout(params: Any, states0: torch.Tensor) -> RolloutResult:
+        obs0 = env.observe(states0)
+        n = obs0.shape[0]
+        members_apply = torch.func.vmap(policy_apply)
+        if carry_init is None:
+            return batched(lambda obs: members_apply(params, obs), states0, obs0)
+        if takes_params:
+            carry0 = torch.func.vmap(carry_init)(params)
+        else:
+            carry0 = map_carry(lambda t: t.expand((n,) + tuple(t.shape)), carry_init())
+        carry0 = map_carry(lambda t: t.to(obs0.device), carry0)
+        return batched(lambda obs, carry: members_apply(params, obs, carry), states0, obs0,
+                       carry0)
+
+    return rollout
+
+
+def _map_result(out, fn):
+    """``fn`` on every tensor of a rollout's result (a ``RolloutResult``,
+    or it and an aux channel)."""
+    if isinstance(out, RolloutResult):
+        return RolloutResult(*(fn(t) for t in out))
+    res, aux = out
+    aux = type(aux)(*(fn(t) for t in aux)) if isinstance(aux, tuple) else fn(aux)
+    return _map_result(res, fn), aux
+
+
 def make_batched_rollout(env: Any, horizon: int, with_obs_moments: bool = False,
                          with_env_metrics: bool = False) -> Callable[..., Any]:
     """``rollout(batched_apply, states0, obs0, carry0=None)``.
 
-    ``batched_apply(obs (n, obs_dim)) -> (n, act)`` closes over the members'
-    parameterization; with ``carry0`` (the episode-start carry, leaves (n,
+    ``batched_apply(obs (n, *obs_shape)) -> (n, act)`` closes over the
+    members' parameterization (observations (n, obs_dim), or (n, H, W, C)
+    from a pixel env); with ``carry0`` (the episode-start carry, leaves (n,
     size)) it is ``batched_apply(obs, carry) -> (out, carry')``.  The JAX
     form takes reset keys; this one takes the initial ``(states, obs)``, so
     a caller can hand in any start states.
@@ -184,7 +261,7 @@ def make_batched_rollout(env: Any, horizon: int, with_obs_moments: bool = False,
             steps += alive.to(torch.int32)
             keep = alive[:, None]
             states = torch.where(keep, nstates, states)
-            obs = torch.where(keep, nobs, obs)
+            obs = torch.where(alive.view((n,) + (1,) * (obs.ndim - 1)), nobs, obs)
             if carry is not None:
                 carry = map_carry(lambda new, old: torch.where(keep, new, old), new_carry, carry)
             done = done | ndone

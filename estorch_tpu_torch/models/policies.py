@@ -15,6 +15,11 @@ hidden dense or conv layer; its frozen statistics are the module's
 ``vbn_stats``, shared by every member, and its ``scale``/``bias`` are
 params.
 
+The feedforward policies (``MLPPolicy``, ``NatureCNN``) describe their
+forward as a sequence of :class:`Layer` (``layers()``), each run by
+:func:`layer_linear` and :func:`layer_post`; the param-sharded engine
+(``parallel/sharded.py``) runs the same sequence on a rank's channels.
+
 The recurrent policies follow flax's cells, not torch's: ``GRUCell`` has
 biases on ``ir``, ``iz``, ``in`` and ``hn`` only, and
 ``n = tanh(in(x) + r·hn(h))``; ``OptimizedLSTMCell`` has biases on the
@@ -26,7 +31,7 @@ hidden kernels ``hi``/``hf``/``hg``/``ho`` only, and its carry is
 from __future__ import annotations
 
 import math
-from typing import Callable, Sequence
+from typing import Callable, NamedTuple, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -89,11 +94,88 @@ class _FlatParamsPolicy(nn.Module):
 def _dense(x: torch.Tensor, p: dict) -> torch.Tensor:
     """``x @ kernel + bias``; mixed dtypes promote first, as flax's Dense
     does (a bf16 kernel after a float32 VBN output computes in float32)."""
-    k, b = p["kernel"], p["bias"]
+    return _matmul(x, p["kernel"], p["bias"])
+
+
+def _matmul(x: torch.Tensor, k: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
     if x.dtype != k.dtype:
         dt = torch.promote_types(x.dtype, k.dtype)
-        x, k, b = x.to(dt), k.to(dt), b.to(dt)
-    return x @ k + b
+        x, k = x.to(dt), k.to(dt)
+        b = None if b is None else b.to(dt)
+    return x @ k if b is None else x @ k + b
+
+
+class Layer(NamedTuple):
+    """One layer of a feedforward policy's forward: the param key of its
+    ``kernel`` and ``bias``, its kind (``"dense"``, or ``"conv"`` with its
+    kernel size and stride, "VALID" padding), the VBN layer after it (its
+    param key, or None) and its activation (or None)."""
+
+    name: str
+    kind: str
+    vbn: str | None
+    activation: Callable[[torch.Tensor], torch.Tensor] | None
+    ksize: int = 0
+    stride: int = 0
+
+    @property
+    def channel_axis(self) -> int:
+        """The axis of the layer's output channels in its activations:
+        (P, B, C, H, W) after a convolution, (..., C) after a dense layer."""
+        return 2 if self.kind == "conv" else -1
+
+
+def conv_kernel_layout(kernel: torch.Tensor) -> torch.Tensor:
+    """P members' HWIO conv kernels (P, kh, kw, in, out) as (P, out,
+    in·kh·kw), a patch's order in :func:`conv_layer`."""
+    p, out = kernel.shape[0], kernel.shape[-1]
+    return kernel.permute(0, 4, 3, 1, 2).reshape(p, out, -1).contiguous()
+
+
+def conv_layer(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
+               ksize: int, stride: int) -> torch.Tensor:
+    """P members' convolutions of ``x`` (P, B, C, H, W) with their laid-out
+    kernels ``weight`` (P, out, C·k·k) and ``bias`` (P, out, 1) or None:
+    (P, B, out, H', W').  Every member's patches are one strided view (P, B,
+    C, H', W', k, k), copied once into (P, C·k·k, B·H'·W'), then one
+    ``torch.bmm``: on CUDA, cuDNN's grouped ``F.conv2d`` and ``F.unfold``
+    both launch a kernel a member."""
+    p, b = x.shape[0], x.shape[1]
+    patches = x.unfold(3, ksize, stride).unfold(4, ksize, stride)
+    h, w = patches.shape[3], patches.shape[4]
+    cols = patches.permute(0, 2, 5, 6, 1, 3, 4).reshape(p, -1, b * h * w)
+    y = torch.bmm(weight, cols)
+    if bias is not None:
+        y = y + bias
+    return y.view(p, weight.shape[1], b, h, w).transpose(1, 2)
+
+
+def flatten_nhwc(x: torch.Tensor) -> torch.Tensor:
+    """(P, B, C, H, W) activations flattened as flax flattens NHWC: (P, B,
+    H·W·C)."""
+    return x.permute(0, 1, 3, 4, 2).reshape(x.shape[0], x.shape[1], -1)
+
+
+def layer_linear(layer: Layer, x: torch.Tensor, kernel: torch.Tensor,
+                 bias: torch.Tensor | None) -> torch.Tensor:
+    """The layer's kernel (and bias, unless None) on ``x``: a conv's kernel
+    laid out by :func:`conv_kernel_layout`, a dense kernel (in, out) or
+    member-batched (P, in, out); conv activations reaching a dense layer
+    are flattened first."""
+    if layer.kind == "conv":
+        return conv_layer(x, kernel, bias, layer.ksize, layer.stride)
+    if x.ndim == 5:
+        x = flatten_nhwc(x)
+    return _matmul(x, kernel, bias)
+
+
+def layer_post(layer: Layer, x: torch.Tensor, params: dict, stats: dict | None,
+               captured: dict | None = None) -> torch.Tensor:
+    """The layer's VBN (``params[layer.vbn]`` and the frozen ``stats``) and
+    activation on its linear output."""
+    if layer.vbn is not None:
+        x = vbn.layer(layer.vbn, x, params, stats, captured, feature_axis=layer.channel_axis)
+    return x if layer.activation is None else layer.activation(x)
 
 
 class MLPPolicy(_FlatParamsPolicy):
@@ -138,15 +220,26 @@ class MLPPolicy(_FlatParamsPolicy):
         ``captured`` collects the VBN statistics of this forward
         (``models/vbn.py``)."""
         x = obs
-        for i in range(len(self.hidden)):
-            x = _dense(x, params[f"dense_{i}"])
-            if self.use_vbn:
-                x = vbn.layer(f"vbn_{i}", x, params, self.vbn_stats, captured)
-            x = self.activation(x)
-        x = _dense(x, params["head"])
-        if not self.discrete:
-            x = torch.tanh(x) * self.action_scale
-        return x
+        for layer in self.layers():
+            p = params[layer.name]
+            x = layer_post(layer, layer_linear(layer, x, p["kernel"], p["bias"]), params,
+                           self.vbn_stats, captured)
+        return self.population_output(x)
+
+    def layers(self) -> tuple:
+        """The forward's :class:`Layer` sequence: the hidden dense layers
+        (each with its VBN layer with ``use_vbn``), then the head."""
+        hidden = tuple(Layer(f"dense_{i}", "dense", f"vbn_{i}" if self.use_vbn else None,
+                             self.activation) for i in range(len(self.hidden)))
+        return hidden + (Layer("head", "dense", None, None),)
+
+    def population_input(self, obs: torch.Tensor, members: int) -> torch.Tensor:
+        """``obs`` (members, …, obs_dim) as (members, B, obs_dim) float32."""
+        return obs.to(torch.float32).reshape(members, -1, obs.shape[-1])
+
+    def population_output(self, x: torch.Tensor) -> torch.Tensor:
+        """The head's output as actions: logits, or ``tanh(x)·action_scale``."""
+        return x if self.discrete else torch.tanh(x) * self.action_scale
 
 
 _GRU_GATES = (("ir", "iz", "in"), ("hr", "hz", "hn"))  # input side, hidden side
@@ -392,50 +485,58 @@ def _conv_params(obs_shape: tuple, use_vbn: bool, generator: torch.Generator) ->
     return params, h * w * cin
 
 
+def _conv_layers(use_vbn: bool) -> tuple:
+    """The trunk's :class:`Layer` sequence: each convolution followed by
+    VBN with ``use_vbn``, then a ReLU."""
+    return tuple(Layer(f"conv_{i}", "conv", f"vbn_{i}" if use_vbn else None, F.relu, k, stride)
+                 for i, (_, k, stride) in enumerate(_CONV_STACK))
+
+
 def _conv_layout(members: dict, dtype: torch.dtype | None, use_vbn: bool) -> dict:
     """The trunk's weights laid out once from member param dicts (leaves
     with a leading axis of P members): conv kernels HWIO → (P, out,
-    in·kh·kw), a patch's order in the forward; cast to ``dtype`` unless
-    None."""
+    in·kh·kw) (:func:`conv_kernel_layout`); cast to ``dtype`` unless None."""
     p = members["conv_0"]["kernel"].shape[0]
 
     def cast(t):
         return t if dtype is None else t.to(dtype)
 
     layout: dict = {"members": p}
-    for i, (feat, _, _) in enumerate(_CONV_STACK):
-        conv = members[f"conv_{i}"]
-        layout[f"conv_{i}"] = (cast(conv["kernel"]).permute(0, 4, 3, 1, 2).reshape(p, feat, -1)
-                               .contiguous(), cast(conv["bias"])[:, :, None])
+    for layer in _conv_layers(use_vbn):
+        conv = members[layer.name]
+        layout[layer.name] = (conv_kernel_layout(cast(conv["kernel"])),
+                              cast(conv["bias"])[:, :, None])
         if use_vbn:  # (P, 1, C): one member axis, then the batch's
-            layout[f"vbn_{i}"] = {name: cast(v)[:, None, :]
-                                  for name, v in members[f"vbn_{i}"].items()}
+            layout[layer.vbn] = {name: cast(v)[:, None, :]
+                                 for name, v in members[layer.vbn].items()}
     return layout
 
 
-def _conv_trunk(layout: dict, x: torch.Tensor, vbn_stats: dict | None = None,
-                captured: dict | None = None, use_vbn: bool = False) -> torch.Tensor:
-    """The P laid-out members' convolutions (each followed by VBN with
-    ``use_vbn``, then a ReLU) on ``x`` (P, B, H, W, C), flattened as flax
-    flattens NHWC: (P, B, H'·W'·C').  Each convolution is one copy of every
-    member's patches out of a strided view and one ``torch.bmm`` with the
-    members' kernels: on CUDA, cuDNN's grouped ``F.conv2d`` and ``F.unfold``
-    both launch a kernel a member."""
-    p, b = x.shape[0], x.shape[1]
-    x = x.permute(0, 1, 4, 2, 3)  # (P, B, C, H, W)
-    for i, (feat, k, stride) in enumerate(_CONV_STACK):
-        # every member's patches as one strided view (P, B, C, H', W', k, k),
-        # copied once into (P, C·k·k, B·H'·W')
-        patches = x.unfold(3, k, stride).unfold(4, k, stride)
-        h, w = patches.shape[3], patches.shape[4]
-        cols = patches.permute(0, 2, 5, 6, 1, 3, 4).reshape(p, -1, b * h * w)
-        weight, bias = layout[f"conv_{i}"]
-        x = (torch.bmm(weight, cols) + bias).view(p, feat, b, h, w).transpose(1, 2)
-        if use_vbn:
-            x = vbn.layer(f"vbn_{i}", x, layout, vbn_stats, captured, feature_axis=2)
-        x = F.relu(x)
-    # flax flattens the NHWC activation: (P, B, 64, 7, 7) → (P, B, 7·7·64)
-    return x.permute(0, 1, 3, 4, 2).reshape(p, b, -1)
+def _run_layers(layers: tuple, layout: dict, x: torch.Tensor, vbn_stats: dict | None = None,
+                captured: dict | None = None) -> torch.Tensor:
+    """``layers`` in order over their laid-out weights ``layout[name]``
+    ((kernel, bias)), the VBN params ``layout[vbn]``."""
+    for layer in layers:
+        kernel, bias = layout[layer.name]
+        x = layer_post(layer, layer_linear(layer, x, kernel, bias), layout, vbn_stats, captured)
+    return x
+
+
+def _pixels(obs: torch.Tensor, members: int, obs_shape: tuple,
+            dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Observations (members, B, H, W, C) or flat (members, H·W·C) as the
+    trunk's input (members, B, C, H, W) in ``dtype``: integer pixels
+    divided by 255, float pixels passed through."""
+    x = obs.reshape((members, -1) + tuple(obs_shape))
+    x = x.to(dtype) / 255.0 if not torch.is_floating_point(x) else x.to(dtype)
+    return x.permute(0, 1, 4, 2, 3)
+
+
+def _conv_trunk(layout: dict, x: torch.Tensor) -> torch.Tensor:
+    """The P laid-out members' convolutions (each followed by a ReLU) on
+    ``x`` (P, B, C, H, W), flattened as flax flattens NHWC: (P, B,
+    H'·W'·C')."""
+    return flatten_nhwc(_run_layers(_conv_layers(False), layout, x))
 
 
 class RecurrentNatureCNN(_RecurrentForward, _FlatParamsPolicy):
@@ -484,11 +585,7 @@ class RecurrentNatureCNN(_RecurrentForward, _FlatParamsPolicy):
         """``(out (P, B, A), carry' (P, B, gru_size))`` of the P laid-out
         members, each on its own B observations: ``obs`` (P, B, H, W, C) or
         (P, B, H·W·C), ``carry`` (P, B, gru_size)."""
-        p = layout["members"]
-        x = obs.reshape((p, -1) + self.obs_shape)
-        target = carry.dtype
-        x = x.to(target) / 255.0 if not torch.is_floating_point(x) else x.to(target)
-        x = _conv_trunk(layout, x)
+        x = _conv_trunk(layout, _pixels(obs, layout["members"], self.obs_shape, carry.dtype))
         weight, bias = layout["fc"]
         x = F.relu(torch.bmm(x, weight) + bias)
         carry, x = _gru_step(layout["gru"], x, carry)
@@ -541,6 +638,13 @@ class NatureCNN(_FlatParamsPolicy):
                           "kernel": _lecun_kernel((_FC, self.action_dim), _FC, generator)}
         return params
 
+    def layers(self) -> tuple:
+        """The forward's :class:`Layer` sequence: the three convolutions
+        (each with its VBN layer with ``use_vbn``, then a ReLU), ``fc``
+        (ReLU) and the linear ``head``."""
+        return _conv_layers(self.use_vbn) + (Layer("fc", "dense", None, F.relu),
+                                             Layer("head", "dense", None, None))
+
     def population_layout(self, members: dict) -> dict:
         """The population forward's weights from member param dicts (each
         leaf with a leading axis of P members), laid out once: conv kernels
@@ -554,21 +658,24 @@ class NatureCNN(_FlatParamsPolicy):
                             members[name]["bias"].to(torch.float32)[:, None, :])
         return layout
 
+    def population_input(self, obs: torch.Tensor, members: int) -> torch.Tensor:
+        """Observations (members, B, H, W, C) or flat (members, H·W·C) as
+        the trunk's float32 input (members, B, C, H, W)."""
+        return _pixels(obs, members, self.obs_shape)
+
+    def population_output(self, x: torch.Tensor) -> torch.Tensor:
+        """The head's logits."""
+        return x
+
     def population_apply(self, layout: dict, obs: torch.Tensor,
                          captured: dict | None = None) -> torch.Tensor:
         """Logits (P, B, action_dim) of the P laid-out members, each on its
         own B observations: ``obs`` (P, B, H, W, C), or (P, H·W·C) flat
         rows (B = 1) as the pools give them.  Each convolution is one copy
         of every member's patches out of a strided view and one
-        ``torch.bmm`` with the members' kernels (``_conv_trunk``)."""
-        p = layout["members"]
-        x = obs.reshape((p, -1) + self.obs_shape)
-        x = x.to(torch.float32) / 255.0 if not torch.is_floating_point(x) else x.to(torch.float32)
-        x = _conv_trunk(layout, x, self.vbn_stats, captured, self.use_vbn)
-        weight, bias = layout["fc"]
-        x = F.relu(torch.bmm(x, weight) + bias)
-        weight, bias = layout["head"]
-        return torch.bmm(x, weight) + bias
+        ``torch.bmm`` with the members' kernels (:func:`conv_layer`)."""
+        x = self.population_input(obs, layout["members"])
+        return _run_layers(self.layers(), layout, x, self.vbn_stats, captured)
 
     def apply_params(self, params: dict, obs: torch.Tensor,
                      captured: dict | None = None) -> torch.Tensor:

@@ -85,3 +85,15 @@ def make_param_spec(params: Any) -> tuple[torch.Tensor, ParamSpec]:
     flat = torch.cat([leaf.reshape(-1) for _, leaf in leaves])
     return flat, ParamSpec(dim=pos, paths=tuple(paths), shapes=tuple(shapes),
                            offsets=tuple(offsets))
+
+
+def count_params(params: Any) -> int:
+    """The number of scalars in a param tree: nested dicts, lists or tuples
+    of tensors or arrays (None leaves count none)."""
+    if params is None:
+        return 0
+    if isinstance(params, dict):
+        return sum(count_params(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(count_params(v) for v in params)
+    return int(torch.as_tensor(params).numel())

@@ -72,3 +72,10 @@ def centered_rank_np(x) -> np.ndarray:
     ranks = np.empty(n, dtype=np.int32)
     ranks[np.argsort(x, kind="stable")] = np.arange(n, dtype=np.int32)
     return (ranks.astype(np.float32) / (n - 1) - 0.5).astype(np.float32)
+
+
+def normalized_score(x: torch.Tensor) -> torch.Tensor:
+    """Z-score alternative to rank shaping: ``(x − mean) / std`` with the
+    population's (biased) standard deviation, or 1 where it is 0."""
+    std = x.std(correction=0)
+    return (x - x.mean()) / torch.where(std > 0, std, torch.ones_like(std))

@@ -565,8 +565,8 @@ class ESEngine:
 
     def _chunk_apply(self, state: ESState, shared, offs: torch.Tensor, signs: torch.Tensor):
         """``(batched_apply, carry0)`` for the k members of one chunk, their
-        noise read once here: ``batched_apply(raw obs (k·e, obs_dim)) -> (k·e,
-        act)``, and for a recurrent policy ``batched_apply(obs, carry) ->
+        noise read once here: ``batched_apply(raw obs (k·e, *obs_shape)) ->
+        (k·e, act)``, and for a recurrent policy ``batched_apply(obs, carry) ->
         (out, carry')`` from the episode-start ``carry0`` (else None)."""
         cfg = self.config
         data = self.table.data
@@ -607,9 +607,15 @@ class ESEngine:
         else:
             theta = state.params_flat + c[:, None] * gather_rows(data, offs, self.spec.dim)
             members = self.spec.unravel(self._cast(theta))
+            if hasattr(self.module, "population_layout"):
+                # NatureCNN: the members' conv kernels laid out once a chunk
+                layout = self.module.population_layout(members)
 
-            def fwd(x):
-                return member_params_apply(self.module, members, x)
+                def fwd(x):
+                    return self.module.population_apply(layout, x)
+            else:
+                def fwd(x):
+                    return member_params_apply(self.module, members, x)
 
         def batched_apply(obs: torch.Tensor, *carry):
             if cfg.obs_norm:

@@ -39,9 +39,9 @@ another.  The regex partition rules (:data:`DEFAULT_PARTITION_RULES`,
 :func:`match_partition_rules`, the fmengine/EasyLM idiom) resolve from the
 axis sizes alone, to the port's own :class:`P`, whose text is JAX's
 ``PartitionSpec``'s; their JSON is the JAX package's.  The sharded engine
-covers ``MLPPolicy``'s forward with program or table noise; the NatureCNN
-conv trunk waits for item 7d.  Nothing here imports torch until a mesh is
-built.
+partitions the forward of ``MLPPolicy`` and ``NatureCNN`` (conv kernels
+split on their HWIO output channels) with program or table noise.
+Nothing here imports torch until a mesh is built.
 """
 
 from __future__ import annotations

@@ -20,14 +20,22 @@ partition it; torch has no GSPMD, so the partition is explicit here:
   the update contracts them, no dense E formed.  ``noise_mode="table"``
   slices each leaf's window of the classic table, the rank's elements only:
   the replicated engine's ε, the parity mode.
-- **Forward.**  Explicit tensor parallelism of ``MLPPolicy`` over the model
-  group: a kernel sharded on its output dim is column-parallel (the rank's
-  columns, then the activations gathered as a disjoint-column sum), one
-  sharded on its input dim row-parallel (partial products summed), a
-  replicated one computed whole on every rank.  Every model rank of a pop
-  group steps the same env states with the same gathered actions, so their
-  fitness is bit-identical.  Other modules (NatureCNN's conv trunk) are
-  ROADMAP item 7d and raise.
+- **Forward.**  Explicit tensor parallelism over the model group of the
+  bundled feedforward policies (``MLPPolicy`` and ``NatureCNN``, each with
+  or without VBN): the module's own :class:`~estorch_tpu_torch.models.
+  policies.Layer` sequence, each layer run by the same ``layer_linear`` /
+  ``layer_post`` as the replicated forward, on this rank's part.  A kernel
+  split on its output channels (a dense kernel's columns, a conv kernel's
+  HWIO output channels) is column-parallel: the rank runs its channels,
+  their VBN (the frozen statistics are per channel) and activation, then
+  one disjoint-channel sum over the model group gathers them.  One split
+  on its input channels sums partial products, then the bias, VBN and
+  activation run whole; a whole kernel runs whole on every rank.  A split
+  per-channel vector (bias, VBN scale or bias) that a layer needs whole is
+  gathered once a chunk.  Every model rank of a pop group steps the same
+  env states with the same gathered actions, so their fitness is
+  bit-identical.  Any other module raises (README, "The sharded
+  forward").
 - **Update.**  A rank's float64 partial Σ w·ε over its pop block's rows,
   one sum over the pop group, one rounding, the division by
   population·σ (as world 1 rounds, ROADMAP F22).  ``grad_norm`` sums the
@@ -54,6 +62,7 @@ from typing import Any, NamedTuple
 import torch
 
 from ..envs.rollout import make_batched_rollout
+from ..models.policies import conv_kernel_layout, flatten_nhwc, layer_linear, layer_post
 from ..obs.spans import NULL_TELEMETRY
 from ..ops.gradient import fold_mirrored_weights
 from ..ops.lowrank import dense_kernel, lowrank_factors_save, lowrank_program_factors
@@ -82,7 +91,21 @@ NOISE_MODES = ("program", "table")
 # noise row at least), so the generator's int64 and float64 temporaries stay
 # a few MB each: a rank's peak memory is its shards', not its noise's
 NOISE_BLOCK_ELEMENTS = 1 << 19
-ITEM_7D = "ROADMAP.md, port queue item: 7d, the sharded conv forward"
+# the module families whose forward the sharded engine partitions
+SHARDED_FAMILIES = "MLPPolicy and NatureCNN, each with or without VBN"
+
+
+class _LayerPlan(NamedTuple):
+    """How a rank runs one layer: ``mode`` "whole", "column" (its output
+    channels [lo, hi)) or "row" (its input channels [lo, hi), partial
+    sums); ``channels`` the layer's output channels; ``vectors`` the leaf
+    indices of its bias, then its VBN bias and scale."""
+
+    mode: str
+    lo: int
+    hi: int
+    channels: int
+    vectors: tuple
 
 
 class ShardedESState(NamedTuple):
@@ -255,13 +278,11 @@ class ShardedESEngine:
                 f"sharded engine needs a ({POP_AXIS!r}, {MODEL_AXIS!r}) "
                 f"mesh (parallel/mesh.py::hyperscale_mesh); {getattr(mesh, 'axis_names', ())} "
                 f"is missing {sorted(missing)}")
-        from ..models.policies import MLPPolicy
-
-        if not isinstance(module, MLPPolicy) or module.use_vbn:
+        if getattr(module, "is_recurrent", False) or not hasattr(module, "layers"):
             raise ValueError(
-                "the port's sharded forward covers MLPPolicy without VBN (explicit tensor "
-                f"parallelism over the model group); {type(module).__name__} is "
-                f"{ITEM_7D}")
+                f"the port's sharded forward partitions the bundled feedforward policies "
+                f"({SHARDED_FAMILIES}) layer by layer; {type(module).__name__} is not one of "
+                "them (JAX's GSPMD partitions any module; README.md, 'The sharded forward')")
         if config.mirrored and config.population_size % 2:
             raise ValueError(
                 f"mirrored sampling needs an even population, got {config.population_size}")
@@ -291,6 +312,8 @@ class ShardedESEngine:
         self._spec_tree = spec_tree
         self.layout = ShardLayout(spec, leaf_specs, mesh, self.device)
         self._by_path = {lf.path: i for i, lf in enumerate(self.layout.leaves)}
+        self._layers = module.layers()
+        self._plans = [self._layer_plan(layer) for layer in self._layers]
 
         # low_rank: which leaves draw factored noise, by the ops/lowrank.py rule
         self._factored: dict[int, tuple[int, int]] = {}
@@ -319,6 +342,28 @@ class ShardedESEngine:
 
     def _leaf(self, layer: str, name: str) -> int:
         return self._by_path[(layer, name)]
+
+    def _layer_plan(self, layer) -> _LayerPlan:
+        """How this rank runs ``layer``: whole, column-parallel (its output
+        channels [lo, hi)) or by partial sums (its input channels [lo,
+        hi)), from the kernel's split; anything else raises, naming the
+        layer."""
+        kl = self.layout.leaves[self._leaf(layer.name, "kernel")]
+        out_dim, in_dim = len(kl.shape) - 1, len(kl.shape) - 2
+        vectors = [self._leaf(layer.name, "bias")]
+        if layer.vbn is not None:
+            vectors += [self._leaf(layer.vbn, "bias"), self._leaf(layer.vbn, "scale")]
+        if kl.shard_dim is None:
+            return _LayerPlan("whole", 0, kl.shape[out_dim], kl.shape[out_dim], tuple(vectors))
+        lo, count = kl.lo, kl.local_shape[kl.shard_dim]
+        if kl.shard_dim == out_dim:
+            return _LayerPlan("column", lo, lo + count, kl.shape[out_dim], tuple(vectors))
+        if kl.shard_dim == in_dim:
+            return _LayerPlan("row", lo, lo + count, kl.shape[out_dim], tuple(vectors))
+        raise ValueError(
+            f"layer '{layer.name}': its kernel {kl.shape} is split along dim {kl.shard_dim} "
+            f"({kl.spec}); the sharded forward splits a kernel's output channels (dim "
+            f"{out_dim}) or its input channels (dim {in_dim})")
 
     def _factor_elements(self, i: int):
         """(A's, B's) local element indices of a factored (m, n) leaf: all of
@@ -429,48 +474,73 @@ class ShardedESEngine:
 
     # ------------------------------------------------------------ forward
 
+    def _channel_vector(self, members: dict, i: int, plan: _LayerPlan) -> torch.Tensor:
+        """Per-channel leaf ``i`` (bias, VBN scale or bias) of the k members
+        as the layer runs it on this rank: (k, hi − lo) for a column-parallel
+        layer, else whole (k, C).  A split leaf not matching that range is
+        gathered (a collective over the model group, once a chunk)."""
+        lf = self.layout.leaves[i]
+        v = members[lf.path[0]][lf.path[1]]
+        lo, hi = (plan.lo, plan.hi) if plan.mode == "column" else (0, plan.channels)
+        if lf.shard_dim is None:
+            return v[:, lo:hi]
+        if plan.mode == "column" and lf.local_size == hi - lo:
+            return v
+        full = v.new_zeros((v.shape[0], lf.size))
+        full[:, lf.lo:lf.lo + lf.local_size] = v
+        return self.mesh.all_reduce_model(full)[:, lo:hi]
+
     def _sharded_apply(self, members: dict):
-        """``apply(obs (k, obs_dim)) -> (k, act)`` of k members whose local
-        leaves are ``members`` (leaves (k, *local_shape))."""
+        """``apply(obs (k, *obs_shape)) -> (k, out)`` of k members whose
+        local leaves are ``members`` (leaves (k, *local_shape)): the
+        module's layers in order, each on this rank's part (the module
+        docstring's forward).  The weights are laid out and any per-channel
+        vector a layer needs whole gathered here, once a chunk; a partitioned
+        layer gathers its activations once a call."""
         mod = self.module
         mesh = self.mesh
-        names = [f"dense_{i}" for i in range(len(mod.hidden))] + ["head"]
+        stats = mod.vbn_stats
+        prepared = []
+        for layer, plan in zip(self._layers, self._plans):
+            kernel = members[layer.name]["kernel"]
+            if layer.kind == "conv":
+                kernel = conv_kernel_layout(kernel)
+            bias, *vbn_vectors = (self._channel_vector(members, i, plan) for i in plan.vectors)
+            bias = bias[:, :, None] if layer.kind == "conv" else bias[:, None, :]
+            params, layer_stats = {}, None
+            if layer.vbn is not None:  # (k, 1, C) and (C,), this rank's channels
+                params[layer.vbn] = {"bias": vbn_vectors[0][:, None, :],
+                                     "scale": vbn_vectors[1][:, None, :]}
+                lo, hi = (plan.lo, plan.hi) if plan.mode == "column" else (0, plan.channels)
+                layer_stats = {layer.vbn: {k: v[lo:hi] for k, v in stats[layer.vbn].items()}}
+            prepared.append((kernel, bias, params, layer_stats))
 
-        def layer(x, name):
-            ki, bi = self._leaf(name, "kernel"), self._leaf(name, "bias")
-            kl, bl = self.layout.leaves[ki], self.layout.leaves[bi]
-            w, b = members[name]["kernel"], members[name]["bias"][:, None, :]
-            h = kl.shape[1]
-            if kl.shard_dim is None and bl.shard_dim is None:
-                return x @ w + b
-            if kl.shard_dim == 1:  # column-parallel: this rank's columns
-                lo, hi = kl.lo, kl.lo + kl.local_shape[1]
-                bias = b if bl.shard_dim is not None else b[..., lo:hi]
-                buf = x.new_zeros(x.shape[:-1] + (h,))
-                buf[..., lo:hi] = x @ w + bias
-                return mesh.all_reduce_model(buf)
-            if kl.shard_dim == 0:  # row-parallel: partial products summed
-                lo, hi = kl.lo, kl.lo + kl.local_shape[0]
-                part = x[..., lo:hi] @ w
-                if bl.shard_dim == 0:
-                    part[..., bl.lo:bl.lo + bl.local_shape[0]] += b
-                elif mesh.model_index == 0:
-                    part = part + b
-                return mesh.all_reduce_model(part)
-            # a whole kernel beside a sharded bias: the bias gathered
-            full_b = b.new_zeros(b.shape[:-1] + (h,))
-            full_b[..., bl.lo:bl.lo + bl.local_shape[0]] = b
-            return x @ w + mesh.all_reduce_model(full_b)
+        def run(layer, plan, prep, x):
+            kernel, bias, params, layer_stats = prep
+            if plan.mode == "whole":
+                return layer_post(layer, layer_linear(layer, x, kernel, bias), params,
+                                  layer_stats)
+            if plan.mode == "row":  # this rank's input channels; partial sums
+                if layer.kind == "dense" and x.ndim == 5:
+                    x = flatten_nhwc(x)
+                axis = 2 if layer.kind == "conv" else x.ndim - 1
+                part = layer_linear(layer, x.narrow(axis, plan.lo, plan.hi - plan.lo), kernel,
+                                    bias if mesh.model_index == 0 else None)
+                return layer_post(layer, mesh.all_reduce_model(part), params, layer_stats)
+            # column-parallel: this rank's output channels, then gathered
+            y = layer_post(layer, layer_linear(layer, x, kernel, bias), params, layer_stats)
+            axis = layer.channel_axis % y.ndim
+            shape = y.shape[:axis] + (plan.channels,) + y.shape[axis + 1:]
+            buf = y.new_zeros(shape)
+            buf.narrow(axis, plan.lo, plan.hi - plan.lo).copy_(y)
+            return mesh.all_reduce_model(buf)
 
         def apply(obs: torch.Tensor) -> torch.Tensor:
             n = obs.shape[0]
-            x = obs.to(torch.float32).reshape(n, 1, obs.shape[-1])
-            for name in names[:-1]:
-                x = mod.activation(layer(x, name))
-            x = layer(x, names[-1])
-            if not mod.discrete:
-                x = torch.tanh(x) * mod.action_scale
-            return x.reshape(n, -1)
+            x = mod.population_input(obs, n)
+            for layer, plan, prep in zip(self._layers, self._plans, prepared):
+                x = run(layer, plan, prep, x)
+            return mod.population_output(x).reshape(n, -1)
 
         return apply
 

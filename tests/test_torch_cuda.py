@@ -1253,3 +1253,54 @@ def test_doctor_probe_launches_both_kernels(cuda):
     assert out["platform"] == "cuda" and out["n_devices"] >= 1
     assert out["launches"] == {"weighted_noise_sum": 1, "population_noise_matvec": 1}
     assert max(out["max_abs_err"].values()) <= 1e-5
+
+
+def test_sharded_conv_ranks_on_one_card_match_one_rank(cuda, tmp_path):
+    """NatureCNN with VBN on the pixel env, two gloo ranks on cuda:0 at mesh
+    (1, 2), program mode (``tests/test_torch_sharded_conv.py`` is the rank
+    script): the ranks end with the same gathered params; generation 0's
+    noise has the bits of a (1, 1) run on the card; each rank's sharded
+    forward equals the replicated ``population_apply`` of the gathered θ
+    within 1e-5; the params stay within the sharded A/B gate of the (1, 1)
+    run (rtol 2e-4, atol 1e-5)."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from test_torch_sharded_conv import GENS, noise_rows, sharded_es
+
+    script = Path(__file__).with_name("test_torch_sharded_conv.py")
+    rdv = tmp_path / "card.rdv"
+    env = dict(os.environ, PYTHONPATH=str(script.parent.parent))
+    procs = [subprocess.Popen([sys.executable, str(script), "card", str(r), "1", "2", str(rdv),
+                               str(tmp_path), "cuda:0"], env=env, stdout=subprocess.DEVNULL,
+                              stderr=subprocess.PIPE, text=True) for r in range(2)]
+    try:
+        errs = [p.communicate(timeout=240)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, err in zip(procs, errs):
+        assert p.returncode == 0, err[-3000:]
+    ranks = [np.load(tmp_path / f"card_1x2_rank{r}.npz") for r in range(2)]
+    assert ranks[0]["params"].tobytes() == ranks[1]["params"].tobytes()
+    for r in ranks:
+        np.testing.assert_allclose(r["forward"], r["forward_want"], rtol=1e-5, atol=1e-5)
+    one = sharded_es("cnn_vbn", device=cuda)
+    noise = noise_rows(one, 2)
+    one.train(GENS, verbose=False)
+    assert ranks[0]["noise0"].tobytes() == noise.tobytes()
+    np.testing.assert_allclose(ranks[0]["params"], one.state.params_flat.cpu().numpy(),
+                               rtol=2e-4, atol=1e-5)
+
+
+def test_probe_device_on_the_card(cuda):
+    """``doctor.probe_device`` (the JAX doctor's quick probe) over the
+    staged child: healthy on ``cuda``."""
+    from estorch_tpu_torch import doctor
+
+    out = doctor.probe_device(timeout_s=180.0)
+    assert out["status"] == "healthy" and out["platform"] == "cuda", out
+    assert out["n_devices"] >= 1

@@ -135,6 +135,49 @@ def test_failed_kernel_check_is_a_failed_row(monkeypatch):
     assert "disagrees with its plain version" in out["stderr_tail"]
 
 
+# ------------------------------------- probe_device (tests/test_doctor.py)
+
+
+def test_probe_device_healthy_parse(monkeypatch):
+    """A child that reaches its launch is classified healthy with fields
+    (``TestProbeClassifier.test_healthy_parse``)."""
+    monkeypatch.setattr(doctor, "_STAGED_PROBE", "print(%r)" % DEVICE_OK.replace(
+        "cuda 1 NVIDIA H100", "cpu 8 cpu"))
+    out = doctor.probe_device(timeout_s=60)
+    assert out == {"status": "healthy", "platform": "cpu", "n_devices": 8}
+
+
+def test_probe_device_wedge_detected_by_timeout_with_stderr_clue(monkeypatch):
+    """A child that hangs past the timeout is classified wedged, and what
+    it wrote to stderr before hanging survives in the report."""
+    monkeypatch.setattr(doctor, "_STAGED_PROBE", (
+        "import sys, time\n"
+        "sys.stderr.write('initializing the CUDA context...')\n"
+        "sys.stderr.flush()\n"
+        "time.sleep(60)\n"))
+    out = doctor.probe_device(timeout_s=3)
+    assert out["status"] == "wedged"
+    assert out["timeout_s"] == 3
+    assert "initializing the CUDA context" in out["stderr_tail"]
+
+
+def test_probe_device_fast_failure_is_error_not_wedge(monkeypatch):
+    """A child that raises quickly is an init error with its stderr tail;
+    here, with no card, the real probe is too."""
+    monkeypatch.setattr(doctor, "_STAGED_PROBE", "raise RuntimeError('backend exploded')")
+    out = doctor.probe_device(timeout_s=60)
+    assert out["status"] == "error" and out["returncode"] == 1
+    assert "backend exploded" in out["stderr_tail"]
+
+
+def test_probe_device_real_child_on_this_host():
+    """The real staged child: the card's probe is an error here (no card),
+    the CPU's healthy."""
+    assert doctor.probe_device(timeout_s=60)["status"] == "error"
+    assert doctor.probe_device(timeout_s=60, device="cpu") == {
+        "status": "healthy", "platform": "cpu", "n_devices": 1}
+
+
 # ------------------------------------------- one full report on the CPU
 
 

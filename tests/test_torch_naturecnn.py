@@ -23,7 +23,7 @@ from estorch_tpu import NatureCNN as JNatureCNN
 from estorch_tpu import PooledAgent as JPooledAgent
 from estorch_tpu.models import capture_reference_stats as jcapture
 from estorch_tpu.parallel import population_mesh
-from estorch_tpu_torch import ES, NatureCNN, PooledAgent, adam, interop
+from estorch_tpu_torch import ES, DeviceAgent, NatureCNN, PooledAgent, adam, interop
 from estorch_tpu_torch.envs.rollout import population_forward
 from estorch_tpu_torch.models import capture_reference_stats
 from estorch_tpu_torch.ops.params import make_param_spec
@@ -186,3 +186,73 @@ def test_pong84_pooled_trajectory_matches_jax(pong_pair):
         jm, tm = pooled_step(jes, tes)
         check_pooled(jes, tes, jm, tm, f"generation {g}", norm_rtol=1e-4)
     assert tes.evaluate_policy(2, seed=1)["episodes"] == 2
+
+
+# ------------------------------------- a pixel device env (ROADMAP F25)
+
+
+def _pixel_reference_batch(jes, jenv, tenv, n_steps=128):
+    """JAX's VBN reference batch of ``jes`` and the port's from the same
+    reset state and random actions (the draws of JAX's key, handed over)."""
+    from test_torch_envs import jax_resets
+
+    from estorch_tpu.envs.agent import collect_reference_batch as j_collect
+    from estorch_tpu_torch.envs import collect_reference_batch
+
+    vbn_key = jax.random.split(jax.random.PRNGKey(jes.seed), 3)[2]
+    want = np.asarray(j_collect(jenv, vbn_key, n_steps=n_steps))
+    key, rkey = jax.random.split(vbn_key)
+    acts = jax.vmap(lambda k: jax.random.randint(k, (), 0, jenv.action_dim))(
+        jax.random.split(key, n_steps))
+    got = collect_reference_batch(tenv, n_steps, actions=torch.from_numpy(np.array(acts)),
+                                  state0=jax_resets(jenv, tenv, rkey[None]))
+    return want, got
+
+
+@pytest.mark.parametrize("use_vbn", [False, True], ids=["plain", "vbn"])
+def test_device_pixel_env_trains_as_jax(use_vbn):
+    """ROADMAP F25: the device path takes the policy's input shape from
+    the observation the env's reset returns, as JAX inits from ``obs0``.
+    ``NatureCNN`` on :class:`PixelShift` ((36, 36, 4) float pixels): the
+    VBN reference batch from JAX's reset state and actions bit-equal to
+    JAX's, its statistics as JAX's within 1e-4 of their scale (JAX's
+    float32 variance, as for pong84), then 2 generations from JAX's params,
+    VBN statistics, table, offsets and reset states: fitness within 1e-6
+    (the returns' float32 sums; the same actions), alive steps equal,
+    params within 1e-6.  ``obs_norm`` keeps (obs_dim,) statistics and is
+    refused on pixels (JAX's fails to broadcast them at its first
+    generation)."""
+    from test_torch_recurrent import rec_pair, rec_sample
+    from test_torch_sharded_conv import PixelShift, jax_pixel_env
+
+    jenv, tenv = jax_pixel_env(), PixelShift()
+    pk = {"action_dim": 2, "use_vbn": use_vbn}
+    jes, tes = rec_pair(jenv, tenv, JNatureCNN, NatureCNN, pk, 4, population_size=8,
+                        sigma=0.05, table_size=1 << 18)
+    assert tes.spec.dim == (112_610 if use_vbn else 112_290)
+    assert tes._obs_shape == (36, 36, 4) and tes.module.obs_shape == (36, 36, 4)
+    if use_vbn:
+        want, got = _pixel_reference_batch(jes, jenv, tenv)
+        assert got.shape == (128, 36, 36, 4)
+        np.testing.assert_array_equal(got.numpy(), want)
+        _, params = interop.params_from_jax(np.asarray(jes.state.params_flat), tes.spec)
+        stats = capture_reference_stats(tes.module, params, got)
+        jstats = _np_tree(jes._frozen["vbn_stats"])
+        for name, s in jstats.items():
+            for stat in ("mean", "var"):
+                err = np.abs(stats[name][stat].numpy() - s[stat]).max() / np.abs(s[stat]).max()
+                assert err < 1e-4, (name, stat, err)
+    for g in range(2):
+        jstate = jes.state
+        sample = rec_sample(jes, tenv, jstate)
+        jes.state, jm = jes.engine.generation_step(jstate)
+        tes.state, tm = tes.engine.generation_step(tes.state, sample)
+        np.testing.assert_allclose(tm["fitness"].numpy(), np.asarray(jm["fitness"]), rtol=1e-6,
+                                   atol=1e-6, err_msg=f"generation {g}")
+        assert int(tm["steps"]) == int(jm["steps"]) == 8 * 4
+        np.testing.assert_allclose(tes.state.params_flat.numpy(),
+                                   np.asarray(jes.state.params_flat), rtol=0, atol=1e-6)
+    assert tes.evaluate_policy(2, seed=1)["episodes"] == 2
+    with pytest.raises(ValueError, match="obs_norm keeps"):
+        ES(NatureCNN, DeviceAgent(tenv, horizon=4), adam, device="cpu", obs_norm=True,
+           policy_kwargs=pk, table_size=1 << 18, optimizer_kwargs={"learning_rate": 1e-2})

@@ -587,9 +587,8 @@ def test_killed_rank_is_a_timed_error(tmp_path):
 
 def test_options_are_validated_as_jax():
     """The sharding keywords without ``shard_params`` raise ``ValueError``
-    as JAX's do; the engine refuses what JAX's refuses; a non-MLP module
-    names ROADMAP item 7d."""
-    from estorch_tpu_torch import NatureCNN, PooledAgent, RecurrentPolicy
+    as JAX's do; the engine refuses what JAX's refuses."""
+    from estorch_tpu_torch import PooledAgent, RecurrentPolicy
 
     for kw in ({"model_shards": 2}, {"partition_rules": []}, {"noise_mode": "program"}):
         with pytest.raises(ValueError, match="pass shard_params=True"):
@@ -615,16 +614,10 @@ def test_options_are_validated_as_jax():
            optimizer_kwargs={"learning_rate": 1e-2})
     with pytest.raises(TypeError, match="HyperscaleMesh"):
         sharded_es(shard_params=True, mesh=tmesh.single_device_mesh("cpu"))
-    from estorch_tpu_torch.ops.params import make_param_spec
     from estorch_tpu_torch.parallel.engine import EngineConfig
     from estorch_tpu_torch.parallel.sharded import ShardedESEngine
 
-    cnn = NatureCNN(action_dim=2)
-    _, spec = make_param_spec(cnn.init_params((84, 84, 4), torch.Generator().manual_seed(0)))
     cfg = EngineConfig(population_size=4, sigma=0.1, horizon=5)
-    with pytest.raises(ValueError, match="item: 7d"):
-        ShardedESEngine(CartPole(), cnn, spec, None, adam(1e-2), cfg,
-                        tmesh.hyperscale_mesh(devices="cpu"))
     with pytest.raises(ValueError, match="needs a NoiseTable"):
         ShardedESEngine(CartPole(), MLPPolicy(**POLICY), sharded_es().spec, None, adam(1e-2),
                         cfg, tmesh.hyperscale_mesh(devices="cpu"), noise_mode="table")
