@@ -52,8 +52,8 @@ Phases, in order; any failure exits non-zero before the last line:
    Adam 1e-5 (``reused_prev`` equal, params within 1e-5), and a host
    NS-ES on phase 9's ``rollout(policy)`` Pendulum agent at population 32,
    2 generations (meta indices equal, reward means within 1e-4, update
-   cosine 0.999); then the fold: two CPU live ``train_async`` runs'
-   event logs (pop 32, horizon 60, a straggler folded late) each replayed
+   cosine 0.999); then the fold: a CPU live ``train_async`` run's
+   event log (pop 32, horizon 60, a straggler folded late) replayed
    on the card and on the CPU (params within 1e-6 of their largest entry,
    one reduction launch an update); then a CPU checkpoint of the streamed path
    (population 64, horizon 50, generation 2) restored on the card, the
@@ -98,7 +98,7 @@ Phases, in order; any failure exits non-zero before the last line:
    generation with one worker on each device at population 32 (cut from
    1000: it steps one member at a time), the launches an env step
    over 4 members' rollouts, the device's busy share of one profiled
-   generation at population 16 with 8 threads; and, at horizon 10 and
+   generation at population 8 with 8 threads; and, at horizon 10 and
    population 64, 8 thread workers against one on each device;
 10. the recurrent paths, each through ``ES(...).train`` with 1 warm-up and
    2 timed generations, the reduction's launches exact (1 a generation
@@ -375,6 +375,12 @@ HOST_TIMED = 1  # generations after 1 warm-up (2 until phase 22)
 # the one-worker generations step members one by one (cut from 250, then 128,
 # then 64, then 32 for phase 22)
 HOST_ONE_WORKER_POP = 32
+# the profiled generation's population (16 until the update reduction's
+# redesign; cut to keep the script within its time)
+HOST_PROFILE_POP = 8
+# phase 4's fold logs replayed across devices (3 until phase 22, 2 until the
+# update reduction's redesign)
+FOLD_LOGS = 1
 HOST_RECIPE = dict(population_size=HOST_POPULATION, sigma=0.02, optimizer_kwargs={"lr": 1e-2},
                    weight_decay=0.005, table_size=TABLE_SIZE)
 HOST_PAIRS, HOST_DIM = HOST_POPULATION // 2, 4737  # the update's shape: 3 -> 64x64 VBN -> 1
@@ -845,6 +851,50 @@ def chunk_invariance(torch, tt) -> list[dict]:
     return out
 
 
+def hold_reduction(torch, nk, label: str, table, offs, w, dim: int) -> dict:
+    """Phase 2: the reduction at one shape against its plain version.
+    Tolerance: float64 sums over up to a few thousand rows in another order
+    than the plain gather + matvec, each rounded to float32 once; |weights|
+    <= 1, so |error| well under 1e-3 (atol 1e-3, rtol 1e-4).  Beyond it the
+    float32 entries that are not bit-equal to the plain version's are
+    counted, and each must lie at a rounding tie: adjacent float32 values
+    whose midpoint is within the two float64 sums' error bound (n * 2^-52 *
+    sum_k |w_k e_k|) of the plain float64 sum.  Two launches must give the
+    same bits."""
+    n = int(offs.shape[0])
+    got = nk.weighted_noise_sum(table, offs, w, dim)
+    again = nk.weighted_noise_sum(table, offs, w, dim)
+    torch.cuda.synchronize()
+    want = nk.weighted_noise_sum_plain(table, offs, w, dim)
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=1e-4, atol=1e-3):
+        fail(f"weighted_noise_sum {label} n={n} dim={dim}: max |err| {err:g}")
+    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+        fail(f"weighted_noise_sum {label} n={n} dim={dim}: two launches gave other bits")
+    diff = got.view(torch.int32) != want.view(torch.int32)
+    mism = int(diff.sum())
+    if mism:
+        exact = nk.weighted_noise_sum_plain(table, offs, w, dim, out_dtype=torch.float64)[diff]
+        scale = nk.weighted_noise_sum_plain(table.abs(), offs, w.abs(), dim,
+                                            out_dtype=torch.float64)[diff]
+        g, p = got[diff], want[diff]
+        tie = ((torch.nextafter(p, g) == g)
+               & ((exact - (g.double() + p.double()) / 2).abs() <= n * 2.0 ** -52 * scale))
+        if not bool(tie.all()):
+            fail(f"weighted_noise_sum {label} n={n} dim={dim}: {mism - int(tie.sum())} of "
+                 f"{mism} float32 entries differ from the plain version away from a tie")
+    mapping = nk.weighted_noise_sum_mapping(n, dim, table.numel()) if n else None
+    shown = ("none (n = 0: zeros, no launch)" if mapping is None else
+             f"{mapping['cols']} columns a lane, {mapping['row_groups']} row groups a block, "
+             f"{mapping['cluster']} blocks a window, rows by "
+             f"{'clamped start' if mapping['sorted'] else 'index'}")
+    print(f"weighted_noise_sum {label} n={n} dim={dim}: max |err| {err:.3g} (tol atol 1e-3, "
+          f"rtol 1e-4); {mism} float32 entries not bit-equal to the plain version"
+          f"{' (each at a rounding tie)' if mism else ''}; two launches bit-identical; "
+          f"mapping: {shown}")
+    return {"max_abs_err": err, "not_bit_equal": mism, "mapping": mapping}
+
+
 def time_pong_reduction(torch, nk, bw: float, f64: float, flush) -> dict:
     """Phase 2: the reduction at the pong84_conv recipe's update shape, 128
     pair rows of dim 1,685,987 from a 2^23-float table, checked against the
@@ -862,12 +912,8 @@ def time_pong_reduction(torch, nk, bw: float, f64: float, flush) -> dict:
     offs = sample_pair_offsets(gen, PONG_PAIRS, PONG_TABLE, dim)
     w = (torch.rand(PONG_PAIRS, generator=gen) * 2 - 1).to(dev)
     offs_dev = offs.to(dev)
-    got = nk.weighted_noise_sum(table, offs_dev, w, dim)
-    torch.cuda.synchronize()
-    want = nk.weighted_noise_sum_plain(table, offs_dev, w, dim)
-    err = float((got - want).abs().max())
-    if not torch.allclose(got, want, rtol=1e-4, atol=1e-3):
-        fail(f"weighted_noise_sum pong84 n={PONG_PAIRS} dim={dim}: max |err| {err:g}")
+    held = hold_reduction(torch, nk, "pong84_conv", table, offs_dev, w, dim)
+    err = held["max_abs_err"]
     distinct = 4 * (union_floats(offs, dim) + 2 * PONG_PAIRS + dim)
     read = 4 * (PONG_PAIRS * dim + 2 * PONG_PAIRS + dim)
     flops = 2 * PONG_PAIRS * dim
@@ -884,8 +930,8 @@ def time_pong_reduction(torch, nk, bw: float, f64: float, flush) -> dict:
           f"{read / 1e6:.1f} MB, {read / bw * 1e3:.4f} ms at the HBM rate)")
     del table
     return {"shape": f"pong84_conv: n={PONG_PAIRS}, dim={dim}, table 2^23", "ms": ms,
-            "cold_ms": cold, "plain_ms": plain_ms, "bound_ms": bound, "max_abs_err": err,
-            "bytes_distinct": distinct, "bytes_read": read}
+            "cold_ms": cold, "plain_ms": plain_ms, "bound_ms": bound, "bytes_distinct": distinct,
+            "bytes_read": read, **held}
 
 
 def compare_pooled_card_cpu(torch, tt) -> list[dict]:
@@ -1190,12 +1236,8 @@ def time_host_reduction(torch, nk, table, bw: float, f64: float) -> dict:
     offs = rng.integers(0, TABLE_SIZE - HOST_DIM + 1, size=HOST_PAIRS, dtype=np.int64)
     offs_dev = torch.from_numpy(offs.astype(np.int32)).to(dev)
     w = torch.from_numpy(rng.uniform(-1, 1, HOST_PAIRS).astype(np.float32)).to(dev)
-    got = nk.weighted_noise_sum(table, offs_dev, w, HOST_DIM)
-    torch.cuda.synchronize()
-    want = nk.weighted_noise_sum_plain(table, offs_dev, w, HOST_DIM)
-    err = float((got - want).abs().max())
-    if not torch.allclose(got, want, rtol=1e-4, atol=1e-3):
-        fail(f"weighted_noise_sum host n={HOST_PAIRS} dim={HOST_DIM}: max |err| {err:g}")
+    held = hold_reduction(torch, nk, "host (m)", table, offs_dev, w, HOST_DIM)
+    err = held["max_abs_err"]
     nbytes = 4 * (union_floats(offs, HOST_DIM) + 2 * HOST_PAIRS + HOST_DIM)
     flops = 2 * HOST_PAIRS * HOST_DIM
     bound = max(nbytes / bw, flops / f64) * 1e3
@@ -1205,7 +1247,7 @@ def time_host_reduction(torch, nk, table, bw: float, f64: float) -> dict:
           f"atol 1e-3, rtol 1e-4); warm {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
           f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB distinct)")
     return {"shape": f"host (m): n={HOST_PAIRS}, dim={HOST_DIM}, table 2^25 (NumPy)", "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound, "max_abs_err": err}
+            "plain_ms": plain_ms, "bound_ms": bound, **held}
 
 
 def time_fold_reduction(torch, nk, table, bw: float, f64: float) -> dict:
@@ -1226,12 +1268,8 @@ def time_fold_reduction(torch, nk, table, bw: float, f64: float) -> dict:
     n = offs.shape[0]
     offs_dev = torch.from_numpy(offs.astype(np.int32)).to(dev)
     w = torch.from_numpy(np.random.default_rng(2).uniform(-1, 1, n).astype(np.float32)).to(dev)
-    got = nk.weighted_noise_sum(table, offs_dev, w, HOST_DIM)
-    torch.cuda.synchronize()
-    want = nk.weighted_noise_sum_plain(table, offs_dev, w, HOST_DIM)
-    err = float((got - want).abs().max())
-    if not torch.allclose(got, want, rtol=1e-4, atol=1e-3):
-        fail(f"weighted_noise_sum fold n={n} dim={HOST_DIM}: max |err| {err:g}")
+    held = hold_reduction(torch, nk, "fold (z)", table, offs_dev, w, HOST_DIM)
+    err = held["max_abs_err"]
     nbytes = 4 * (union_floats(offs, HOST_DIM) + 2 * n + HOST_DIM)
     flops = 2 * n * HOST_DIM
     bound = max(nbytes / bw, flops / f64) * 1e3
@@ -1242,7 +1280,7 @@ def time_fold_reduction(torch, nk, table, bw: float, f64: float) -> dict:
           f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB distinct)")
     return {"shape": f"fold (z): n={n} member rows from 2 dispatches ({FOLD_STALE} stale), "
                      f"dim={HOST_DIM}, table 2^25 (NumPy)",
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "max_abs_err": err}
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, **held}
 
 
 def compare_host_card_cpu(torch, tt) -> list[dict]:
@@ -1302,7 +1340,7 @@ def run_host_path(torch, tt, nk, card: str) -> dict:
     generation with one worker on each device at the full horizon and
     population ``HOST_ONE_WORKER_POP`` (cut from 1000); the
     launches an env step over 4 members' rollouts; the device's busy share
-    of one profiled generation at population 16 with ``HOST_WORKERS``
+    of one profiled generation at population ``HOST_PROFILE_POP`` with ``HOST_WORKERS``
     threads, against the generation before it, unprofiled (a whole
     generation's events would take the profiler minutes); and, at horizon
     ``HOST_SIDE_HORIZON``, ``HOST_WORKERS`` threads against one worker on
@@ -1370,12 +1408,13 @@ def run_host_path(torch, tt, nk, card: str) -> dict:
         single[device or "cuda"] = one
         report(f"one worker, policies on {device or 'cuda'}, 1 generation at population "
                f"{HOST_ONE_WORKER_POP} (cut from {HOST_POPULATION})", one)
-    small = host_es(tt, population_size=16)
+    small = host_es(tt, population_size=HOST_PROFILE_POP)
     small.train(1, n_proc=HOST_WORKERS, verbose=False)
     wall = small.history[-1]["wall_time_s"]
     busy, launched = profile_generation(torch, small, top=8, n_proc=HOST_WORKERS)
     small.engine.close()
-    print(f"  {per_step:.2f} kernel launches an env step (4 members' rollouts); population 16, "
+    print(f"  {per_step:.2f} kernel launches an env step (4 members' rollouts); population "
+          f"{HOST_PROFILE_POP}, "
           f"{HOST_WORKERS} threads, profiled: {launched} launches, busy {busy:.4f} s against "
           f"{wall:.3f} s for the unprofiled generation before it ({busy / wall:.3f})")
 
@@ -1414,12 +1453,8 @@ def time_recurrent_reduction(torch, nk, table, bw: float, f64: float, flush) -> 
     offs = sample_pair_offsets(gen, REC_PAIRS, TABLE_SIZE, dim)
     w = (torch.rand(REC_PAIRS, generator=gen) * 2 - 1).to(dev)
     offs_dev = offs.to(dev)
-    got = nk.weighted_noise_sum(table, offs_dev, w, dim)
-    torch.cuda.synchronize()
-    want = nk.weighted_noise_sum_plain(table, offs_dev, w, dim)
-    err = float((got - want).abs().max())
-    if not torch.allclose(got, want, rtol=1e-4, atol=1e-3):
-        fail(f"weighted_noise_sum recurrent n={REC_PAIRS} dim={dim}: max |err| {err:g}")
+    held = hold_reduction(torch, nk, "recurrent (n), (r)", table, offs_dev, w, dim)
+    err = held["max_abs_err"]
     nbytes = 4 * (union_floats(offs, dim) + 2 * REC_PAIRS + dim)
     flops = 2 * REC_PAIRS * dim
     bound = max(nbytes / bw, flops / f64) * 1e3
@@ -1434,7 +1469,7 @@ def time_recurrent_reduction(torch, nk, table, bw: float, f64: float, flush) -> 
           f"{cold:.4f} ms ({bound / cold:.0%}), plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
           f"({nbytes / 1e6:.1f} MB distinct)")
     return {"shape": f"recurrent (n), (r): n={REC_PAIRS}, dim={dim}, table 2^25", "ms": ms,
-            "cold_ms": cold, "plain_ms": plain_ms, "bound_ms": bound, "max_abs_err": err,
+            "cold_ms": cold, "plain_ms": plain_ms, "bound_ms": bound, **held,
             "bound_by": "bytes" if nbytes / bw >= flops / f64 else "operations",
             "library_ms": None}
 
@@ -1852,7 +1887,7 @@ def rel_max(a, b) -> float:
     return float((a.cpu() - b.cpu()).abs().max() / b.cpu().abs().max())
 
 
-def compare_fold_card_cpu(torch, tt, nk, n_logs: int = 2) -> list[dict]:
+def compare_fold_card_cpu(torch, tt, nk, n_logs: int = FOLD_LOGS) -> list[dict]:
     """Phase 4, the fold: ``n_logs`` live fold runs of the (m) policy at
     population 32, horizon 60, 4 thread workers on the CPU with a straggler
     folded late, each run's event log replayed on the card and on the CPU:
@@ -2016,7 +2051,7 @@ def run_fold_path(torch, tt, nk, card: str) -> dict:
     if not torch.equal(again.state.params_flat, live.state.params_flat):
         fail(f"path {label}: the profiled replay differs from the live run")
     fold_ms = sum(ns for _, ns in events) / 1e6 / ASYNC_TIMED if events else None
-    red_ms = (sum(ns for n, ns in events if "sum_partials" in n) / 1e6 / ASYNC_TIMED
+    red_ms = (sum(ns for n, ns in events if "weighted_sum_windows" in n) / 1e6 / ASYNC_TIMED
               if events else None)
     shown = ("not measured (no device events)" if fold_ms is None else
              f"{fold_ms:.4f} ms an update (the reduction {red_ms:.4f} ms)")
@@ -2611,7 +2646,7 @@ def run_attribution(torch, card: str, name: str) -> dict:
         with open(tpath) as f:
             kernels = [e["name"] for e in json.load(f)["traceEvents"]
                        if e.get("cat") == "kernel"]
-        counted = {"weighted_noise_sum": sum("weighted_sum_partials" in k for k in kernels),
+        counted = {"weighted_noise_sum": sum("weighted_sum_windows" in k for k in kernels),
                    "population_noise_matvec": sum("noise_matvec" in k for k in kernels)}
         want1 = {"weighted_noise_sum": 1, "population_noise_matvec": 3 * HORIZON}
         if counted != want1 or facts["traced_launches"] != want1:
@@ -5248,23 +5283,21 @@ def main() -> None:
     dim = spec.dim
     n_pairs = POPULATION // 2
 
-    # weighted_noise_sum: one launch a generation over the pair rows.
-    # Tolerance: float64 sums over up to 2048 rows in another order than the
-    # plain gather + matvec, each rounded to float32 once; |weights| <= 1, so
-    # |error| well under 1e-3 (in practice 0: both round to the same float).
-    wns = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0}
+    # weighted_noise_sum: one launch a generation over the pair rows, held
+    # against the plain version by hold_reduction (its tolerance there)
+    wns = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
+           "not_bit_equal": 0, "edge_cases": []}
     for n in (n_pairs, 0, 1):
         offs = sample_pair_offsets(gen, n, TABLE_SIZE, dim).to(dev)
         w = (torch.rand(n, generator=gen) * 2 - 1).to(dev)
-        got = nk.weighted_noise_sum(table, offs, w, dim)
-        torch.cuda.synchronize()
-        want = nk.weighted_noise_sum_plain(table, offs, w, dim)
-        err = float((got - want).abs().max()) if dim else 0.0
-        if not torch.allclose(got, want, rtol=1e-4, atol=1e-3):
-            fail(f"weighted_noise_sum n={n} dim={dim}: max |err| {err:g}")
-        print(f"weighted_noise_sum n={n} dim={dim}: max |err| {err:.3g} (tol atol 1e-3, rtol 1e-4)")
+        held = hold_reduction(torch, nk, "cell" if n == n_pairs else f"n = {n}", table, offs,
+                              w, dim)
+        err = held["max_abs_err"]
+        wns["not_bit_equal"] += held["not_bit_equal"]
         if n != n_pairs:
+            wns["edge_cases"].append({"case": f"n = {n}", "n": n, "dim": dim, **held})
             continue
+        got = nk.weighted_noise_sum(table, offs, w, dim)
         nbytes = 4 * (union_floats(offs.cpu(), dim) + 2 * n + dim)
         flops = 2 * n * dim
         bound = max(nbytes / bw, flops / f64) * 1e3
@@ -5273,6 +5306,7 @@ def main() -> None:
         print(f"  time {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
               f"({nbytes / 1e6:.1f} MB distinct)")
         wns.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, max_abs_err=err,
+                   mapping=held["mapping"],
                    bound_by="bytes" if nbytes / bw >= flops / f64 else "operations")
         # the float64 output (a rank's partial before the ranks' sum, F22):
         # against the plain version's float64 product (float64 sums of
@@ -5289,6 +5323,35 @@ def main() -> None:
         print(f"  float64 output: max |err| {err64:.3g} against the plain version (tol 1e-9), "
               f"rounded bit-equal to the float32 output; time {ms64:.4f} ms on {card}")
         wns.update(f64_ms=ms64, f64_max_abs_err=err64)
+    # the kernel's edge cases: n = 65 (no multiple of a warp's rows), a
+    # mirrored pair's two member rows on one offset (equal starts, as the
+    # fold's) and starts that need the clamp (negative, counted from the end
+    # or past it, past size - dim), both at (i)'s dim, where the rows are
+    # sorted (ties by row index); dim equal to the table's size (every start
+    # clamps to 0), and n past the rows the kernel sorts, with the rows
+    # overlapping as much as (i)'s (by index then)
+    egen = torch.Generator().manual_seed(19)  # gen's draws stay those of the shapes
+    edge_table = make_noise_table(1 << 20, seed=3, device=dev).data
+    wide = 166_673  # (i)'s dim
+    edges = torch.tensor([-7, -wide, -TABLE_SIZE - 100, 0, 3, TABLE_SIZE - wide,
+                          TABLE_SIZE - wide + 5, TABLE_SIZE + 99])
+    for case, tab, offs, d in (
+            ("n = 65", table, sample_pair_offsets(egen, 65, TABLE_SIZE, dim), dim),
+            ("equal starts", table, sample_pair_offsets(
+                egen, n_pairs // 2, TABLE_SIZE, wide).repeat_interleave(2), wide),
+            ("clamped starts", table, edges[torch.randint(0, len(edges), (n_pairs,),
+                                                           generator=egen)].to(torch.int32),
+             wide),
+            ("dim = table size", edge_table, sample_pair_offsets(egen, 8, 1 << 20, 1), 1 << 20),
+            ("n past the sort limit", table, sample_pair_offsets(egen, 8194, TABLE_SIZE, 16_400),
+             16_400)):
+        n = int(offs.shape[0])
+        w = (torch.rand(n, generator=egen) * 2 - 1).to(dev)
+        held = hold_reduction(torch, nk, case, tab, offs.to(dev), w, d)
+        wns["not_bit_equal"] += held["not_bit_equal"]
+        wns["max_abs_err"] = max(wns["max_abs_err"], held["max_abs_err"])
+        wns["edge_cases"].append({"case": case, "n": n, "dim": d, **held})
+    del edge_table
 
     # population_noise_matvec: three launches an env step, one per layer.
     # Tolerance: float32 dot products of d <= 256 terms in another order.
@@ -5394,12 +5457,8 @@ def main() -> None:
                                      env_offs[lname]["kernel"], d, h))
         w = (torch.rand(pop // 2, generator=gen) * 2 - 1).to(dev)
         offs = env_pairs.to(dev)
-        got = nk.weighted_noise_sum(table, offs, w, env_dim)
-        torch.cuda.synchronize()
-        want = nk.weighted_noise_sum_plain(table, offs, w, env_dim)
-        err = float((got - want).abs().max())
-        if not torch.allclose(got, want, rtol=1e-4, atol=1e-3):
-            fail(f"weighted_noise_sum {plabel} n={pop // 2} dim={env_dim}: max |err| {err:g}")
+        held = hold_reduction(torch, nk, plabel, table, offs, w, env_dim)
+        err = held["max_abs_err"]
         ms = time_ms(torch, lambda: nk.weighted_noise_sum(table, offs, w, env_dim))
         plain_ms = time_ms(torch, lambda: nk.weighted_noise_sum_plain(table, offs, w, env_dim))
         nbytes = 4 * (union_floats(env_pairs, env_dim) + 2 * (pop // 2) + env_dim)
@@ -5408,22 +5467,21 @@ def main() -> None:
               f"(tol atol 1e-3, rtol 1e-4); time {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
               f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB distinct)")
         wns["other_shapes"].append({"shape": f"{plabel}: n={pop // 2}, dim={env_dim}", "ms": ms,
-                                    "plain_ms": plain_ms, "bound_ms": bound,
-                                    "max_abs_err": err})
+                                    "plain_ms": plain_ms, "bound_ms": bound, **held})
         wns["max_abs_err"] = max(wns["max_abs_err"], err)
+        wns["not_bit_equal"] += held["not_bit_equal"]
     pnm["max_abs_err"] = max(errs + [e["max_abs_err"] for e in extra])
-    pong_wns = time_pong_reduction(torch, nk, bw, f64, flush)
-    wns["other_shapes"].append(pong_wns)
-    wns["max_abs_err"] = max(wns["max_abs_err"], pong_wns["max_abs_err"])
     htable = host_table(torch)
-    for host_wns in (time_host_reduction(torch, nk, htable, bw, f64),
-                     time_fold_reduction(torch, nk, htable, bw, f64)):
-        wns["other_shapes"].append(host_wns)
-        wns["max_abs_err"] = max(wns["max_abs_err"], host_wns["max_abs_err"])
+    for shape_wns in (time_pong_reduction(torch, nk, bw, f64, flush),
+                      time_host_reduction(torch, nk, htable, bw, f64),
+                      time_fold_reduction(torch, nk, htable, bw, f64),
+                      time_recurrent_reduction(torch, nk, table, bw, f64, flush)):
+        wns["other_shapes"].append(shape_wns)
+        wns["max_abs_err"] = max(wns["max_abs_err"], shape_wns["max_abs_err"])
+        wns["not_bit_equal"] += shape_wns["not_bit_equal"]
     del htable
-    rec_wns = time_recurrent_reduction(torch, nk, table, bw, f64, flush)
-    wns["other_shapes"].append(rec_wns)
-    wns["max_abs_err"] = max(wns["max_abs_err"], rec_wns["max_abs_err"])
+    print(f"weighted_noise_sum: {wns['not_bit_equal']} float32 entries not bit-equal to the plain "
+          f"version over every shape and edge case of this phase")
     del flush
     del table
 
@@ -5604,7 +5662,9 @@ def main() -> None:
          "launches_sharded_conv": sum(v["weighted_noise_sum"]
                                       for v in sharded_conv["launches"].values()),
          "launches_conv_replicated": sharded_conv["replicated_launches"]["weighted_noise_sum"],
-         "f64_output_ms": wns["f64_ms"], "f64_output_max_abs_err": wns["f64_max_abs_err"]},
+         "f64_output_ms": wns["f64_ms"], "f64_output_max_abs_err": wns["f64_max_abs_err"],
+         "mapping": wns["mapping"], "not_bit_equal": wns["not_bit_equal"],
+         "edge_cases": wns["edge_cases"]},
         {"name": "population_noise_matvec", "route": "cuda",
          "source": "estorch_tpu_torch/ops/csrc/noise_kernels.cu",
          "replaces": "estorch_tpu/ops/pallas_noise.py:201",

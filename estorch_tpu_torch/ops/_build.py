@@ -36,8 +36,10 @@ NVCC_TIMEOUT_S = 600
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 SIGNATURES = {
-    "estorch_weighted_sum_rows_per_chunk": [],
-    # table, table_size, offsets, weights, n, dim, partials, out, stream
+    "estorch_weighted_sum_max_rows": [],
+    # n, dim, table_size, mapping (4,) int32 out
+    "estorch_weighted_sum_mapping": [_I, _I, _I64, _P],
+    # table, table_size, offsets, weights, n, dim, scratch (n, 2) int64, out, stream
     "estorch_weighted_noise_sum": [_P, _I64, _P, _P, _I, _I, _P, _P, _P],
     # the same, out (dim,) float64
     "estorch_weighted_noise_sum_f64": [_P, _I64, _P, _P, _I, _I, _P, _P, _P],

@@ -18,6 +18,12 @@ slices start at the same place, as every mirrored pair's do, it reads the
 pair's noise once for both.  It finds that out from the offsets; the
 contract above, the clamp of out-of-range starts and the plain version are
 the same as for any other offsets.
+
+The reduction kernel sums in float64 in an order of its own (rows split over
+thread-block clusters, sorted by their clamped start where that saves
+reads), so its float32 result is the plain version's bit for bit but at a
+rounding tie; :func:`weighted_noise_sum_mapping` reads back how it splits a
+shape.
 """
 
 from __future__ import annotations
@@ -108,22 +114,40 @@ def weighted_noise_sum(table_data: torch.Tensor, offsets: torch.Tensor,
     from ._build import load_library
 
     lib = load_library()
-    rows_per_chunk = lib.estorch_weighted_sum_rows_per_chunk()
-    n_chunks = -(-n // rows_per_chunk)
-    if n_chunks > 65535:
-        raise ValueError(f"n = {n} rows exceeds the kernel's grid ({65535 * rows_per_chunk})")
-    partials = torch.empty((n_chunks, dim), dtype=torch.float64, device=dev)
+    max_rows = lib.estorch_weighted_sum_max_rows()
+    if n > max_rows:
+        raise ValueError(f"n = {n} rows exceeds the kernel's limit ({max_rows})")
+    # the kernel's scratch: the rows in its visiting order (16 bytes each) where it sorts
+    scratch = torch.empty((n, 2), dtype=torch.int64, device=dev)
     out = torch.empty((dim,), dtype=out_dtype, device=dev)
     launch = (lib.estorch_weighted_noise_sum_f64 if out_dtype == torch.float64
               else lib.estorch_weighted_noise_sum)
     with torch.cuda.device(dev):
         err = launch(
             table_data.data_ptr(), size, offsets.data_ptr(), weights.data_ptr(),
-            n, dim, partials.data_ptr(), out.data_ptr(),
+            n, dim, scratch.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on_error(err, "weighted_noise_sum")
     launch_counts["weighted_noise_sum"] += 1
     return out
+
+
+def weighted_noise_sum_mapping(n: int, dim: int, table_size: int) -> dict:
+    """How the CUDA kernel splits n rows of ``dim`` floats from a table of
+    ``table_size``: ``cols`` columns a lane, ``row_groups`` R a block (8 / R
+    warps side by side over a row, a window of 32·cols·8/R columns),
+    ``cluster`` G blocks a window (a thread-block cluster over the rows),
+    and ``sorted``, whether it visits the rows by clamped start (else by
+    index).  The kernel's launcher picks it; this reads it back, for
+    reports and tests.  Needs the kernels' library (nvcc)."""
+    import ctypes
+
+    from ._build import load_library
+
+    m = (ctypes.c_int * 4)()
+    if load_library().estorch_weighted_sum_mapping(n, dim, table_size, ctypes.addressof(m)):
+        raise ValueError(f"no mapping for n={n}, dim={dim}, table_size={table_size}")
+    return {"cols": m[0], "row_groups": m[3], "cluster": m[1], "sorted": bool(m[2])}
 
 
 # ---------------------------------------------------------------------------

@@ -81,6 +81,92 @@ def test_weighted_noise_sum_empty_is_zero(table, cuda):
     assert torch.equal(got, torch.zeros(16, device=cuda))
 
 
+# the update kernel's mapping thresholds, a shape on each side of each:
+# (table size, n, dim); the rows' order, split and sums are held to the
+# CPU emulation in tests/test_torch_reduction_order.py
+REDUCTION_EDGES = {
+    "rows meet a float under 4 times: by index": (1 << 24, 2048, 32_767),
+    "4 times: sorted": (1 << 24, 2048, 32_768),
+    "a table L2 holds: by index": ((50 << 20) // 4, 2048, 25_601),
+    "a table past L2: sorted": ((50 << 20) // 4 + 1, 2048, 25_601),
+    "at the sort limit": (1 << 24, 8192, 8192),
+    "past the sort limit": (1 << 24, 8193, 8192),
+    "dim under a warp": (1 << 20, 100, 31),
+    "dim one warp": (1 << 20, 100, 32),
+    "C 2": (1 << 20, 100, 127),
+    "C 4": (1 << 20, 100, 128),
+    "264 windows: G 1": (1 << 20, 600, 33_665),
+    "263 windows: G 2": (1 << 20, 600, 33_664),
+    "528 windows, one round: R 8": (1 << 18, 600, 67_584),
+    "529 windows: R 4": (1 << 18, 600, 67_585),
+    "no R in one round, a batch a row group: R 8": (1 << 20, 256, 541_000),
+    "under a batch: R 4": (1 << 20, 255, 541_000),
+}
+
+
+def _reduction_case(kind):
+    """(table, offsets, weights, dim) on the CPU: test_torch_reduction_order's
+    cases, or an edge above, offsets in range or (for its clamped kinds) at
+    and past the table's edges, equal starts in pairs."""
+    from test_torch_reduction_order import CASES, make_case
+
+    if kind in CASES:
+        table, offs, w, dim = make_case(kind, 0)
+        return torch.from_numpy(table), torch.from_numpy(offs), torch.from_numpy(w), dim
+    size, n, dim = REDUCTION_EDGES[kind]
+    rng = np.random.default_rng(n + dim)
+    table = torch.from_numpy(rng.standard_normal(size).astype(np.float32))
+    offs = torch.from_numpy(rng.integers(0, size - dim + 1, n).astype(np.int32))
+    w = torch.from_numpy(rng.uniform(-1, 1, n).astype(np.float32))
+    return table, offs, w, dim
+
+
+def _reduction_kinds():
+    from test_torch_reduction_order import CASES
+
+    return list(CASES) + list(REDUCTION_EDGES)
+
+
+@pytest.mark.parametrize("kind", _reduction_kinds())
+def test_weighted_noise_sum_takes_the_emulated_order(cuda, kind):
+    """The kernel's mapping is the CPU model's, its float64 sum the CPU
+    emulation of its order bit for bit, its float32 output the plain
+    version's bit for bit but at a rounding tie (and its float64 output
+    rounded), the float64 output within 1e-9 of the plain version's, and
+    two launches give the same bits."""
+    from test_torch_reduction_order import emulate_kernel_sum, kernel_mapping
+
+    table, offs, w, dim = _reduction_case(kind)
+    n = offs.shape[0]
+    m = nk.weighted_noise_sum_mapping(n, dim, table.numel())
+    assert (m["cols"], m["row_groups"], m["cluster"], m["sorted"]) == kernel_mapping(
+        n, dim, table.numel())
+    t, o, ww = table.to(cuda), offs.to(cuda), w.to(cuda)
+    got64 = nk.weighted_noise_sum(t, o, ww, dim, out_dtype=torch.float64)
+    got = nk.weighted_noise_sum(t, o, ww, dim)
+    again = nk.weighted_noise_sum(t, o, ww, dim)
+    torch.cuda.synchronize()
+    want64 = emulate_kernel_sum(table.numpy(), offs.numpy(), w.numpy(), dim)
+    assert torch.equal(got64.cpu().view(torch.int64), want64.view(torch.int64))
+    plain = nk.weighted_noise_sum_plain(table, offs, w, dim)
+    plain64 = nk.weighted_noise_sum_plain(table, offs, w, dim, out_dtype=torch.float64)
+    # float32 bit for bit but where the float64 sums straddle a float32
+    # rounding tie: there the two float32 values are neighbours, and their
+    # midpoint lies within the float64 sums' error bound, n * 2^-52 *
+    # sum_k |w_k e_k|, of the plain float64 sum
+    diff = got.cpu().view(torch.int32) != plain.view(torch.int32)
+    if bool(diff.any()):
+        g, p = got.cpu()[diff], plain[diff]
+        scale = nk.weighted_noise_sum_plain(table.abs(), offs, w.abs(), dim,
+                                            out_dtype=torch.float64)[diff]
+        assert bool((torch.nextafter(p, g) == g).all())
+        mid = (g.double() + p.double()) / 2
+        assert bool(((plain64[diff] - mid).abs() <= n * 2.0 ** -52 * scale).all())
+    assert torch.equal(got64.float(), got) and torch.equal(got.view(torch.int32),
+                                                            again.view(torch.int32))
+    torch.testing.assert_close(got64.cpu(), plain64, rtol=0, atol=1e-9)
+
+
 def _matvec_offsets(rng, kind, n, size, length):
     """int32 member offsets: each its own slice ("random"), mirrored pairs
     sharing one ("mirrored"), or starts that need the clamp ("clamp":
@@ -918,7 +1004,7 @@ def test_trace_names_both_kernels(cuda, tmp_path):
     (path,) = list((tmp_path / "tr").glob("*.pt.trace.json"))
     kernels = [e["name"] for e in json.loads(path.read_text())["traceEvents"]
                if e.get("cat") == "kernel"]
-    assert sum("weighted_sum_partials" in k for k in kernels) == 1
+    assert sum("weighted_sum_windows" in k for k in kernels) == 1
     assert sum("noise_matvec" in k for k in kernels) == nk.launch_counts[
         "population_noise_matvec"] > 0
     assert nk.launch_counts["weighted_noise_sum"] == 1
