@@ -20,6 +20,10 @@ A recurrent policy's hidden carry is threaded through the loop when the
 rollout is given the episode-start carry: ``batched_apply(obs, carry) ->
 (out, carry')``, and the carry freezes after termination with the state and
 obs, as ``make_rollout(carry_init=...)`` threads it in the JAX package.
+
+Under a profiler each env step is two ranges (``obs/trace.py``):
+``estorch.forward``, the policy call, and ``estorch.step``, the action,
+the env's step and the masks and sums after it.
 """
 
 from __future__ import annotations
@@ -28,6 +32,8 @@ import inspect
 from typing import Any, Callable, NamedTuple
 
 import torch
+
+from ..obs.trace import annotate
 
 
 def carry_init_takes_params(carry_init: Callable[..., Any]) -> bool:
@@ -234,37 +240,42 @@ def make_batched_rollout(env: Any, horizon: int, with_obs_moments: bool = False,
             osumsq = torch.zeros(obs0.shape, dtype=torch.float32, device=dev)
         if with_env_metrics:
             msum = torch.zeros((n, len(env.metric_names)), dtype=torch.float32, device=dev)
+        # the profiler's ranges of each env step, made once a rollout
+        forward_range, step_range = annotate("estorch.forward"), annotate("estorch.step")
         for _ in range(horizon):
-            alive = torch.logical_not(done)
-            alive_f = alive.to(torch.float32)
-            if with_obs_moments:
-                # the obs this step acts on, before the step: the reset frame
-                # counts, a frozen post-termination frame does not
-                of = obs.to(torch.float32)
-                masked = alive_f[:, None] * of
-                count += alive_f
-                osum += masked
-                osumsq += masked * of
-            if carry is None:
-                out = batched_apply(obs)
-            else:
-                out, new_carry = batched_apply(obs, carry)
-            action = select_action(out, discrete)
-            nstates, nobs, reward, ndone = env.step(states, action)
-            if with_env_metrics:
-                # metrics of the state this alive step reached; frozen
-                # (post-termination) steps add nothing
-                msum += alive_f[:, None] * env.step_metrics(nstates)
-            # the accumulators are the rollout's own: add in place, no new
-            # (n,) tensor each step
-            total += reward * alive_f
-            steps += alive.to(torch.int32)
-            keep = alive[:, None]
-            states = torch.where(keep, nstates, states)
-            obs = torch.where(alive.view((n,) + (1,) * (obs.ndim - 1)), nobs, obs)
-            if carry is not None:
-                carry = map_carry(lambda new, old: torch.where(keep, new, old), new_carry, carry)
-            done = done | ndone
+            with forward_range:
+                if carry is None:
+                    out = batched_apply(obs)
+                else:
+                    out, new_carry = batched_apply(obs, carry)
+            with step_range:
+                alive = torch.logical_not(done)
+                alive_f = alive.to(torch.float32)
+                if with_obs_moments:
+                    # the obs this step acts on, before the step: the reset
+                    # frame counts, a frozen post-termination frame does not
+                    of = obs.to(torch.float32)
+                    masked = alive_f[:, None] * of
+                    count += alive_f
+                    osum += masked
+                    osumsq += masked * of
+                action = select_action(out, discrete)
+                nstates, nobs, reward, ndone = env.step(states, action)
+                if with_env_metrics:
+                    # metrics of the state this alive step reached; frozen
+                    # (post-termination) steps add nothing
+                    msum += alive_f[:, None] * env.step_metrics(nstates)
+                # the accumulators are the rollout's own: add in place, no
+                # new (n,) tensor each step
+                total += reward * alive_f
+                steps += alive.to(torch.int32)
+                keep = alive[:, None]
+                states = torch.where(keep, nstates, states)
+                obs = torch.where(alive.view((n,) + (1,) * (obs.ndim - 1)), nobs, obs)
+                if carry is not None:
+                    carry = map_carry(lambda new, old: torch.where(keep, new, old),
+                                      new_carry, carry)
+                done = done | ndone
         bc = env.behavior(states, obs).to(torch.float32)
         res = RolloutResult(total_reward=total, bc=bc, steps=steps)
         if with_obs_moments:

@@ -18,10 +18,12 @@ wait would time that too.
 Span stacks are per thread and the accumulator is shared under a lock: the
 overlap scheduler's thread emits the engine's spans while the main thread
 emits ``host_sync`` and ``record``, and one shared stack would interleave
-their names.  A disabled hub's ``phase()`` returns a cached no-op context
-manager.  ``ESTORCH_OBS=0`` disables the default-on hub and
-``ESTORCH_OBS_HEARTBEAT=<path>`` turns the heartbeat file on, as in the
-JAX package.
+their names.  While a torch profiler collects, every span also opens the
+range ``estorch.<name>`` on the profiler's timeline (``obs/trace.py``
+``annotate``), whether the hub is on or off; a disabled hub's ``phase()``
+otherwise returns the cached no-op.  ``ESTORCH_OBS=0`` disables the
+default-on hub and ``ESTORCH_OBS_HEARTBEAT=<path>`` turns the heartbeat
+file on, as in the JAX package.
 
 The hub also carries the performance-attribution facts of
 ``obs/profile/``: the run's analytic cost model (``set_cost_model``; ES
@@ -43,10 +45,9 @@ from .counters import Counters, NullCounters
 from .hist import Histograms, NullHistograms
 from .profile.ledger import CompileLedger, ledger_counters
 from .recorder import HEARTBEAT_ENV, FlightRecorder, Heartbeat
+from .trace import annotate
 
 OBS_DISABLE_ENV = "ESTORCH_OBS"  # "0" disables the default-on hub
-
-_NULL_CM = contextlib.nullcontext()
 
 
 class Telemetry:
@@ -84,9 +85,11 @@ class Telemetry:
     # --------------------------------------------------------------- spans
 
     def phase(self, name: str, fence=None):
-        """Time one phase; ``fence()`` (when given) runs before the clock stops."""
+        """Time one phase; ``fence()`` (when given) runs before the clock
+        stops.  Under a profiler the phase is also the range
+        ``estorch.<name>``."""
         if not self.enabled:
-            return _NULL_CM
+            return annotate("estorch." + name)
         return self._phase_cm(name, fence)
 
     @property
@@ -109,9 +112,10 @@ class Telemetry:
             self._beat(full)  # on entry: a wedge inside leaves this name
         t0 = time.perf_counter()
         try:
-            yield
-            if fence is not None:
-                fence()
+            with annotate("estorch." + name):
+                yield
+                if fence is not None:
+                    fence()
         finally:
             dt = time.perf_counter() - t0
             stack.pop()

@@ -12,8 +12,24 @@ opening up:
 - ``timed_generations(es, n)``: per-generation wall time after a warm-up,
   with the run's ``compile_time_s`` (the native builds at first use,
   ``ops/_build.py``);
-- ``annotate(name)``: ``torch.profiler.record_function``, so host-side
-  phases show up inside the trace.
+- ``annotate(name)``: a named range on the profiler's CPU timeline while
+  a profiler collects, so host-side phases show up inside the trace; off
+  it, one flag read and a shared no-op.
+
+The port's own ranges are ``estorch.<phase>``, flat: the engine's
+``sample``, ``eval``, ``rank`` and ``update`` (``parallel/engine.py``
+``ESEngine.generation_step``), the rollout's ``forward`` and ``step`` each
+env step (``envs/rollout.py``), the kernel launches ``noise_matvec`` and
+``noise_sum`` (``ops/noise_kernels.py``), and every span of the hub
+(``obs/spans.py``: ``dispatch``, ``device``, ``host_sync``, ``record`` on
+the device backend), whether the hub is on or off.
+
+A range is an ordinary (not a user-scope) record function: it puts no
+event on the device's timeline, where a user annotation's copy would read
+as device work, and it sits on the op-correlation stack, so a kernel
+launched under no torch op (through ``ctypes``) is linked to the innermost
+range open at its launch; the kernel wrappers open theirs around the
+launch alone.
 """
 
 from __future__ import annotations
@@ -21,6 +37,9 @@ from __future__ import annotations
 import contextlib
 import os
 import time
+
+NULL_RANGE = contextlib.nullcontext()  # what annotate() returns off-trace
+_profiler = None  # torch.autograd.profiler, bound at the first flag read
 
 
 @contextlib.contextmanager
@@ -42,11 +61,26 @@ def trace(logdir: str):
         os.path.join(logdir, f"{int(time.time() * 1e3)}.{os.getpid()}.pt.trace.json"))
 
 
-def annotate(name: str):
-    """A host-phase range visible in the trace (a no-op off-trace)."""
-    import torch
+def profiling() -> bool:
+    """Whether a torch profiler is collecting: one flag read."""
+    global _profiler
+    if _profiler is None:
+        import torch.autograd.profiler
 
-    return torch.profiler.record_function(name)
+        _profiler = torch.autograd.profiler
+    return _profiler._is_profiler_enabled
+
+
+def annotate(name: str):
+    """A range named ``name`` on the profiler's CPU timeline while a
+    profiler collects, else the shared no-op :data:`NULL_RANGE`.  A range
+    may be entered again once it has exited, so a loop can make its ranges
+    once."""
+    if not profiling():
+        return NULL_RANGE
+    from torch._C._profiler import _RecordFunctionFast
+
+    return _RecordFunctionFast(name)
 
 
 def timed_generations(es, n: int = 5, warmup: int = 1) -> dict:

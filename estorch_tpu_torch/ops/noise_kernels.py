@@ -11,7 +11,10 @@ Each wrapper launches its hand-written CUDA kernel (``csrc/noise_kernels.cu``)
 for tensors on a CUDA device, or raises; for tensors on the CPU it runs the
 plain version beside it.  There is no fallback from the kernel to the plain
 version.  ``launch_counts`` counts kernel launches, so a run can show that
-it went through the kernels.
+it went through the kernels.  Under a profiler each launch is the range
+``estorch.noise_sum`` / ``estorch.noise_matvec``, opened around the launch
+alone: a launch through ``ctypes`` is under no torch op, and is linked to
+the innermost range open at the time (``obs/trace.py``).
 
 The matvec kernel works on pairs of adjacent members (2p, 2p+1): where their
 slices start at the same place, as every mirrored pair's do, it reads the
@@ -32,6 +35,7 @@ from typing import Any, Callable
 
 import torch
 
+from ..obs.trace import annotate
 from .noise import gather_rows
 
 launch_counts = {"weighted_noise_sum": 0, "population_noise_matvec": 0}
@@ -122,7 +126,7 @@ def weighted_noise_sum(table_data: torch.Tensor, offsets: torch.Tensor,
     out = torch.empty((dim,), dtype=out_dtype, device=dev)
     launch = (lib.estorch_weighted_noise_sum_f64 if out_dtype == torch.float64
               else lib.estorch_weighted_noise_sum)
-    with torch.cuda.device(dev):
+    with annotate("estorch.noise_sum"), torch.cuda.device(dev):
         err = launch(
             table_data.data_ptr(), size, offsets.data_ptr(), weights.data_ptr(),
             n, dim, scratch.data_ptr(), out.data_ptr(),
@@ -191,7 +195,7 @@ def population_noise_matvec(table_data: torch.Tensor, offsets: torch.Tensor,
     from ._build import load_library
 
     lib = load_library()
-    with torch.cuda.device(dev):
+    with annotate("estorch.noise_matvec"), torch.cuda.device(dev):
         err = lib.estorch_population_noise_matvec(
             table_data.data_ptr(), size, offsets.data_ptr(), c.data_ptr(),
             x.data_ptr(), n, d, h, int(layer_offset), y.data_ptr(),

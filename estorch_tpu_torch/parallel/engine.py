@@ -71,6 +71,7 @@ from ..envs.rollout import (
 )
 from ..models.decomposed import mlp_decomposed_population_apply, mlp_lowrank_population_apply
 from ..obs.spans import NULL_TELEMETRY
+from ..obs.trace import annotate
 from ..ops.gradient import fold_mirrored_weights, rank_weighted_noise_sum
 from ..ops.lowrank import (
     LowRankSpec,
@@ -442,13 +443,19 @@ class ESEngine:
 
         ``sample`` replaces this generation's draws (tests hand in the JAX
         package's); ``ES.train`` never passes it.  Nothing here waits for
-        the device; the metrics are device tensors.
+        the device; the metrics are device tensors.  Under a profiler the
+        phases are the ranges ``estorch.sample`` / ``eval`` / ``rank`` /
+        ``update`` (``obs/trace.py``).
         """
-        sample = self.sample(state) if sample is None else sample
-        fitness, bc, steps = self._evaluate(state, sample)
-        weights, n_valid = centered_rank_safe(fitness)
-        grad = self._grad(state, weights, sample.offsets)
-        new_state, gnorm = self._finish_update(state, grad, sample.probe_states)
+        with annotate("estorch.sample"):
+            sample = self.sample(state) if sample is None else sample
+        with annotate("estorch.eval"):
+            fitness, bc, steps = self._evaluate(state, sample)
+        with annotate("estorch.rank"):
+            weights, n_valid = centered_rank_safe(fitness)
+        with annotate("estorch.update"):
+            grad = self._grad(state, weights, sample.offsets)
+            new_state, gnorm = self._finish_update(state, grad, sample.probe_states)
         metrics = {
             "fitness": fitness,
             "bc": bc,
