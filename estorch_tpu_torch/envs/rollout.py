@@ -90,16 +90,19 @@ def select_action(policy_out: torch.Tensor, discrete: bool) -> torch.Tensor:
 
 
 def member_params_apply(module, member_params: dict, obs: torch.Tensor, carry=None):
-    """The standard forward with each member's own materialized params.
+    """The standard forward with each member's own params.
 
     ``member_params`` leaves carry a leading member axis (kernels (n, m, h),
     biases and VBN scales (n, h): θ_i unraveled from an (n, dim) stack);
     ``obs`` is (n, e, obs_dim), e episodes a member.  Each layer is one
     batched product over the members, x_i @ W_i + b_i, through the module's
-    own forward.  A recurrent module also takes the carry (leaves (n, e,
-    size)) and returns ``(out, carry')``; it lays its weights out here, so
-    a caller that steps many times lays them out once itself
-    (``module.population_layout``).
+    own forward.  A dense kernel may instead be in pair form
+    (``models/policies.py`` ``pair_members``: n mirrored members' θ and
+    their pairs' ε, never summed), which the layer runs as one product over
+    all n members plus one batched product a pair.  A recurrent module also
+    takes the carry (leaves (n, e, size)) and returns ``(out, carry')``; it
+    lays its weights out here, so a caller that steps many times lays them
+    out once itself (``module.population_layout``).
     """
     if carry is not None:
         return module.population_apply(module.population_layout(member_params), obs, carry)

@@ -156,16 +156,74 @@ def flatten_nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 1, 3, 4, 2).reshape(x.shape[0], x.shape[1], -1)
 
 
-def layer_linear(layer: Layer, x: torch.Tensor, kernel: torch.Tensor,
+class PairKernel(NamedTuple):
+    """A dense kernel of k mirrored members in pair form: member 2j's is
+    W + σε_j and member 2j+1's W − σε_j, neither formed.  ``center`` (in,
+    out) is W, ``noise`` (k/2, in, out) each pair's ε_j, ``scale`` (k, 1,
+    1) each member's c_i = σ·s_i."""
+
+    center: torch.Tensor
+    noise: torch.Tensor
+    scale: torch.Tensor
+
+
+def pair_linear(x: torch.Tensor, kernel: PairKernel, bias: torch.Tensor) -> torch.Tensor:
+    """x_i @ (W + c_i ε_j) + b_i for the k members' rows ``x`` (k, B, in):
+    the shared product x @ W + b_i over all k·B rows, then the noise term
+    c_i (x_i @ ε_j) from one batched product a pair, whose two members' 2B
+    rows read ε_j once — the same contractions reordered
+    (``models/decomposed.py``).  ``bias`` (k, 1, out) is each member's own.
+
+    The noise term is taken transposed, ε_jᵀ @ x_jᵀ (k/2, out, 2B): for that
+    operand order cuBLAS picks kernels that read ε at 2.3–2.5 TB/s on an
+    H100, against 1.8–2.3 TB/s for x_j @ ε_j (PERF.md)."""
+    k, rows, m = x.shape
+    x = x.reshape(k * rows, m)
+    y = torch.addmm(bias.expand(k, rows, -1).reshape(k * rows, -1), x, kernel.center)
+    noise_t = torch.bmm(kernel.noise.transpose(1, 2),
+                        x.view(k // 2, 2 * rows, m).transpose(1, 2))
+    scale = kernel.scale.expand(k, rows, 1).reshape(k // 2, 2 * rows, 1)
+    y.view(k // 2, 2 * rows, -1).addcmul_(scale, noise_t.transpose(1, 2))
+    return y.view(k, rows, -1)
+
+
+def pair_members(layers: Sequence[Layer], center: dict, noise: dict,
+                 scale: torch.Tensor) -> dict:
+    """The param tree of k mirrored members (member 2j = θ + σε_j, 2j+1 =
+    θ − σε_j) from the center θ and the k/2 pairs' noise ε (leaves with a
+    leading pair axis), ``scale`` (k,) each member's c_i = σ·s_i.  A dense
+    layer takes one input row a member, so its kernel stays in pair form
+    (:class:`PairKernel`, run by :func:`pair_linear`); every other leaf (a
+    bias, a conv kernel read by hundreds of patch rows, VBN's scale and
+    bias) is formed per member, θ + c_i·ε_j, as the member form forms it."""
+    pairs = scale.shape[0] // 2
+
+    def member(theta: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
+        c = scale.view((pairs, 2) + (1,) * theta.ndim)
+        return (theta + c * eps[:, None]).reshape((2 * pairs,) + tuple(theta.shape))
+
+    dense = {layer.name for layer in layers if layer.kind == "dense"}
+    tree = {name: {leaf: member(v, noise[name][leaf]) for leaf, v in leaves.items()
+                   if not (name in dense and leaf == "kernel")}
+            for name, leaves in center.items()}
+    for name in dense:
+        tree[name]["kernel"] = PairKernel(center[name]["kernel"], noise[name]["kernel"],
+                                          scale[:, None, None])
+    return tree
+
+
+def layer_linear(layer: Layer, x: torch.Tensor, kernel: torch.Tensor | PairKernel,
                  bias: torch.Tensor | None) -> torch.Tensor:
     """The layer's kernel (and bias, unless None) on ``x``: a conv's kernel
-    laid out by :func:`conv_kernel_layout`, a dense kernel (in, out) or
-    member-batched (P, in, out); conv activations reaching a dense layer
-    are flattened first."""
+    laid out by :func:`conv_kernel_layout`, a dense kernel (in, out),
+    member-batched (P, in, out) or in pair form (:class:`PairKernel`); conv
+    activations reaching a dense layer are flattened first."""
     if layer.kind == "conv":
         return conv_layer(x, kernel, bias, layer.ksize, layer.stride)
     if x.ndim == 5:
         x = flatten_nhwc(x)
+    if isinstance(kernel, PairKernel):
+        return pair_linear(x, kernel, bias)
     return _matmul(x, kernel, bias)
 
 
@@ -615,7 +673,9 @@ class NatureCNN(_FlatParamsPolicy):
 
     The population forward (:meth:`population_apply`) runs each layer of
     every member as one ``torch.bmm`` (the convolutions over their patches),
-    over weights laid out once a generation by :meth:`population_layout`.
+    over weights laid out once a generation by :meth:`population_layout`;
+    ``fc`` and ``head`` in pair form (:func:`pair_members`) run as
+    :func:`pair_linear`.
     """
 
     def __init__(self, action_dim: int, use_vbn: bool = True, discrete: bool = True):
@@ -651,11 +711,14 @@ class NatureCNN(_FlatParamsPolicy):
         HWIO → (P, out, in·kh·kw), a patch's order in the forward;
         every leaf float32 (a bf16 member computes in float32 with its
         bf16-rounded weights, as flax's dtype promotion does with
-        NatureCNN's float32 input)."""
+        NatureCNN's float32 input).  A kernel in pair form
+        (:func:`pair_members`) stays so."""
         layout = _conv_layout(members, torch.float32, self.use_vbn)
         for name in ("fc", "head"):
-            layout[name] = (members[name]["kernel"].to(torch.float32),
-                            members[name]["bias"].to(torch.float32)[:, None, :])
+            kernel = members[name]["kernel"]
+            if not isinstance(kernel, PairKernel):
+                kernel = kernel.to(torch.float32)
+            layout[name] = (kernel, members[name]["bias"].to(torch.float32)[:, None, :])
         return layout
 
     def population_input(self, obs: torch.Tensor, members: int) -> torch.Tensor:

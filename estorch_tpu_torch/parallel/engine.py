@@ -9,8 +9,14 @@ generation
 2. rolls the population out in ``eval_chunk``-member chunks, one policy
    call per env step for a whole chunk, through one of four forwards:
 
-   - standard: each member's θ_i = θ + σ s_i ε_i materialized once per
-     chunk, then one batched product per layer per step;
+   - standard: a feedforward policy's dense layers in pair form when the
+     chunk holds whole mirrored pairs in float32 (``models/policies.py``
+     ``pair_members``): each pair's ε gathered once a chunk, then a layer
+     is x @ θ over the chunk plus one batched product a pair that reads
+     its ε once; the other leaves (conv kernels, VBN, biases) and every
+     other case (unmirrored, a chunk splitting a pair, bf16) take each
+     member's θ_i = θ + σ s_i ε_i, formed once a chunk, then one batched
+     product per layer per step;
    - ``decomposed``: x @ W once over the chunk plus a batched noise term
      (``models/decomposed.py``);
    - ``low_rank``: the same with factored noise A Bᵀ/√r (``ops/lowrank.py``);
@@ -58,6 +64,7 @@ and every launch is as before.
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import Any, Callable, NamedTuple
 
 import numpy as np
@@ -70,6 +77,7 @@ from ..envs.rollout import (
     member_params_apply,
 )
 from ..models.decomposed import mlp_decomposed_population_apply, mlp_lowrank_population_apply
+from ..models.policies import Layer, pair_members
 from ..obs.spans import NULL_TELEMETRY
 from ..obs.trace import annotate
 from ..ops.gradient import fold_mirrored_weights, rank_weighted_noise_sum
@@ -344,6 +352,17 @@ class ESEngine:
         self.rows_padded = self.rows_local * self.n_devices
         self.members_padded = self.members_local * self.n_devices
         self.eval_chunk = _choose_eval_chunk(config.eval_chunk, self.members_local)
+        # the standard forward's pair form (models/policies.py pair_members)
+        # runs a feedforward policy's dense layers when every chunk holds
+        # whole mirrored pairs in float32 (bf16 rounds θ + cε, not θ and ε
+        # apart); 0 → the member form
+        layers = getattr(module, "layers", None)
+        layers = tuple(layers()) if inspect.ismethod(layers) and not self.recurrent else ()
+        self._layers = layers if all(isinstance(layer, Layer) for layer in layers) else ()
+        whole_pairs = (config.mirrored and self.eval_chunk % 2 == 0
+                       and self._dtype == torch.float32)
+        dense = sum(layer.kind == "dense" for layer in self._layers)
+        self._pair_layers = dense if whole_pairs else 0
 
     # ------------------------------------------------------------- state
 
@@ -521,8 +540,8 @@ class ESEngine:
         offs, signs, states = self._members(sample)
         e = cfg.episodes_per_member
         # the center, unraveled (and cast) once a generation: its product
-        # is one matmul over each chunk (the standard forward forms θ_i
-        # instead)
+        # is one matmul over each chunk (the standard forward's member form
+        # forms θ_i instead)
         shared = self.spec.unravel(self._cast(state.params_flat))
         fits, bcs, steps = [], [], []
         for lo in range(0, self.members_local, self.eval_chunk):
@@ -530,6 +549,8 @@ class ESEngine:
             apply, carry0 = self._chunk_apply(state, shared, offs[lo:hi], signs[lo:hi])
             states0 = states[lo:hi].reshape((hi - lo) * e, -1)
             res = self._rollout(apply, states0, self.env.observe(states0), carry0)
+            # the chunk's weights are freed before the next chunk's are formed
+            del apply, carry0
             # fitness = mean return; BC = the first episode's; steps summed
             fits.append(res.total_reward.view(hi - lo, e).mean(dim=1))
             bcs.append(res.bc.view(hi - lo, e, -1)[:, 0])
@@ -612,8 +633,17 @@ class ESEngine:
             def fwd(x):
                 return mlp_decomposed_population_apply(self.module, shared, noise, cc, x)
         else:
-            theta = state.params_flat + c[:, None] * gather_rows(data, offs, self.spec.dim)
-            members = self.spec.unravel(self._cast(theta))
+            if self._pair_layers:
+                # each pair's noise gathered once; dense kernels stay in pair
+                # form, every other leaf is formed per member
+                noise = self.spec.unravel(gather_rows(data, offs[0::2], self.spec.dim))
+                members = pair_members(self._layers, shared, noise, c)
+            else:
+                theta = state.params_flat + c[:, None] * gather_rows(data, offs, self.spec.dim)
+                members = self.spec.unravel(self._cast(theta))
+            counters = self.telemetry.counters
+            counters.inc("forward_pair_layers", self._pair_layers)
+            counters.inc("forward_member_layers", len(self._layers) - self._pair_layers)
             if hasattr(self.module, "population_layout"):
                 # NatureCNN: the members' conv kernels laid out once a chunk
                 layout = self.module.population_layout(members)

@@ -306,6 +306,30 @@ def test_es_path_on_card_matches_cpu(cuda, path):
         torch.testing.assert_close(p_card, cpu.state.params_flat, rtol=0, atol=1e-4)
 
 
+def test_standard_generation_forms_no_member_stack_on_card(cuda):
+    """A mirrored standard generation at the humanoid cell's widths (376 →
+    256 → 256 → 17, dim 166,673), population 2048 in one chunk: the pair
+    form gathers the chunk's 1024 pair rows once (0.68 GB) and its dense
+    layers read them in place, so the card's peak stays below one (2048,
+    dim) member stack (1.37 GB), of which the member form held two."""
+    from estorch_tpu_torch import ES, DeviceAgent, MLPPolicy, SyntheticEnv, adam
+
+    es = ES(MLPPolicy, DeviceAgent(SyntheticEnv(), horizon=5), adam, population_size=2048,
+            sigma=0.02, device=cuda, table_size=1 << 22, telemetry=True,
+            policy_kwargs={"action_dim": 17, "hidden": (256, 256), "discrete": False},
+            optimizer_kwargs={"learning_rate": 1e-2})
+    assert es.spec.dim == 166_673 and es.engine.eval_chunk == 2048
+    torch.cuda.synchronize(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    es.train(1, verbose=False)
+    torch.cuda.synchronize(cuda)
+    member_stack = 2048 * es.spec.dim * 4
+    assert torch.cuda.max_memory_allocated(cuda) < member_stack
+    counters = es.obs.counters
+    assert (counters.get("forward_pair_layers"), counters.get("forward_member_layers")) == (3, 0)
+    assert np.isfinite(es.history[-1]["reward_mean"])
+
+
 @pytest.mark.parametrize("path", ["a_standard", "c_decomposed_bf16_kernel_update",
                                   "d_low_rank_bf16", "e_obs_norm_streamed"])
 def test_eval_chunk_matches_whole_population_on_card(cuda, path):
